@@ -1,0 +1,585 @@
+"""Simulation driver: config -> setup -> time loop.
+
+Port of the JAX package's single-device ``Driver`` (the reference's
+``Driver<dim>``, ``main.cc:199-1052``): builds the mesh/space/constraints,
+the NS operator, the GMG preconditioner (level operators in f32), the
+GMRES and Newton solvers wired through callbacks, then runs the
+CFL-controlled time loop with drag/lift/pressure-drop records and
+optional VTU output.
+
+Precision follows the reference layering: f64 outer solve, f32 multigrid
+levels, TF32 off.  Configuration keys this port does not cover yet raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from ns_gls_tpu_torch.config import Parameters
+from ns_gls_tpu_torch.fem import constraints as cstr
+from ns_gls_tpu_torch.fem.constraints import (
+    AffineConstraints,
+    ConstraintArrays,
+    distribute,
+)
+from ns_gls_tpu_torch.fem.space import FESpace
+from ns_gls_tpu_torch.fem.transfer import build_transfer, interpolate_to_coarse
+from ns_gls_tpu_torch.models import make_simulation
+from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+from ns_gls_tpu_torch.ops.time_integration import (
+    SolutionHistory,
+    make_time_integrator,
+    set_dt_history,
+)
+from ns_gls_tpu_torch.precond.gmg import PreconditionerGMG
+from ns_gls_tpu_torch.precond.jacobi import (
+    PreconditionerIdentity,
+    PreconditionerJacobi,
+)
+from ns_gls_tpu_torch.solvers.linear import (
+    LinearSolverDirect,
+    LinearSolverGMRES,
+)
+from ns_gls_tpu_torch.solvers.nonlinear import make_nonlinear_solver
+from ns_gls_tpu_torch.utils.device import resolve_device
+from ns_gls_tpu_torch.utils.logging import get_logger
+from ns_gls_tpu_torch.utils.timer import timer
+
+
+def pressure_pin_candidates(space) -> np.ndarray:
+    """Node indices at ROOT-mesh vertex positions, in lexicographic
+    position order.
+
+    The pressure pin must land on the SAME physical point on the fine
+    level and on every multigrid level (``main.cc:453-477`` pins the
+    coarse level; the fine level is pinned too, see ConstraintSetBuilder):
+    a fine pin whose position no level pins leaves the constant-pressure
+    mode inconsistently gauged between the system and the V-cycle.  Root
+    vertices persist on every refinement level and are
+    numbering-independent, so selecting by root-vertex position makes
+    every level agree."""
+    mesh = space.mesh
+    root = mesh
+    while root.prev is not None:
+        root = root.prev
+    rv = np.round(np.asarray(root.vertices, np.float64), 9)
+    rv = rv[np.lexsort(rv.T[::-1])]          # lexicographic by (x, y[, z])
+    pos = np.round(np.asarray(space.node_pos, np.float64), 9)
+    lut = {tuple(p): i for i, p in reversed(list(enumerate(pos)))}
+    return np.array(
+        [lut[tuple(p)] for p in rv if tuple(p) in lut], dtype=np.int64
+    )
+
+
+class ConstraintSetBuilder:
+    """Builds the reference's three constraint sets (``main.cc:258-310``):
+    - 'full'          : hom. DBCs + pressure pins + slip + periodic
+    - 'homogeneous'   : full + inhom.-DBC boundaries zeroed
+    - 'inhomogeneous' : full + inhom. DBC values at time t (rebuilt cheaply
+                        each step by swapping the inhom value vector)
+    """
+
+    def __init__(self, space: FESpace, bcs, dtype, device):
+        self.space = space
+        self.bcs = bcs
+        self.dtype = dtype
+        self.device = device
+        dim = space.dim
+        self.vel_comps = list(range(dim))
+
+        from ns_gls_tpu_torch.fem.hanging import hanging_node_constraints
+
+        hanging = hanging_node_constraints(space)
+
+        # all-Dirichlet problems have a floating constant-pressure mode:
+        # pin one pressure dof so every level's system is nonsingular
+        pin_pressure = not (
+            bcs.all_homogeneous_nbcs
+            or bcs.all_outflow_bcs_cut
+            or bcs.all_outflow_bcs_nitsche
+        )
+
+        def build(include_inhom_rows: bool):
+            b = AffineConstraints(space.n_nodes, dim + 1)
+            for bid in bcs.all_homogeneous_dbcs:
+                b.add_dirichlet(space.boundary_nodes([bid]), self.vel_comps)
+            for bid in bcs.all_homogeneous_nbcs:
+                b.add_dirichlet(space.boundary_nodes([bid]), [dim])
+            for bid in bcs.all_slip_bcs:
+                nodes, normals = space.boundary_node_normals([bid])
+                b.add_no_normal_flux(nodes, normals)
+            for b0, b1, direction in bcs.periodic_bcs:
+                na, nb = self._match_periodic(b0, b1, direction)
+                b.add_periodic(na, nb, list(range(dim + 1)))
+            if include_inhom_rows:
+                for bid, _fn in bcs.all_inhomogeneous_dbcs:
+                    b.add_dirichlet(space.boundary_nodes([bid]), self.vel_comps)
+            # hanging nodes last (reference order, ``main.cc:273-293``)
+            for node, masters, weights in hanging:
+                b.add_hanging_node(node, None, masters, weights)
+            if pin_pressure:
+                # positional choice (root-vertex order, see
+                # pressure_pin_candidates) so every MG level pins the
+                # same physical point under any node numbering
+                for n in pressure_pin_candidates(space):
+                    if not b.is_constrained(b.dof(int(n), dim)):
+                        b.add_line(b.dof(int(n), dim))
+                        break
+                else:
+                    for n in range(space.n_nodes):
+                        if not b.is_constrained(b.dof(n, dim)):
+                            b.add_line(b.dof(n, dim))
+                            break
+            return b
+
+        self.full = build(False).close(dtype, device)
+        self.homogeneous = build(True).close(dtype, device)
+
+        # inhomogeneous: same rows as homogeneous, but remember which rows
+        # belong to which (boundary fn, node, comp) for per-step updates
+        self._inhom_slots = []  # (fn, row_positions, nodes, comps)
+        rows_sorted = self.homogeneous.rows.cpu().numpy()
+        for bid, fn in bcs.all_inhomogeneous_dbcs:
+            nodes = space.boundary_nodes([bid])
+            for comp in self.vel_comps:
+                dofs = nodes.astype(np.int64) * (dim + 1) + comp
+                pos = np.searchsorted(rows_sorted, dofs)
+                ok = (pos < len(rows_sorted)) & (rows_sorted[np.minimum(
+                    pos, len(rows_sorted) - 1)] == dofs)
+                self._inhom_slots.append((fn, pos[ok], nodes[ok], comp))
+
+    def _match_periodic(self, b0, b1, direction):
+        sp = self.space
+        na = sp.boundary_nodes([b0])
+        nb = sp.boundary_nodes([b1])
+        key_dims = [d for d in range(sp.dim) if d != direction]
+        tol = max(self.space.mesh.cell_min_vertex_distance().min() / 64, 1e-12)
+
+        def keys(nodes):
+            k = np.round(sp.node_pos[nodes][:, key_dims] / tol).astype(np.int64)
+            return [tuple(row) for row in k]
+
+        map_a = dict(zip(keys(na), na))
+        pa, pb = [], []
+        for k, nb_i in zip(keys(nb), nb):
+            if k in map_a:
+                pa.append(nb_i)   # constrain side b
+                pb.append(map_a[k])
+        return np.array(pa), np.array(pb)
+
+    def inhomogeneous_at(self, t: float) -> ConstraintArrays:
+        """Constraint set with boundary values evaluated at time t
+        (``main.cc:925-942``)."""
+        inhom = np.zeros(self.homogeneous.rows.shape[0])
+        for fn, pos, nodes, comp in self._inhom_slots:
+            fn.set_time(t)
+            inhom[pos] = fn(self.space.node_pos[nodes], comp)
+        return self.homogeneous._replace(
+            inhom=torch.as_tensor(inhom, dtype=self.dtype, device=self.device)
+        )
+
+
+def _unsupported(p: Parameters) -> list[str]:
+    """Configuration keys this port does not cover yet."""
+    out = []
+    if p.n_devices != 1:
+        out.append(f"'n devices' = {p.n_devices} (sharding)")
+    if not p.use_matrix_free_ns_operator:
+        out.append("matrix-based operator")
+    if p.preconditioner not in ("GMG", "Jacobi", "identity"):
+        out.append(f"preconditioner '{p.preconditioner}'")
+    if p.linear_solver not in ("GMRES", "direct"):
+        out.append(f"linear solver '{p.linear_solver}'")
+    if p.nonlinear_solver != "Newton":
+        out.append(f"nonlinear solver '{p.nonlinear_solver}'")
+    if p.preconditioner == "GMG" and p.gmg.coarse_grid_solver not in (
+            "direct", "identity"):
+        out.append(f"GMG coarse grid solver '{p.gmg.coarse_grid_solver}'")
+    if p.checkpoint_prefix:
+        out.append("checkpoints")
+    return out
+
+
+class Driver:
+    def __init__(self, params: Parameters, device: str | torch.device = "cuda"):
+        missing = _unsupported(params)
+        if missing:
+            raise NotImplementedError(
+                "not ported yet: " + ", ".join(missing)
+            )
+        self.device = resolve_device(device)
+        # exact f32/f64 arithmetic: no TF32 anywhere
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.params = params
+        self.log = get_logger()
+        # per time step: Newton and GMRES iterations, seconds
+        self.step_stats = []
+        self._t0 = 0.0
+        self._counter0 = 1
+        self._restarted = False
+
+    # ------------------------------------------------------------------
+    def setup(self):
+        p = self.params
+        dev = self.device
+        dtype = p.dtype
+        mg_dtype = p.mg_dtype
+
+        with timer("setup::simulation"):
+            sim = make_simulation(p.simulation_name, p.dim)
+            # each case re-parses shared keys, like the reference's
+            # two-phase ParameterHandler parsing (``simulation.cc:233-289``)
+            sim.parse_parameters(
+                p.extra
+                | {
+                    "nu": p.nu,
+                    "paraview prefix": p.paraview_prefix,
+                    "output granularity": p.output_granularity,
+                    "fe degree": p.fe_degree,
+                    "mapping degree": p.mapping_degree,
+                }
+            )
+            self.sim = sim
+            self.mesh = sim.create_mesh(p.n_global_refinements)
+
+        bcs = sim.get_boundary_descriptor()
+        self.bcs = bcs
+        mapping_degree = sim.mapping_degree(p.fe_degree, p.mapping_degree)
+
+        with timer("setup::space"):
+            space = FESpace(self.mesh, p.fe_degree, mapping_degree)
+            self.space = space
+        self.log(
+            f"    [I] Number of active cells:    {self.mesh.n_cells}\n"
+            f"    [I] Global degrees of freedom: {space.n_nodes * (p.dim + 1)}"
+        )
+
+        with timer("setup::constraints"):
+            self.csets = ConstraintSetBuilder(space, bcs, dtype, dev)
+
+        self.time_integrator = make_time_integrator(
+            p.time_integration, p.bdf_order, p.theta
+        )
+        increment_form = p.nonlinear_solver == "Newton"
+
+        with timer("setup::operator"):
+            self.op = NavierStokesOperator(
+                space,
+                self.csets.homogeneous,
+                self.csets.full,
+                nu=p.nu,
+                c_1=p.c_1,
+                c_2=p.c_2,
+                time_integrator=self.time_integrator,
+                consider_time_derivative=p.consider_time_derivative,
+                increment_form=increment_form,
+                cell_wise_stabilization=p.cell_wise_stabilization,
+                outflow_bcs_cut=bcs.all_outflow_bcs_cut,
+                outflow_bcs_nitsche=bcs.all_outflow_bcs_nitsche,
+                dtype=dtype,
+                device=dev,
+            )
+            self.op.constraints_inhomogeneous = self.csets.inhomogeneous_at(0.0)
+
+        # ---- preconditioner ------------------------------------------------
+        self.mg_ops = []
+        self.mg_transfers = []
+        with timer("setup::preconditioner"):
+            if p.preconditioner == "GMG":
+                self._setup_gmg(bcs, mapping_degree, increment_form, mg_dtype)
+            elif p.preconditioner == "Jacobi":
+                self.preconditioner = PreconditionerJacobi(self.op)
+            else:
+                self.preconditioner = PreconditionerIdentity()
+
+        # ---- linear solver -------------------------------------------------
+        if p.linear_solver == "GMRES":
+            self.linear_solver = LinearSolverGMRES(
+                self.op, self.preconditioner,
+                p.lin_n_max_iterations, p.lin_absolute_tolerance,
+                p.lin_relative_tolerance, logger=self.log,
+            )
+        else:
+            self.linear_solver = LinearSolverDirect(self.op, logger=self.log)
+
+        # ---- nonlinear solver ----------------------------------------------
+        nl = make_nonlinear_solver(p.nonlinear_solver, p.newton_inexact,
+                                   p.nonlinear_tolerance,
+                                   p.nonlinear_tolerance_relative,
+                                   p.nonlinear_max_iterations)
+        nl.logger = self.log
+        nl.setup_jacobian = self._setup_jacobian
+        nl.setup_preconditioner = self._setup_preconditioner
+        nl.evaluate_residual = self.op.evaluate_residual
+        nl.solve_with_jacobian = self._solve_with_jacobian
+        self.nonlinear_solver = nl
+
+        # ---- state ----------------------------------------------------------
+        self.solution = SolutionHistory.zeros(
+            self.time_integrator.order + 1,
+            (space.n_nodes, p.dim + 1),
+            dtype,
+            dev,
+        )
+        self.solution.current = distribute(
+            self.op.constraints_inhomogeneous, self.solution.current
+        )
+        sim.setup_postprocess(space, p.nu, dev)
+
+    # ------------------------------------------------------------------
+    def _setup_gmg(self, bcs, mapping_degree, increment_form, mg_dtype):
+        """Geometric coarsening sequence (``main.cc:396-568``): the level
+        meshes are the refinement *generation chain* of the final mesh,
+        so MG transfers come straight from the stored parent maps."""
+        p = self.params
+        dev = self.device
+        meshes = [self.mesh]
+        while meshes[0].prev is not None:
+            meshes.insert(0, meshes[0].prev)
+        self.mg_spaces = []
+        self.mg_ops = []
+        for lvl, mesh_l in enumerate(meshes):
+            # "gmg coarse grid use fe q iso q1" (``main.cc:396-568``):
+            # coarsest-level operator on piecewise-Q1 shape functions over
+            # the same node lattice
+            iso = p.mg_use_fe_q_iso_q1 and lvl == 0 and mesh_l is not self.mesh
+            space_l = (
+                self.space if mesh_l is self.mesh
+                else FESpace(mesh_l, p.fe_degree, mapping_degree, iso_q1=iso)
+            )
+            self.mg_spaces.append(space_l)
+            cs = ConstraintSetBuilder(space_l, bcs, mg_dtype, dev)
+            # level operators use all-homogeneous constraints
+            # (``main.cc:509-529``: same set for all three slots)
+            ca = cs.homogeneous
+            if p.gmg_constraint_coarse_pressure_dof and lvl == 0:
+                ca = self._pin_coarse_pressure(space_l, ca)
+            op_l = NavierStokesOperator(
+                space_l, ca, ca,
+                nu=p.nu, c_1=p.c_1, c_2=p.c_2,
+                time_integrator=self.time_integrator,
+                consider_time_derivative=p.consider_time_derivative,
+                increment_form=increment_form,
+                cell_wise_stabilization=p.cell_wise_stabilization,
+                outflow_bcs_cut=bcs.all_outflow_bcs_cut,
+                outflow_bcs_nitsche=bcs.all_outflow_bcs_nitsche,
+                dtype=mg_dtype,
+                device=dev,
+            )
+            op_l.constraints_inhomogeneous = ca
+            self.mg_ops.append(op_l)
+
+        self.mg_transfers = [
+            build_transfer(self.mg_spaces[l], self.mg_spaces[l + 1], mg_dtype,
+                           dev)
+            for l in range(len(meshes) - 1)
+        ]
+        self.preconditioner = PreconditionerGMG(
+            self.mg_ops,
+            self.mg_transfers,
+            mg_dtype=mg_dtype,
+            smoothing_n_iterations=p.gmg.smoothing_n_iterations,
+            smoothing_range=p.gmg.smoothing_range,
+            smoothing_eig_n_iterations=p.gmg.smoothing_eig_cg_n_iterations,
+            coarse_grid_solver=p.gmg.coarse_grid_solver,
+            coarse_grid_iterate=p.gmg.coarse_grid_iterate,
+            coarse_grid_gmres_reltol=p.gmg.coarse_grid_gmres_reltol,
+            logger=self.log if p.gmg.output_details else None,
+        )
+
+    def _pin_coarse_pressure(self, space_l, ca: ConstraintArrays):
+        """Constrain one pressure dof on the level (``main.cc:453-477``),
+        chosen positionally (see pressure_pin_candidates)."""
+        dim = space_l.dim
+        rows = set(ca.rows.tolist())
+        cand = [int(n) * (dim + 1) + dim
+                for n in pressure_pin_candidates(space_l)]
+        if not cand:
+            cand = [dim]             # node 0's pressure dof (fallback)
+        if any(d in rows for d in cand):
+            return ca                # already gauged at a canonical point
+        b = AffineConstraints(space_l.n_nodes, dim + 1)
+        b.add_line(cand[0])
+        extra = b.close(ca.weights.dtype, ca.rows.device)
+        pad = ca.cols.shape[1]
+        return ConstraintArrays(
+            rows=torch.cat([ca.rows, extra.rows]),
+            cols=torch.cat([ca.cols, ca.cols.new_zeros((1, pad))]),
+            weights=torch.cat([ca.weights, ca.weights.new_zeros((1, pad))]),
+            inhom=torch.cat([ca.inhom, extra.inhom]),
+        )
+
+    # ------------------------------------------------------------------
+    # nonlinear solver callbacks (``main.cc:805-869``)
+    # ------------------------------------------------------------------
+    def _level_chain(self, v):
+        """Interpolation cascade fine -> all levels
+        (``interpolate_to_mg``, ``main.cc:789-795``)."""
+        out = [None] * len(self.mg_ops)
+        out[-1] = v.to(self.params.mg_dtype)
+        for l in range(len(self.mg_ops) - 2, -1, -1):
+            out[l] = interpolate_to_coarse(self.mg_transfers[l], out[l + 1])
+        return out
+
+    def _setup_jacobian(self, u):
+        with timer("setup_jacobian"):
+            self.op.set_linearization_point(u)
+
+    def _setup_preconditioner(self, u):
+        with timer("setup_preconditioner"):
+            if self.mg_ops:
+                for op_l, u_l in zip(self.mg_ops, self._level_chain(u)):
+                    op_l.set_linearization_point(u_l)
+            gran = self.params.preconditioner_update_granularity
+            if gran == "newton":
+                rebuild = True
+            else:
+                # "step" or "step:N": rebuild on the first Newton
+                # iteration of every Nth time step
+                every = int(gran.split(":")[1]) if ":" in gran else 1
+                stale = getattr(self, "_precond_stale", True)
+                count = getattr(self, "_precond_step_count", 0)
+                if stale:
+                    self._precond_step_count = count = count + 1
+                    self._precond_stale = False
+                rebuild = stale and (
+                    count % every == 1 or every == 1 or count == 1
+                )
+            if rebuild:
+                self.preconditioner.initialize()
+            self.linear_solver.initialize()
+
+    def _solve_with_jacobian(self, rhs):
+        """Constraint zeroing, the linear solve (tolerance relative to the
+        zeroed rhs) and the constraint distribution."""
+        with timer("solve_with_jacobian"):
+            ca = self.csets.homogeneous
+            x = self.linear_solver.solve(cstr.set_zero(ca, rhs))
+            self._step_linear_its += self.linear_solver.last_iterations
+            return cstr.distribute(ca, x, homogeneous=True)
+
+    def _set_previous_solution(self):
+        """(``main.cc:772-803``)  The levels get the interpolation chain
+        of the fine weighted history sum (interpolation is linear), plus a
+        chain of the last solution for theta tables."""
+        self.op.set_previous_solution(self.solution)
+        if not self.mg_ops or self.time_integrator.order == 0:
+            return
+        w = self.time_integrator.weights
+        vec_old = self.solution.weighted_old_sum(tuple(
+            torch.tensor(x, dtype=self.op.dtype, device=self.device)
+            for x in w
+        ))
+        vo = self._level_chain(vec_old)
+        uo = (self._level_chain(self.solution.vectors[1])
+              if self.mg_ops[0].theta != 1.0 else vo)
+        for op_l, v_l, u_l in zip(self.mg_ops, vo, uo):
+            op_l.set_previous_vectors(v_l, u_l)
+
+    # ------------------------------------------------------------------
+    def restart_from(self, vectors, dt_history, t: float, counter: int):
+        """Continue from a saved state: the solution history (host arrays,
+        newest first, in this space's node numbering), the integrator's
+        step-size history (newest first), the time reached and the next
+        cycle number.  Call after ``setup``."""
+        self.solution = SolutionHistory.from_numpy(
+            vectors, self.params.dtype, self.device
+        )
+        set_dt_history(self.time_integrator, dt_history)
+        self._t0 = float(t)
+        self._counter0 = int(counter)
+        self._restarted = True
+
+    def run(self, max_steps: int = 10**9):
+        p = self.params
+        if not getattr(self, "_setup_done", False):
+            self.setup()
+            self._setup_done = True
+        t = self._t0
+        counter = self._counter0
+        min_dx = self.mesh.minimal_cell_diameter()
+        records = []
+
+        if not self._restarted:
+            self._output(t)
+            rec = self.sim.postprocess(t, self.solution.current)
+            if rec:
+                records.append(rec)
+
+        while t < p.t_final and counter <= max_steps:
+            t_step = _time.perf_counter()
+            self._step_linear_its = 0
+            with timer("loop"):
+                u_max = self.op.get_max_u(self.solution.current)
+                dt = (
+                    p.dt
+                    if p.dt != 0.0
+                    else min_dx * p.cfl / max(u_max, self.sim.get_u_max())
+                )
+                self.log(
+                    f"\ncycle\t{counter} at time t = {t:.6g} with delta_t ="
+                    f" {dt:.6g} and u_max = {u_max:.6g}"
+                )
+
+                # time-dependent inhomogeneous DBCs at (old) time t
+                self.op.constraints_inhomogeneous = (
+                    self.csets.inhomogeneous_at(t)
+                )
+                self.time_integrator.update_dt(dt)
+                self.op.invalidate_system()
+                for op_l in self.mg_ops:
+                    op_l.invalidate_system()
+                    op_l.update_weight()
+                self.op.update_weight()
+
+                self.solution.commit()
+                self._set_previous_solution()
+                self._precond_stale = True  # per-step precond granularity
+
+                new_u = self.nonlinear_solver.solve(self.solution.current)
+
+                new_u = distribute(self.op.constraints_inhomogeneous, new_u)
+                new_u = distribute(self.csets.full, new_u)
+                self.solution.current = new_u
+
+                norm = float(torch.linalg.vector_norm(new_u))
+                self.log(f"    [S] l2-norm of solution: {norm:.8g}")
+
+                t += dt
+                self._output(t)
+                rec = self.sim.postprocess(t, self.solution.current)
+                if rec:
+                    records.append(rec)
+                counter += 1
+            self.step_stats.append(dict(
+                newton=self.nonlinear_solver.last_iterations,
+                newton_residual=self.nonlinear_solver.last_residual,
+                gmres=self._step_linear_its,
+                seconds=_time.perf_counter() - t_step,
+            ))
+            if self.time_integrator.order == 0:
+                break
+
+        return records
+
+    # ------------------------------------------------------------------
+    _output_counter = 0
+
+    def _output(self, t, force=False):
+        p = self.params
+        if p.output_granularity <= 0 and not force:
+            return
+        if (not force) and (t + 1e-15) < self._output_counter * p.output_granularity:
+            return
+        from ns_gls_tpu_torch.utils.vtu import write_vtu
+
+        fname = f"{p.paraview_prefix}.{self._output_counter}.vtu"
+        with timer("postprocess::vtu"):
+            write_vtu(fname, self.space, self.solution.current.cpu().numpy())
+        self.log(f"    [O] output VTU ({fname})")
+        self._output_counter += 1

@@ -1,0 +1,195 @@
+"""Geometric multigrid preconditioner (global-coarsening flavor).
+
+Port of the reference ``PreconditionerGMG`` (``multigrid.{h,cc}``, driver
+setup ``main.cc:396-568``):
+
+- V-cycle over the uniform-refinement hierarchy, level operators in reduced
+  precision (MGNumber=float, ``config.h:7``; f32 by default),
+- point-Jacobi relaxation smoother, `n_iterations` sweeps, damping from a
+  power-iteration eigenvalue estimate with `smoothing_range`
+  (deal.II ``PreconditionRelaxation``; ``multigrid.cc:281-305,353-370``),
+- coarse solver: dense LU in f64 ("direct", replaces Trilinos
+  SolverDirect) or "identity", optionally iterated by GMRES on the coarse
+  level operator (``multigrid.cc:490-532``); the float<->double shim of
+  ``multigrid.cc:113-136`` becomes dtype casts around the coarse solve.
+
+The V-cycle runs on flat (n_l*C,) vectors between the operator and
+transfer calls, as the JAX reference does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ns_gls_tpu_torch.fem import transfer as tr
+
+
+def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
+    """Start vector of the power iteration on ``level``: normal samples
+    from ``numpy.random.default_rng(31 + level)``."""
+    rng = np.random.default_rng(31 + level)
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                           device=device)
+
+
+class PreconditionerGMG:
+    def __init__(
+        self,
+        level_ops: list,          # NavierStokesOperator per level, coarse->fine
+        transfers: list,          # TwoLevelTransfer per gap
+        mg_dtype=torch.float32,
+        smoothing_n_iterations: int = 5,
+        smoothing_range: float = 20.0,
+        smoothing_eig_n_iterations: int = 20,
+        coarse_grid_solver: str = "direct",
+        coarse_grid_iterate: bool = False,
+        coarse_grid_gmres_reltol: float = 1e-4,
+        logger=None,
+    ):
+        if coarse_grid_solver not in ("direct", "identity"):
+            raise NotImplementedError(
+                f"GMG coarse grid solver '{coarse_grid_solver}' is not "
+                "ported yet (direct and identity are)"
+            )
+        self.level_ops = level_ops
+        self.transfers = tuple(transfers)
+        self.mg_dtype = mg_dtype
+        self.n_smooth = smoothing_n_iterations
+        self.smoothing_range = smoothing_range
+        self.eig_n_iterations = smoothing_eig_n_iterations
+        self.coarse_grid_solver = coarse_grid_solver
+        self.coarse_grid_iterate = coarse_grid_iterate
+        self.coarse_grid_gmres_reltol = coarse_grid_gmres_reltol
+        self.logger = logger
+        self.n_levels = len(level_ops)
+        # level 0's smoother state is used only when the coarse solve
+        # applies the level-0 operator (iterated) or there is one level
+        self._needs_level0_args = bool(
+            coarse_grid_iterate and coarse_grid_solver != "identity"
+        ) or self.n_levels == 1
+        # start vectors of the power iteration: (level, shape, dtype,
+        # device) -> tensor; replaceable, so that a comparison can feed
+        # the same start vectors to another implementation
+        self.power_start = power_start_vector
+        self.inv_diags = None
+        self.omegas = None
+        self.coarse_lu = None
+
+    # ------------------------------------------------------------------
+    def _estimate_omega(self, level: int, inv_diag):
+        """Power iteration for lambda_max(D^{-1} A); relaxation =
+        2 / (lambda_max * (1 + 1/smoothing_range)) — deal.II
+        PreconditionRelaxation semantics (``multigrid.cc:281-305``).
+        Returns the factor as a 0-dim tensor (no host sync)."""
+        op = self.level_ops[level]
+        v = self.power_start(level, tuple(inv_diag.shape), inv_diag.dtype,
+                             inv_diag.device)
+        v = v / torch.linalg.vector_norm(v)
+        lam = torch.ones((), dtype=v.dtype, device=v.device)
+        for _ in range(self.eig_n_iterations):
+            w = inv_diag * op.vmult(v)
+            lam = torch.linalg.vector_norm(w)
+            v = w / lam
+        lam_max = 1.2 * lam  # deal.II-style safety factor on the estimate
+        lam_min = lam_max / self.smoothing_range
+        return 2.0 / (lam_min + lam_max)
+
+    def initialize(self):
+        """Recompute the smoother state (inverse diagonals, relaxation
+        factors) and the coarse factorization (per Newton step,
+        ``setup_preconditioner``, ``main.cc:815-839``)."""
+        from ns_gls_tpu_torch.ops.assembly import (
+            assemble_dense,
+            compute_inverse_diagonal,
+        )
+        from ns_gls_tpu_torch.utils.timer import timer
+
+        inv_diags, omegas = [], []
+        with timer("mg_init::smoother_state"):
+            for lvl in range(self.n_levels):
+                if lvl == 0 and not self._needs_level0_args:
+                    inv_diags.append(None)
+                    omegas.append(None)
+                    continue
+                dinv = compute_inverse_diagonal(self.level_ops[lvl])
+                inv_diags.append(dinv)
+                omegas.append(self._estimate_omega(lvl, dinv))
+        self.inv_diags = inv_diags
+        self.omegas = omegas
+
+        self.coarse_lu = None
+        if self.coarse_grid_solver == "direct":
+            op0 = self.level_ops[0]
+            n_coarse = op0.n_nodes * op0.n_comp
+            if n_coarse > 8000:
+                raise NotImplementedError(
+                    f"dense coarse LU for {n_coarse} dofs; the AMG coarse "
+                    "solver for large coarse levels is not ported yet"
+                )
+            with timer("mg_init::coarse_lu"):
+                A = assemble_dense(op0)
+                self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))
+
+        if self.logger:
+            for lvl, om in enumerate(omegas):
+                if om is not None:
+                    self.logger(
+                        f"    [M]  - level: {lvl}, omega: {float(om):.4f}"
+                    )
+
+    # ------------------------------------------------------------------
+    def _coarse_apply(self, r):
+        """One application of the coarse preconditioner (dense LU)."""
+        if self.coarse_grid_solver == "identity" or self.coarse_lu is None:
+            return r
+        lu, piv = self.coarse_lu
+        x = torch.linalg.lu_solve(lu, piv, r.reshape(-1, 1).to(lu.dtype))
+        return x.reshape(r.shape).to(r.dtype)
+
+    def _coarse_solve(self, r):
+        if not self.coarse_grid_iterate or self.coarse_grid_solver == "identity":
+            return self._coarse_apply(r)
+        # iterative coarse solve: GMRES on the coarse level operator
+        # preconditioned by the LU (``multigrid.cc:490-532``)
+        from ns_gls_tpu_torch.solvers.linear import gmres
+
+        tol = self.coarse_grid_gmres_reltol * torch.linalg.vector_norm(r)
+        res = gmres(self.level_ops[0].vmult, r, torch.zeros_like(r),
+                    M=self._coarse_apply, tol=tol, restart=30,
+                    max_restarts=10)
+        return res.x
+
+    def _smooth(self, level: int, x, b):
+        """Damped Jacobi sweeps on flat level vectors."""
+        op = self.level_ops[level]
+        shp = (op.n_nodes, op.n_comp)
+        inv_df = self.inv_diags[level].reshape(-1)
+        om = self.omegas[level]
+        for _ in range(self.n_smooth):
+            Av = op.vmult(x.reshape(shp)).reshape(-1)
+            x = x + om * inv_df * (b - Av)
+        return x
+
+    def _vcycle(self, level: int, b):
+        op = self.level_ops[level]
+        shp = (op.n_nodes, op.n_comp)
+        if level == 0:
+            return self._coarse_solve(b.reshape(shp)).reshape(-1)
+        # pre-smooth from zero initial guess
+        x = self._smooth(level, torch.zeros_like(b), b)
+        d = b - op.vmult(x.reshape(shp)).reshape(-1)
+        d_c = tr.restrict(self.transfers[level - 1], d.reshape(shp))
+        x_c = self._vcycle(level - 1, d_c.reshape(-1))
+        op_c = self.level_ops[level - 1]
+        x = x + tr.prolongate(
+            self.transfers[level - 1],
+            x_c.reshape(op_c.n_nodes, op_c.n_comp),
+        ).reshape(-1)
+        return self._smooth(level, x, b)
+
+    def vmult(self, src):
+        if self.inv_diags is None:
+            self.initialize()
+        x = self._vcycle(self.n_levels - 1, src.to(self.mg_dtype).reshape(-1))
+        return x.reshape(src.shape).to(src.dtype)

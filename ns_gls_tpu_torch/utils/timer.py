@@ -1,0 +1,108 @@
+"""Hierarchical wall-time accounting (observability layer).
+
+Equivalent of the reference's scope-timer stack (``timer.h``:
+MyTimerOutput/MyScope/ScopedName/TimerCollection): RAII scopes build
+``parent::child`` labels from a path stack, a registry accumulates
+min/max/avg wall times, and a table is printed at the end of a run.
+Device work inside a top-level scope is synchronized on exit
+(``torch.cuda.synchronize``) so times are honest.  For kernel-level
+traces, wrap runs in ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import defaultdict
+
+
+class TimerCollection:
+    """Global registry of path-labelled wall-time accumulators
+    (``timer.h:194-253``)."""
+
+    def __init__(self):
+        import os
+
+        self._data = defaultdict(lambda: [0, 0.0, float("inf"), 0.0])
+        self._path = threading.local()
+        self.sync = True
+        # fence depth: default "top" fences only top-level scopes (the
+        # "loop" scope that seconds per step read), so nested attribution
+        # adds no synchronization; NS_TIMER_FENCE=all fences every scope,
+        # =off none
+        mode = os.environ.get("NS_TIMER_FENCE", "top")
+        self.fence_depth = (
+            10**9 if mode == "all" else 0 if mode == "off" else 1
+        )
+
+    @staticmethod
+    def _fence():
+        """Device completion barrier: wait for the work queued on the
+        current CUDA device (a no-op without a card)."""
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def _stack(self):
+        if not hasattr(self._path, "stack"):
+            self._path.stack = []
+        return self._path.stack
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        stack = self._stack()
+        stack.append(name)
+        label = "::".join(stack)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.sync and len(stack) <= self.fence_depth:
+                self._fence()
+            dt = time.perf_counter() - t0
+            rec = self._data[label]
+            rec[0] += 1
+            rec[1] += dt
+            rec[2] = min(rec[2], dt)
+            rec[3] = max(rec[3], dt)
+            stack.pop()
+
+    def reset(self):
+        self._data.clear()
+
+    def table(self) -> str:
+        if not self._data:
+            return "(no timers recorded)"
+        w = max(len(k) for k in self._data) + 2
+        lines = [
+            f"{'scope'.ljust(w)} {'n':>6} {'total[s]':>10} {'avg[s]':>10}"
+            f" {'min[s]':>10} {'max[s]':>10}"
+        ]
+        for k in sorted(self._data):
+            n, tot, mn, mx = self._data[k]
+            lines.append(
+                f"{k.ljust(w)} {n:>6} {tot:>10.4f} {tot / n:>10.4f}"
+                f" {mn:>10.4f} {mx:>10.4f}"
+            )
+        return "\n".join(lines)
+
+    def print_all(self):
+        print(self.table(), flush=True)
+
+
+_collection = TimerCollection()
+
+
+def timer(name: str):
+    """``with timer("a"): ... with timer("b")`` records scope ``a::b``."""
+    return _collection.scope(name)
+
+
+def get_collection() -> TimerCollection:
+    return _collection
+
+
+def print_wall_time_statistics():
+    _collection.print_all()
