@@ -6,7 +6,8 @@
 // PSPG + grad-div at one quadrature point, in the fixed-point, residual
 // and Newton-increment flavors, and the stabilization parameters
 // delta_1 / delta_2 (cell-wise with the viscous switch, or per q-point).
-// Everything is float32 and lives in registers.
+// Everything is float32 and lives in registers; the physics is one
+// template over the dimension (gls_physics<2> / <3>).
 #pragma once
 
 #ifndef GLS_HD
@@ -41,54 +42,70 @@ GLS_HD void gls_delta_q(const GlsScalars& sc, float hq, float usq,
   d2 = sqrtf(u2) * hq * 0.5f;
 }
 
-// 2D GLS physics at one q-point.
+// GLS physics at one q-point in D = 2 or 3 dimensions.
 //   u[a], ug[a][x] = du_a/dx_x, p, pg[x]   : the function being applied
 //   us[a], gus[a][b], gps[x]               : linearization point u*, grads
 //   dto[a]                                  : history sum_i>=1 w_i u^(n-i)
 //   has_dt_old                              : the history term is present
-// out: vr[c] (value test-function weights), gr[c][x] (gradient weights).
-GLS_HD void gls_physics_2d(int flavor, bool consider_dt, bool has_dt_old,
-                           const GlsScalars& sc, const float u[2],
-                           const float ug[2][2], float p, const float pg[2],
-                           const float us[2], const float gus[2][2],
-                           const float gps[2], const float dto[2], float d1,
-                           float d2, float vr[3], float gr[3][2]) {
+// out: vr[c] (value test-function weights), gr[c][x] (gradient weights),
+// c = 0..D (velocity components, then pressure).
+template <int D>
+GLS_HD void gls_physics(int flavor, bool consider_dt, bool has_dt_old,
+                        const GlsScalars& sc, const float u[D],
+                        const float ug[D][D], float p, const float pg[D],
+                        const float us[D], const float gus[D][D],
+                        const float gps[D], const float dto[D], float d1,
+                        float d2, float vr[D + 1], float gr[D + 1][D]) {
   const float w = sc.weight;
   const float nu = sc.nu;
-  float udt[2] = {w * u[0], w * u[1]};
-  const float div = ug[0][0] + ug[1][1];
-  float res0[2];
+  float udt[D];
+  float div = ug[0][0];
+#pragma unroll
+  for (int a = 0; a < D; ++a) udt[a] = w * u[a];
+#pragma unroll
+  for (int a = 1; a < D; ++a) div += ug[a][a];
+  float res0[D];
   if (flavor != GLS_INCREMENT) {
     if (flavor == GLS_RESIDUAL && has_dt_old) {
-      udt[0] += dto[0];
-      udt[1] += dto[1];
+#pragma unroll
+      for (int a = 0; a < D; ++a) udt[a] += dto[a];
     }
-    float sgb[2];
+    float sgb[D];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) sgb[a] = ug[a][0] * us[0] + ug[a][1] * us[1];
+    for (int a = 0; a < D; ++a) {
+      sgb[a] = ug[a][0] * us[0];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+      for (int b = 1; b < D; ++b) sgb[a] += ug[a][b] * us[b];
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
       vr[a] = udt[a] + sgb[a];
       const float pspg = consider_dt ? udt[a] : 0.0f;
       res0[a] = d1 * (pspg + pg[a] + sgb[a]);
     }
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < D; ++a)
 #pragma unroll
-      for (int x = 0; x < 2; ++x)
+      for (int x = 0; x < D; ++x)
         gr[a][x] = nu * (ug[a][x] + ug[x][a]) + res0[a] * us[x] +
                    ((a == x) ? (d2 * div - p) : 0.0f);
   } else {
-    float sgu[2], ugs[2], sgs[2];
+    float sgu[D], ugs[D], sgs[D];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      sgu[a] = ug[a][0] * us[0] + ug[a][1] * us[1];
-      ugs[a] = gus[a][0] * u[0] + gus[a][1] * u[1];
-      sgs[a] = gus[a][0] * us[0] + gus[a][1] * us[1];
+    for (int a = 0; a < D; ++a) {
+      sgu[a] = ug[a][0] * us[0];
+      ugs[a] = gus[a][0] * u[0];
+      sgs[a] = gus[a][0] * us[0];
+#pragma unroll
+      for (int b = 1; b < D; ++b) {
+        sgu[a] += ug[a][b] * us[b];
+        ugs[a] += gus[a][b] * u[b];
+        sgs[a] += gus[a][b] * us[b];
+      }
     }
-    float res1[2];
+    float res1[D];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
+    for (int a = 0; a < D; ++a) {
       vr[a] = udt[a] + sgu[a] + ugs[a];
       const float pspg0 = consider_dt ? udt[a] : 0.0f;
       const float pspg1 = consider_dt ? (w * us[a] + dto[a]) : 0.0f;
@@ -96,13 +113,13 @@ GLS_HD void gls_physics_2d(int flavor, bool consider_dt, bool has_dt_old,
       res1[a] = d1 * (pspg1 + gps[a] + sgs[a]);
     }
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+    for (int a = 0; a < D; ++a)
 #pragma unroll
-      for (int x = 0; x < 2; ++x)
+      for (int x = 0; x < D; ++x)
         gr[a][x] = nu * (ug[a][x] + ug[x][a]) + res0[a] * us[x] +
                    res1[a] * u[x] + ((a == x) ? (d2 * div - p) : 0.0f);
   }
-  vr[2] = div;
-  gr[2][0] = res0[0];
-  gr[2][1] = res0[1];
+  vr[D] = div;
+#pragma unroll
+  for (int x = 0; x < D; ++x) gr[D][x] = res0[x];
 }

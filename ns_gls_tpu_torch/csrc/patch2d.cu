@@ -205,7 +205,7 @@ patch2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     float vr[3], gr[3][2];
     const float uvel[2] = {uv[0], uv[1]};
     const float us[2] = {lv[0], lv[1]};
-    gls_physics_2d(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug, uv[2],
+    gls_physics<2>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug, uv[2],
                    pg, us, gus, gps, dto, d1, d2, vr, gr);
 
     const float w = jw[q];

@@ -197,7 +197,7 @@ def _unsupported(p: Parameters) -> list[str]:
     if p.nonlinear_solver != "Newton":
         out.append(f"nonlinear solver '{p.nonlinear_solver}'")
     if p.preconditioner == "GMG" and p.gmg.coarse_grid_solver not in (
-            "direct", "identity"):
+            "direct", "AMG", "identity"):
         out.append(f"GMG coarse grid solver '{p.gmg.coarse_grid_solver}'")
     if p.checkpoint_prefix:
         out.append("checkpoints")
@@ -389,6 +389,9 @@ class Driver:
             coarse_grid_solver=p.gmg.coarse_grid_solver,
             coarse_grid_iterate=p.gmg.coarse_grid_iterate,
             coarse_grid_gmres_reltol=p.gmg.coarse_grid_gmres_reltol,
+            coarse_amg_default_parameters=(
+                p.gmg.coarse_grid_amg_default_parameters
+            ),
             logger=self.log if p.gmg.output_details else None,
         )
 

@@ -16,10 +16,11 @@ The computational core — the port of the reference's
   (``compute_penalty_parameters``, ``operator_ns.cc:322-526``).
 
 Layout: cells are the leading (batch) axis; basis contractions are
-einsums over the cell batch.  On patch-2D spaces in f32 with a BDF or
-stationary integrator the whole sweep is the fused patch kernel
-(``ops/patch2d.py``, CUDA on the card); everything else runs the general
-gather sweep below.  The weak-outflow face terms of the reference are
+einsums over the cell batch.  In f32 with a BDF or stationary integrator
+the whole sweep is a fused kernel (CUDA on the card): the patch kernel on
+patch-2D spaces (``ops/patch2d.py``) and the prism kernel on extruded 3D
+spaces (``ops/prism.py``); everything else runs the general gather sweep
+below.  The weak-outflow face terms of the reference are
 not ported yet.
 
 State updates replace the ``state`` tuple with new tensors (as the JAX
@@ -66,8 +67,8 @@ class NSState(NamedTuple):
       fields have extent 0,
     - fused: only the *vectors* (u_lin, vec_old, u_old) are stored and the
       q-point tables are recomputed inside the sweep; the table fields
-      have q-extent 0.  The patch-2D sweep also keeps the patch-gathered
-      views ``u_linT`` / ``vec_oldT``.
+      have q-extent 0.  The patch-2D and prism sweeps also keep the
+      patch-gathered views ``u_linT`` / ``vec_oldT``.
     """
 
     weight: torch.Tensor        # () primary BDF/theta weight
@@ -83,8 +84,9 @@ class NSState(NamedTuple):
     u_lin: torch.Tensor         # (n_nodes, C) fused mode, else (0, C)
     vec_old: torch.Tensor       # (n_nodes, C) fused mode, else (0, C)
     u_old: torch.Tensor         # (n_nodes, C) fused theta mode, else (0, C)
-    u_linT: torch.Tensor        # patch-2D: (C, n_patches, Yn, Xn), else (0,)
-    vec_oldT: torch.Tensor      # patch-2D: (d, n_patches, Yn, Xn), else (0,)
+    u_linT: torch.Tensor        # patch-2D: (C, n_patches, Yn, Xn); prism:
+    #                             (C, n_patches, Yn, Xn, Nzn); else (0,)
+    vec_oldT: torch.Tensor      # the same with lead d
 
 
 # --------------------------------------------------------------------------
@@ -127,8 +129,9 @@ class NavierStokesOperator:
     ``get_max_u``, ``invalidate_system``; diagonals and assembled matrices
     are in ``ops/assembly.py``.
 
-    ``use_structured`` admits the fused patch-2D sweep where the
-    configuration allows it (patch-2D space, f32, theta = 1); it is on by
+    ``use_structured`` admits the fused patch-2D or prism sweep where the
+    configuration allows it (patch-2D or extruded 3D space, f32,
+    theta = 1); it is on by
     default and the tests switch it off to hold the two sweeps against
     each other.
     """
@@ -210,6 +213,19 @@ class NavierStokesOperator:
             if tables is not None:
                 self.fuse_tables = True
                 self._p2sweep = Patch2DSweep(self, tables)
+        # fused prism sweep (ops/prism.py) on extruded 3D meshes, the
+        # Turek/Hoffmann 3D family; the same forcing of fused tables
+        self._psweep = None
+        if use_structured and space.dim == 3:
+            from ns_gls_tpu_torch.ops.prism import (
+                PrismSweep,
+                build_prism_tables,
+            )
+
+            tables = build_prism_tables(self)
+            if tables is not None:
+                self.fuse_tables = True
+                self._psweep = PrismSweep(self, tables)
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -269,9 +285,23 @@ class NavierStokesOperator:
 
     def _fast_path_view_shape(self, lead: int):
         """Shape of the patch-gathered linearization views."""
-        if self._p2sweep is not None:
-            return self._p2sweep.view_shape(lead)
-        return (0,)
+        sw = self._fast_sweep
+        return sw.view_shape(lead) if sw is not None else (0,)
+
+    @property
+    def _fast_sweep(self):
+        """The fused sweep this operator runs (patch-2D or prism), or
+        None for the general sweep."""
+        return self._p2sweep if self._p2sweep is not None else self._psweep
+
+    def _fast_gather(self, v, lead: int):
+        """Patch tiles of the first ``lead`` components of a node-major
+        vector (n_nodes, C), for the fused sweep."""
+        vT = v[:, :lead].T
+        if self._psweep is not None:
+            sw = self._psweep
+            return sw.gather(vT.reshape(lead, sw.n2d, sw.Nzn))
+        return self._p2sweep.gather(vT)
 
     # ------------------------------------------------------------------
     # q-point physics (shape-agnostic over leading dims (..., n_q))
@@ -428,6 +458,16 @@ class NavierStokesOperator:
                       state.u_linT, state.vec_oldT, flavor)
         return r2.T
 
+    def _prism_apply(self, state: NSState, u_eff, flavor: str):
+        """Fused prism sweep (ops/prism.py): product-layout view
+        (C, n2d, Nzn) in/out; u is patch-gathered here, the linearization
+        tensors are pre-gathered in the state."""
+        sw = self._psweep
+        r2d = sw.apply(self._weight_host, self._stau_host,
+                       self._fast_gather(u_eff, self.n_comp), state.u_linT,
+                       state.vec_oldT, flavor)
+        return r2d.reshape(self.n_comp, -1).T
+
     def _cell_sweep(self, b: CellBatch, state: NSState, u,
                     residual_form: bool):
         """The general sweep: gather -> evaluate -> physics -> integrate
@@ -458,9 +498,11 @@ class NavierStokesOperator:
         return r
 
     def _sweep(self, u, residual_form: bool):
-        if self._p2sweep is not None:
+        if self._fast_sweep is not None:
             flavor = ("residual" if residual_form
                       else "increment" if self.increment_form else "fixed")
+            if self._psweep is not None:
+                return self._prism_apply(self.state, u, flavor)
             return self._patch2d_apply(self.state, u, flavor)
         return self._cell_sweep(self.batch, self.state, u, residual_form)
 
@@ -506,8 +548,8 @@ class NavierStokesOperator:
         d = self.dim
         if self.fuse_tables:
             new = state._replace(u_lin=u)
-            if self._p2sweep is not None:
-                new = new._replace(u_linT=self._p2sweep.gather(u.T))
+            if self._fast_sweep is not None:
+                new = new._replace(u_linT=self._fast_gather(u, self.n_comp))
             if self.cell_wise_stabilization:
                 u_loc = u[batch.cell_nodes][..., :d]
                 u_star = torch.einsum("qi,eic->eqc", batch.S, u_loc)
@@ -558,10 +600,8 @@ class NavierStokesOperator:
         d = self.dim
         if self.fuse_tables:
             new = state._replace(vec_old=vec_old)
-            if self._p2sweep is not None:
-                new = new._replace(
-                    vec_oldT=self._p2sweep.gather(vec_old[:, :d].T)
-                )
+            if self._fast_sweep is not None:
+                new = new._replace(vec_oldT=self._fast_gather(vec_old, d))
             if self.theta != 1.0:
                 new = new._replace(u_old=u_old)
             return new

@@ -8,9 +8,12 @@ setup ``main.cc:396-568``):
 - point-Jacobi relaxation smoother, `n_iterations` sweeps, damping from a
   power-iteration eigenvalue estimate with `smoothing_range`
   (deal.II ``PreconditionRelaxation``; ``multigrid.cc:281-305,353-370``),
-- coarse solver: dense LU in f64 ("direct", replaces Trilinos
-  SolverDirect) or "identity", optionally iterated by GMRES on the coarse
-  level operator (``multigrid.cc:490-532``); the float<->double shim of
+- coarse solver: dense LU in f64 ("direct" on coarse levels of at most
+  8000 DoFs, replaces Trilinos SolverDirect), aggregation AMG
+  (``precond/amg.py``; "AMG", or "direct" on larger coarse levels, the
+  reference's coarse AMG ``multigrid.cc:372-433``) or "identity",
+  optionally iterated by GMRES on the coarse level operator
+  (``multigrid.cc:490-532``); the float<->double shim of
   ``multigrid.cc:113-136`` becomes dtype casts around the coarse solve.
 
 The V-cycle runs on flat (n_l*C,) vectors between the operator and
@@ -45,12 +48,13 @@ class PreconditionerGMG:
         coarse_grid_solver: str = "direct",
         coarse_grid_iterate: bool = False,
         coarse_grid_gmres_reltol: float = 1e-4,
+        coarse_amg_default_parameters: bool = True,
         logger=None,
     ):
-        if coarse_grid_solver not in ("direct", "identity"):
+        if coarse_grid_solver not in ("direct", "AMG", "identity"):
             raise NotImplementedError(
                 f"GMG coarse grid solver '{coarse_grid_solver}' is not "
-                "ported yet (direct and identity are)"
+                "ported yet (direct, AMG and identity are)"
             )
         self.level_ops = level_ops
         self.transfers = tuple(transfers)
@@ -61,6 +65,7 @@ class PreconditionerGMG:
         self.coarse_grid_solver = coarse_grid_solver
         self.coarse_grid_iterate = coarse_grid_iterate
         self.coarse_grid_gmres_reltol = coarse_grid_gmres_reltol
+        self.coarse_amg_default_parameters = coarse_amg_default_parameters
         self.logger = logger
         self.n_levels = len(level_ops)
         # level 0's smoother state is used only when the coarse solve
@@ -75,6 +80,7 @@ class PreconditionerGMG:
         self.inv_diags = None
         self.omegas = None
         self.coarse_lu = None
+        self.coarse_amg = None
 
     # ------------------------------------------------------------------
     def _estimate_omega(self, level: int, inv_diag):
@@ -119,17 +125,28 @@ class PreconditionerGMG:
         self.omegas = omegas
 
         self.coarse_lu = None
-        if self.coarse_grid_solver == "direct":
-            op0 = self.level_ops[0]
-            n_coarse = op0.n_nodes * op0.n_comp
-            if n_coarse > 8000:
-                raise NotImplementedError(
-                    f"dense coarse LU for {n_coarse} dofs; the AMG coarse "
-                    "solver for large coarse levels is not ported yet"
-                )
+        op0 = self.level_ops[0]
+        n_coarse = op0.n_nodes * op0.n_comp
+        if self.coarse_grid_solver == "direct" and n_coarse <= 8000:
             with timer("mg_init::coarse_lu"):
                 A = assemble_dense(op0)
                 self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))
+        elif self.coarse_grid_solver in ("direct", "AMG"):
+            # large coarse levels / AMG requests: aggregation AMG on the
+            # assembled coarse matrix with a matrix-free level 0; "use
+            # default parameters" false = the reference's tuned ML set
+            # (``multigrid.cc:398-433``) -> stronger aggregation
+            from ns_gls_tpu_torch.precond.amg import PreconditionerAMG
+
+            if self.coarse_amg is None:
+                kw = ({} if self.coarse_amg_default_parameters
+                      else {"theta": 0.02, "n_smooth": 3,
+                            "max_coarse": 1000})
+                self.coarse_amg = PreconditionerAMG(
+                    op0, matrix_free_fine=True, **kw
+                )
+            with timer("mg_init::coarse_amg"):
+                self.coarse_amg.initialize()
 
         if self.logger:
             for lvl, om in enumerate(omegas):
@@ -140,9 +157,12 @@ class PreconditionerGMG:
 
     # ------------------------------------------------------------------
     def _coarse_apply(self, r):
-        """One application of the coarse preconditioner (dense LU)."""
-        if self.coarse_grid_solver == "identity" or self.coarse_lu is None:
+        """One application of the coarse preconditioner (dense LU or an
+        AMG V-cycle)."""
+        if self.coarse_grid_solver == "identity":
             return r
+        if self.coarse_lu is None:
+            return self.coarse_amg.vmult(r)
         lu, piv = self.coarse_lu
         x = torch.linalg.lu_solve(lu, piv, r.reshape(-1, 1).to(lu.dtype))
         return x.reshape(r.shape).to(r.dtype)

@@ -137,6 +137,35 @@ def test_restart_from_jax_state(jax_run):
     _check_records(recs_t, recs_j[-1:])
 
 
+@pytest.mark.slow
+def test_turek3d_ref0_against_stored_series():
+    """The 3D slice end to end on the CPU: ``input/turek_3d_re100.json``
+    at refinement 0 (16,704 DoFs; one GMG level, so the AMG coarse
+    solver with the matrix-free prism level 0 carries the whole V-cycle)
+    for four steps against the JAX package's series
+    ``validation/turek_3d_re100_ref0_series.json``.  Measured on a CPU:
+    Newton 0, 11, 5, 5, largest gap 1.2e-9 of max(|ref|, 1); about 720 s,
+    almost all of it in step 2's coarse dense-LU solves, hence slow."""
+    root = os.path.dirname(CONFIG)
+    with open(os.path.join(root, "turek_3d_re100.json")) as f:
+        raw = json.load(f)
+    raw.update({"n global refinements": 0, "paraview prefix": "",
+                "output granularity": 0.0})
+    with open(os.path.join(os.path.dirname(root), "validation",
+                           "turek_3d_re100_ref0_series.json")) as f:
+        ref = json.load(f)["series"]
+    drv = TDriver(TParams.from_dict(raw), device="cpu")
+    recs = drv.run(max_steps=len(ref) - 1)
+    assert drv.preconditioner.coarse_amg is not None
+    tol = drv.params.nonlinear_tolerance
+    assert all(s["newton_residual"] <= tol for s in drv.step_stats)
+    assert len(drv.step_stats) == len(ref) - 1
+    assert len(recs) == len(ref)
+    for r, q in zip(recs, ref):
+        for key in ("t", "drag", "lift", "p_diff"):
+            assert abs(r[key] - q[key]) <= REL * max(abs(q[key]), 1.0), key
+
+
 def test_cli_runs_on_cpu(tmp_path, capsys):
     """``python -m ns_gls_tpu_torch CONFIG --max-steps N --device cpu``
     on the coarse Turek mesh (refinement 0): two steps, finite records."""
@@ -151,3 +180,26 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
              if ln.startswith("t = ")]
     assert len(lines) == 3
     assert "drag = nan" not in "".join(lines)
+
+
+def test_cli_turek3d_refinement_override(tmp_path, monkeypatch, capsys):
+    """``python -m ns_gls_tpu_torch input/turek_3d_re100.json
+    --refinements 0 --max-steps 1 --device cpu``: the override reaches
+    the driver (400 cells, 16,704 DoFs, one prism GMG level) and the
+    step before the inflow writes finite records (output files go to
+    the working directory, here a temporary one)."""
+    from ns_gls_tpu_torch.__main__ import main
+
+    monkeypatch.chdir(tmp_path)
+    cfg = os.path.join(os.path.dirname(CONFIG), "turek_3d_re100.json")
+    tlog.set_verbose(True)
+    try:
+        main([cfg, "--refinements", "0", "--max-steps", "1", "--device",
+              "cpu"])
+    finally:
+        tlog.set_verbose(False)
+    out = capsys.readouterr().out.splitlines()
+    assert any("Global degrees of freedom: 16704" in ln for ln in out)
+    lines = [ln for ln in out if ln.startswith("t = ")]
+    assert len(lines) == 2
+    assert "nan" not in "".join(lines)

@@ -35,7 +35,10 @@ def _meshes(which):
     for pkg in ("ns_gls_tpu", "ns_gls_tpu_torch"):
         cyl = __import__(f"{pkg}.mesh.cylinder", fromlist=["x"])
         gen = __import__(f"{pkg}.mesh.generators", fromlist=["x"])
-        if which.startswith("turek"):
+        if which.startswith("turek3d"):    # the extruded Turek 3D mesh
+            mod = __import__(f"{pkg}.models.cylinder", fromlist=["x"])
+            m = mod.SimulationCylinder(3).create_mesh(int(which[-1]))
+        elif which.startswith("turek"):
             m = cyl.cylinder_mesh_2d()
             for _ in range(int(which[-1])):
                 m = m.refine()
@@ -179,7 +182,40 @@ def test_bdf_weights_variable_dt():
             assert it.current_dt == ij.current_dt
 
 
-@pytest.mark.parametrize("which", ["turek1", "multiblock"])
+@pytest.mark.parametrize("which", ["turek3d0", "turek3d1"])
+def test_prism_space_arrays_equal(which):
+    """The Turek 3D spaces: product (node2d, z) numbering, geometry and
+    the prism patch tables of both packages are equal."""
+    sj, st = _spaces(which)
+    assert st.prism and sj.prism
+    assert (st.n_nodes, st.n2d, st.nz_nodes, st.nz_cells, st.patch_cells) \
+        == (sj.n_nodes, sj.n2d, sj.nz_nodes, sj.nz_cells, sj.patch_cells)
+    for name in ("node_pos", "cell_nodes", "jinv", "jxw",
+                 "cell_h_min_vertex", "cell_measure", "patch_nodes",
+                 "patch_of_cell2d", "lattice_of_cell2d", "node2d_mult"):
+        assert np.array_equal(np.asarray(getattr(st, name)),
+                              np.asarray(getattr(sj, name))), name
+
+
+def test_cylinder_3d_functionals():
+    """Drag and lift (the 3D normalization 2 / (D u_bar^2 H)) and the
+    pressure-drop probes of the Turek 3D model on one random solution."""
+    from ns_gls_tpu.models.cylinder import SimulationCylinder as JC
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TC
+
+    sj, st = _spaces("turek3d0")
+    simj, simt = JC(3), TC(3)
+    simj.setup_postprocess(sj, 0.001)
+    simt.setup_postprocess(st, 0.001, "cpu")
+    assert simt._scaling == pytest.approx(simj._scaling, rel=1e-15)
+    u = np.random.default_rng(4).standard_normal((st.n_nodes, 4))
+    rj = simj.postprocess(0.1, jnp.asarray(u))
+    rt = simt.postprocess(0.1, torch.as_tensor(u))
+    for k in ("drag", "lift", "p_diff"):
+        assert rt[k] == pytest.approx(rj[k], rel=1e-12, abs=1e-12), k
+
+
+@pytest.mark.parametrize("which", ["turek1", "multiblock", "turek3d1"])
 def test_transfers(which):
     mj, mt = _meshes(which)
     cj, ct = JSpace(mj.prev, 2), TSpace(mt.prev, 2)
@@ -191,8 +227,9 @@ def test_transfers(which):
     assert np.array_equal(np.asarray(tj.p_wts), ttr.p_wts.numpy())
     assert np.array_equal(np.asarray(tj.i_wts), ttr.i_wts.numpy())
     rng = np.random.default_rng(1)
-    uc = rng.standard_normal((ct.n_nodes, 3))
-    uf = rng.standard_normal((ft.n_nodes, 3))
+    C = ft.dim + 1
+    uc = rng.standard_normal((ct.n_nodes, C))
+    uf = rng.standard_normal((ft.n_nodes, C))
     for a, b in (
         (jt.prolongate(tj, jnp.asarray(uc)), tt.prolongate(ttr, torch.as_tensor(uc))),
         (jt.restrict(tj, jnp.asarray(uf)), tt.restrict(ttr, torch.as_tensor(uf))),

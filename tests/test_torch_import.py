@@ -68,7 +68,7 @@ def test_unported_configuration_raises():
     for key, value in (("preconditioner", "AMG"),
                        ("nonlinear solver", "Picard"),
                        ("n devices", 2),
-                       ("gmg coarse grid solver", "AMG")):
+                       ("gmg coarse grid solver", "ILU")):
         params = Parameters.from_dict({"preconditioner": "GMG",
                                        "nonlinear solver": "Newton",
                                        "gmg coarse grid solver": "direct",

@@ -137,6 +137,133 @@ def test_diagonal_and_dense_matrix(increment):
            opt.vmult(torch.as_tensor(v)).numpy())
 
 
+def _qpoint_inputs(d, seed):
+    """Random q-point component lists (64 points) for the physics of
+    ``ops/structured.py`` in d dimensions, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+
+    def v():
+        return rng.standard_normal(64)
+
+    return dict(
+        u_val=[v() for _ in range(d)],
+        u_grad=[[v() for _ in range(d)] for _ in range(d)],
+        p_val=v(),
+        p_grad=[v() for _ in range(d)],
+        u_star=[v() for _ in range(d)],
+        gus=[[v() for _ in range(d)] for _ in range(d)],
+        gps=[v() for _ in range(d)],
+        dt_old=[v() for _ in range(d)],
+        d1=np.abs(v()),
+        d2=np.abs(v()),
+    )
+
+
+def _tree(x, f):
+    return [_tree(a, f) for a in x] if isinstance(x, list) else f(x)
+
+
+SC_PHYS = dict(weight=187.5, stau=100.0, nu=0.001, c1=2.0, c2=1.0)
+
+
+@pytest.mark.parametrize("consider_dt", [True, False])
+@pytest.mark.parametrize("flavor", ["fixed", "increment", "residual"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_qpoint_physics_parity(d, flavor, consider_dt):
+    """The fused sweeps' q-point physics (``_physics``) in 2D and 3D
+    against the JAX package's, every flavor with and without the time
+    derivative in the stabilization."""
+    from ns_gls_tpu.ops.structured import _physics as jphys
+    from ns_gls_tpu_torch.ops.structured import _physics as tphys
+
+    x = _qpoint_inputs(d, 7)
+    keys = ("u_val", "u_grad", "p_val", "p_grad", "u_star", "gus", "gps",
+            "dt_old", "d1", "d2")
+    args_j = [_tree(x[k], jnp.asarray) for k in keys]
+    args_t = [_tree(x[k], torch.as_tensor) for k in keys]
+    sc_j = {k: jnp.asarray(v) for k, v in SC_PHYS.items()}
+    sc_t = {k: torch.tensor(v, dtype=torch.float64) for k, v in SC_PHYS.items()}
+    vj, gj = jphys(d, flavor, sc_j, *args_j, consider_dt)
+    vt, gt = tphys(d, flavor, sc_t, *args_t, consider_dt)
+    assert len(vt) == len(gt) == d + 1
+    for c in range(d + 1):
+        _close(vt[c].numpy(), vj[c])
+        for x_ in range(d):
+            _close(gt[c][x_].numpy(), gj[c][x_])
+
+
+@pytest.mark.parametrize("cell_wise", [True, False])
+def test_delta_parity(cell_wise):
+    """delta_1 / delta_2, cell-wise (with the viscous switch: h on both
+    sides of nu) and per q-point, against the JAX package's."""
+    from ns_gls_tpu.ops.structured import _delta as jdelta
+    from ns_gls_tpu_torch.ops.structured import _delta as tdelta
+
+    rng = np.random.default_rng(11)
+    h1 = np.concatenate([rng.uniform(1e-4, 5e-4, 32),
+                         rng.uniform(2e-3, 5e-2, 32)])
+    hq = rng.uniform(1e-3, 5e-2, 64)
+    usq = rng.uniform(0.0, 6.0, 64)
+    sc_j = {k: jnp.asarray(v) for k, v in SC_PHYS.items()}
+    sc_t = {k: torch.tensor(v, dtype=torch.float64) for k, v in SC_PHYS.items()}
+    mx, q = (usq, None) if cell_wise else (None, usq)
+    dj = jdelta(sc_j, jnp.asarray(h1), jnp.asarray(hq),
+                None if mx is None else jnp.asarray(mx),
+                None if q is None else jnp.asarray(q), cell_wise)
+    dt = tdelta(sc_t, torch.as_tensor(h1), torch.as_tensor(hq),
+                None if mx is None else torch.as_tensor(mx),
+                None if q is None else torch.as_tensor(q), cell_wise)
+    for a, b in zip(dt, dj):
+        _close(np.broadcast_to(a.numpy(), (64,)),
+               np.broadcast_to(np.asarray(b), (64,)))
+
+
+def make_pair_3d(increment, cell_wise):
+    """JAX and port f64 operators on the Turek 3D mesh at refinement 0
+    (400 cells, Q2), with the driver's constraint sets."""
+    from ns_gls_tpu.models.cylinder import SimulationCylinder as JC
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TC
+
+    sj = JSpace(JC(3).create_mesh(0), 2)
+    st = TSpace(TC(3).create_mesh(0), 2)
+    cj = jdrv.ConstraintSetBuilder(sj, JC(3).get_boundary_descriptor(),
+                                   jnp.float64)
+    ct = tdrv.ConstraintSetBuilder(st, TC(3).get_boundary_descriptor(),
+                                   torch.float64, "cpu")
+    tij, tit = JBDF(2), TBDF(2)
+    for dt in (0.01, 0.008):
+        tij.update_dt(dt)
+        tit.update_dt(dt)
+    kw = dict(nu=0.001, c_1=2.0, c_2=1.0, consider_time_derivative=True,
+              increment_form=increment, cell_wise_stabilization=cell_wise)
+    opj = JOp(sj, cj.homogeneous, cj.full, time_integrator=tij,
+              dtype=jnp.float64, **kw)
+    opt = TOp(st, ct.homogeneous, ct.full, time_integrator=tit,
+              dtype=torch.float64, device="cpu", **kw)
+    opj.constraints_inhomogeneous = cj.inhomogeneous_at(0.05)
+    opt.constraints_inhomogeneous = ct.inhomogeneous_at(0.05)
+    rng = np.random.default_rng(0)
+    hist = [rng.standard_normal((st.n_nodes, 4)) for _ in range(3)]
+    u = hist[0] * 1.5
+    opj.set_previous_solution(JHist([jnp.asarray(h) for h in hist]))
+    opt.set_previous_solution(THist.from_numpy(hist, torch.float64, "cpu"))
+    opj.set_linearization_point(jnp.asarray(u))
+    opt.set_linearization_point(torch.as_tensor(u))
+    return opj, opt, u, rng
+
+
+@pytest.mark.parametrize("increment,cell_wise", [(True, False),
+                                                 (False, True)])
+def test_general_sweep_parity_3d(increment, cell_wise):
+    """The f64 general sweep (the 3D fine level) on the Turek 3D mesh."""
+    opj, opt, u, rng = make_pair_3d(increment, cell_wise)
+    assert opt._psweep is None                # f64: the general sweep
+    v = rng.standard_normal(u.shape)
+    _close(opt.vmult(torch.as_tensor(v)).numpy(), opj.vmult(jnp.asarray(v)))
+    _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),
+           opj.evaluate_residual(jnp.asarray(u)))
+
+
 def test_direct_solver_and_jacobi():
     """The dense direct solver and the Jacobi preconditioner against the
     JAX ones on the same operator (f64; the LU solves differ by pivoting
