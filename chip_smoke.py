@@ -39,6 +39,7 @@ Imports nothing of the JAX package; needs the repository around it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -195,7 +196,7 @@ def phase_kernel_vs_plain(ops):
     worst_abs = 0.0
     n_cases = 0
     for op in ops:
-        tables = op._p2sweep.tables
+        tables = op._fast.tables
         u, ul, vo = kernel_inputs(tables)
         cases = []
         for flavor in p2.FLAVORS:
@@ -215,30 +216,62 @@ def phase_kernel_vs_plain(ops):
     return worst_abs, worst_rel
 
 
-def patch2d_cost(tables, flavor, consider_dt):
-    """(bytes, flops) of one sweep: each input read once and the output
-    written once; flops counted from the kernel's loops."""
-    n_p = tables.jinv.shape[0]
-    P, NQ, m = tables.P, tables.NQ, tables.m
-    n1 = P + 1
-    Xn = P * m + 1
-    nn = n_p * Xn * Xn
-    nq = n_p * (NQ * m) ** 2
+def sumfac_fmas(n1, nodes, qpts, grads):
+    """FMAs of evaluating one component of a node tile at its q-points by
+    sum factorization: one axis at a time (``nodes``/``qpts``: extents per
+    axis in the order contracted), each q-point touching n1 nodes per
+    axis.  With ``grads`` the value and the reference derivative along
+    every axis (k + 2 arrays after the k-th axis), else the value alone.
+    Integration, the transpose, costs the same."""
+    fmas = 0
+    for k in range(len(nodes)):
+        extent = math.prod(qpts[:k + 1]) * math.prod(nodes[k + 1:])
+        fmas += (k + 2 if grads else 1) * extent * n1
+    return fmas
+
+
+def sweep_cost(d, n_tiles, n1, nodes, qpts, n_out, geometry, nq, cells,
+               flavor, consider_dt, cell_wise):
+    """(bytes, flops) of the least work of one fused GLS sweep with its
+    seam compress: the input tiles read once, the compressed node-major
+    output (n_out nodes) written once, ``geometry`` table floats read
+    once; sum-factorized evaluation of u, u_lin and the history and
+    integration of the test-function weights, plus the q-point work."""
+    C = d + 1
     incr = flavor == "increment"
     dt_old = consider_dt and flavor in ("increment", "residual")
-    lead = 3 + (3 if incr else 2) + (2 if dt_old else 0) + 3   # + output
-    nbytes = 4 * (lead * nn + tables.jinv.numel() + tables.jxw.numel()
-                  + tables.h.numel() + tables.S1.numel() + tables.D1.numel())
-    # per q-point: per node 3 table products, 3 comps x 3 FMAs of u,
-    # u_lin (3 x 3 FMAs in increment, else 2 values), history (2 values)
-    per_node = 3 + 18 + (18 if incr else 4) + (4 if dt_old else 0)
-    # reference -> physical gradients, delta, physics, weights
-    per_q = n1 * n1 * per_node + (48 if incr else 24) + 20 + 70 + 30
-    # integration: per (cell, node) pair and cell q-point, 3 products
-    # and 3 comps x 3 FMAs
-    pairs = n_p * m * m * n1 * n1
-    flops = nq * per_q + pairs * NQ * NQ * 21
+    lead_in = C + (C if incr else d) + (d if dt_old else 0)
+    tile = math.prod(nodes)
+    nbytes = 4 * (lead_in * n_tiles * tile + C * n_out + geometry)
+    g = sumfac_fmas(n1, nodes, qpts, True)
+    v = sumfac_fmas(n1, nodes, qpts, False)
+    fmas = n_tiles * (C * g + (C * g if incr else d * v)
+                      + (d * v if dt_old else 0) + C * g)
+    # per q-point: reference -> physical gradients (per component, 6
+    # flops in 2D, 7 with the prismatic J in 3D; u, and u_lin in
+    # increment), |u*|^2, the physics (counted from gls_qpoint.cuh) and
+    # the test-function weights
+    grad_map = 6 if d == 2 else 7
+    phys = {2: (75, 40), 3: (150, 80)}[d][0 if incr else 1]
+    weights = 1 + C * (9 if d == 2 else 11)
+    per_q = (C * grad_map * (2 if incr else 1) + 2 * d - 1 + phys + weights
+             + (1 if cell_wise else 15))
+    # delta: per cell from the max |u*|^2, or per q-point (in per_q)
+    flops = 2 * fmas + nq * per_q + (cells * 10 if cell_wise else 0)
     return nbytes, flops
+
+
+def patch2d_cost(tables, flavor, consider_dt, cell_wise):
+    """(bytes, flops) of one patch-2D sweep (see ``sweep_cost``)."""
+    n_p = tables.jinv.shape[0]
+    P, NQ, m = tables.P, tables.NQ, tables.m
+    Xn, Lq = P * m + 1, NQ * m
+    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
+                                       tables.S1, tables.D1))
+    return sweep_cost(2, n_p, P + 1, (Xn, Xn), (Lq, Lq),
+                      int(tables.patch_nodes.max()) + 1, geometry,
+                      n_p * Lq * Lq, n_p * m * m, flavor, consider_dt,
+                      cell_wise)
 
 
 def time_sweep(fn, n=200):
@@ -299,7 +332,7 @@ def phase_prism_vs_plain(ops):
     worst_abs = 0.0
     n_cases = 0
     for op in ops:
-        tables = op._psweep.tables
+        tables = op._fast.tables
         u, ul, vo = prism_inputs(tables)
         cases = []
         for flavor in pr.FLAVORS:
@@ -315,7 +348,7 @@ def phase_prism_vs_plain(ops):
         log(f"[6] m={tables.m} nz={tables.nz} "
             f"patches={tables.jinv.shape[0]}: {len(cases)} cases ok")
     # two launches on the same inputs give the same bits (no atomics)
-    tables = ops[-1]._psweep.tables
+    tables = ops[-1]._fast.tables
     u, ul, vo = prism_inputs(tables, seed=2)
     args = (tables, SC3, u, ul, vo, "increment", True, False)
     a = pr.PrismKernel.launch(*args)
@@ -330,38 +363,19 @@ def phase_prism_vs_plain(ops):
 
 
 def prism_cost(tables, flavor, consider_dt, cell_wise):
-    """(bytes, flops) of one prism sweep: each input the kernel reads once
-    and the output written once; flops counted from the kernel's loops."""
+    """(bytes, flops) of one prism sweep (see ``sweep_cost``): z, then y,
+    then x contracted on the (Yn, Xn, Nzn) patch columns; the output is
+    the compressed (C, n2d, Nzn), not the kernel's cell-row tiles."""
     n_p = tables.jinv.shape[0]
     P, NQ, m, nz = tables.P, tables.NQ, tables.m, tables.nz
-    n1 = P + 1
-    Xn = P * m + 1
-    Nzn = P * nz + 1
-    tile = n_p * Xn * Xn * Nzn
-    incr = flavor == "increment"
-    dt_old = consider_dt and flavor in ("increment", "residual")
-    lead_in = 4 + (4 if incr else 3) + (3 if dt_old else 0)
-    out = 4 * n_p * m * n1 * Xn * Nzn
-    nbytes = 4 * (lead_in * tile + out + tables.jinv.numel()
-                  + tables.jxw.numel() + tables.h.numel()
-                  + tables.S1.numel() + tables.D1.numel()
-                  + tables.wz.numel())
-    cells = n_p * m * m * nz
-    nq = cells * NQ ** 3
-    nodes = n1 ** 3
-    # per (q-point, cell node): 8 table products; u 4 comps x 4 FMAs;
-    # u_lin 4 x 4 FMAs in increment, else 3 values; history 3 values
-    per_node = 8 + 32 + (32 if incr else 6) + (6 if dt_old else 0)
-    # |u*|^2 pass of the cell-wise delta: 2 products + 3 FMAs per node
-    per_node_cw = (2 + 6) if cell_wise else 0
-    # reference -> physical gradients (u, and u_lin in increment),
-    # delta, physics, test-function weights
-    per_q = (nodes * (per_node + per_node_cw) + 28 + (28 if incr else 0)
-             + 20 + 150 + 45)
-    # integration: per (cell, node) pair and cell q-point, 8 table
-    # products and 4 comps x 4 FMAs
-    flops = nq * per_q + cells * nodes * NQ ** 3 * 40
-    return nbytes, flops
+    Xn, Nzn = P * m + 1, P * nz + 1
+    Lq, Lz = NQ * m, NQ * nz
+    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
+                                       tables.S1, tables.D1, tables.wz))
+    n2d = int(tables.patch_nodes.max()) + 1
+    return sweep_cost(3, n_p, P + 1, (Nzn, Xn, Xn), (Lz, Lq, Lq),
+                      n2d * Nzn, geometry, n_p * Lq * Lq * Lz,
+                      n_p * m * m * nz, flavor, consider_dt, cell_wise)
 
 
 # ---------------------------------------------------------------------------
@@ -559,12 +573,12 @@ def main() -> int:
         # kernel time at the ref-3 shape (m = 8), the main path's flavor
         from ns_gls_tpu_torch.ops import patch2d as p2
 
-        tables = ops[-1]._p2sweep.tables
+        tables = ops[-1]._fast.tables
         u, ul, vo = kernel_inputs(tables, seed=1)
         args = (tables, SC, u, ul, vo, "increment", True, False)
         ms = time_sweep(lambda: p2.Patch2DKernel.launch(*args))
         plain_ms = time_sweep(lambda: p2.patch2d_sweep_plain(*args), n=50)
-        nbytes, flops = patch2d_cost(tables, "increment", True)
+        nbytes, flops = patch2d_cost(tables, "increment", True, False)
         bound_ms, bound_by = bound(nbytes, flops)
         log(f"[3] m=8 increment sweep: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
@@ -586,7 +600,7 @@ def main() -> int:
         log(f"[6] Turek 3D ref {params3.n_global_refinements} driver set "
             f"up in {setup3_s:.2f} s")
         pmax_abs, _ = phase_prism_vs_plain(drv3.mg_ops)
-        ptables = drv3.mg_ops[-1]._psweep.tables
+        ptables = drv3.mg_ops[-1]._fast.tables
         u, ul, vo = prism_inputs(ptables, seed=1)
         pargs = (ptables, SC3, u, ul, vo, "increment", True, False)
         pms = time_sweep(lambda: pr.PrismKernel.launch(*pargs))

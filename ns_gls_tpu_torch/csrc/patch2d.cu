@@ -23,16 +23,17 @@
 // with Xn = P*m + 1, Lq = NQ*m, q-point row iy = ey*NQ + qy and column
 // ix = ex*NQ + qx.
 //
-// What bounds it on an H100, at the Turek 2D ref-3 shapes (P = 2, NQ = 3,
-// m = 8: 289 nodes and 576 q-points per patch, 88 patches), increment
-// flavor with the history term:
-//   bytes per patch: u 3468 + u_lin 3468 + vec_old 2312 + jinv 9216
-//                    + jxw 2304 + h 512 + out 3468 = 24.7 KB;
-//                    x 88 = 2.18 MB -> 0.65 us at 3.35 TB/s
-//   flops per patch: evaluation ~570 per q-point x 576 + integration
-//                    ~190 per (cell, node) pair x 576 = ~0.44 MFLOP;
-//                    x 88 = 38.7 MFLOP -> 0.58 us at 67 TFLOP/s (f32)
-// so the work itself is about 0.6 us either way: the call is bound by
+// What bounds the function on an H100, at the Turek 2D ref-3 shapes
+// (P = 2, NQ = 3, m = 8: 289 nodes and 576 q-points per patch, 88
+// patches, 22,992 nodes), increment flavor with the history term
+// (chip_smoke.py patch2d_cost):
+//   bytes: per patch u 3468 + u_lin 3468 + vec_old 2312 + jinv 9216
+//          + jxw 2304 + h 512 = 21.3 KB, x 88, plus the seam-compressed
+//          output 3 x 22,992 floats: 2.15 MB -> 0.64 us at 3.35 TB/s
+//   flops: a sum-factorized evaluation and integration plus the q-point
+//          geometry, delta and physics: 21 MFLOP -> 0.31 us at
+//          67 TFLOP/s (f32); this design's loops do about 39 MFLOP
+// so the work itself is well under a microsecond: the call is bound by
 // latency (one launch, a few dependent phases per block), not by bytes
 // or flops.  The design keeps it to one launch and keeps every
 // intermediate on chip: one thread block per patch stages the node

@@ -38,22 +38,24 @@
 // the caller's seam compress, which sums whole z-runs in a fixed order.
 // No atomics: two launches on the same inputs give the same bits.
 //
-// What bounds it on an H100, at the Turek 3D ref-3 shapes (P = 2, NQ = 3,
-// m = 8, nz = 32: Xn = 17, Nzn = 65, 100 patches, 204,800 cells),
-// increment flavor with the history term:
+// What bounds the function on an H100, at the Turek 3D ref-3 shapes
+// (P = 2, NQ = 3, m = 8, nz = 32: Xn = 17, Nzn = 65, 100 patches, 204,800
+// cells), increment flavor with the history term (chip_smoke.py
+// prism_cost):
 //   bytes: u 4 + u_lin 4 + vec_old 3 node tiles of 100 x 17^2 x 65 floats
-//          = 82.6 MB, output 4 x 100 x 8 x 3 x 17 x 65 floats = 42.4 MB,
-//          geometry 1.6 MB: ~127 MB -> 38 us at 3.35 TB/s;
-//   flops (this design, no sum factorization; chip_smoke.py prism_cost
-//          counts them from the loops below): per q-point 27 nodes x
-//          ~78 flops of evaluation + ~270 of geometry, delta and physics,
-//          per (cell, node) pair 27 q-points x 40 flops of integration:
-//          ~93 kFLOP per cell x 204,800 = 19.1 GFLOP -> 0.29 ms at
+//          = 82.6 MB, the seam-compressed output 4 x 1,697,280 floats
+//          = 27.2 MB, geometry 1.4 MB: 111 MB -> 33 us at 3.35 TB/s;
+//   flops of a sum-factorized evaluation and integration on the patch
+//          columns (z, then y, then x; each q-point touches 3 nodes per
+//          axis) plus ~270 per q-point of geometry, delta and physics:
+//          22 kFLOP per cell x 204,800 = 4.56 GFLOP -> 68 us at
 //          67 TFLOP/s f32.
-// So this design is bound by operations, about 7.5 times above the bytes;
-// sum factorization (evaluating along one axis at a time, as the TPU
-// kernel's band matmuls do) would cut the evaluation and integration
-// flops about threefold and is later work.
+// So the function is bound by operations, about twice the bytes' time.
+// This design does no sum factorization: each q-point thread sums over
+// its cell's 27 nodes, and each node thread over the 27 q-points of up to
+// four cells, about 93 kFLOP per cell, four times what the function
+// needs; evaluating along one axis at a time, as the TPU kernel's band
+// matmuls do, is later work.
 #include <cuda_runtime.h>
 
 #include "gls_qpoint.cuh"

@@ -200,32 +200,26 @@ class NavierStokesOperator:
         if self.affine_geometry:
             jinv_np = jinv_np[:, :1]
 
-        # fused patch-2D sweep (ops/patch2d.py): consumes the
-        # linearization VECTORS, so it forces fused tables
-        self._p2sweep = None
-        if use_structured and space.dim == 2:
-            from ns_gls_tpu_torch.ops.patch2d import (
-                Patch2DSweep,
-                build_patch2d_tables,
-            )
-
-            tables = build_patch2d_tables(self)
+        # fused sweep: patch-2D (ops/patch2d.py) on 2D patch spaces, prism
+        # (ops/prism.py) on extruded 3D meshes, the Turek/Hoffmann 3D
+        # family; it consumes the linearization VECTORS, so it forces
+        # fused tables
+        self._fast = None
+        if use_structured:
+            if space.dim == 2:
+                from ns_gls_tpu_torch.ops.patch2d import (
+                    Patch2DSweep as sweep,
+                    build_patch2d_tables as build,
+                )
+            else:
+                from ns_gls_tpu_torch.ops.prism import (
+                    PrismSweep as sweep,
+                    build_prism_tables as build,
+                )
+            tables = build(self)
             if tables is not None:
                 self.fuse_tables = True
-                self._p2sweep = Patch2DSweep(self, tables)
-        # fused prism sweep (ops/prism.py) on extruded 3D meshes, the
-        # Turek/Hoffmann 3D family; the same forcing of fused tables
-        self._psweep = None
-        if use_structured and space.dim == 3:
-            from ns_gls_tpu_torch.ops.prism import (
-                PrismSweep,
-                build_prism_tables,
-            )
-
-            tables = build_prism_tables(self)
-            if tables is not None:
-                self.fuse_tables = True
-                self._psweep = PrismSweep(self, tables)
+                self._fast = sweep(self, tables)
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -285,23 +279,7 @@ class NavierStokesOperator:
 
     def _fast_path_view_shape(self, lead: int):
         """Shape of the patch-gathered linearization views."""
-        sw = self._fast_sweep
-        return sw.view_shape(lead) if sw is not None else (0,)
-
-    @property
-    def _fast_sweep(self):
-        """The fused sweep this operator runs (patch-2D or prism), or
-        None for the general sweep."""
-        return self._p2sweep if self._p2sweep is not None else self._psweep
-
-    def _fast_gather(self, v, lead: int):
-        """Patch tiles of the first ``lead`` components of a node-major
-        vector (n_nodes, C), for the fused sweep."""
-        vT = v[:, :lead].T
-        if self._psweep is not None:
-            sw = self._psweep
-            return sw.gather(vT.reshape(lead, sw.n2d, sw.Nzn))
-        return self._p2sweep.gather(vT)
+        return self._fast.view_shape(lead) if self._fast is not None else (0,)
 
     # ------------------------------------------------------------------
     # q-point physics (shape-agnostic over leading dims (..., n_q))
@@ -449,25 +427,6 @@ class NavierStokesOperator:
             )
         return cq
 
-    def _patch2d_apply(self, state: NSState, u_eff, flavor: str):
-        """Fused patch-2D sweep (ops/patch2d.py): component-major view
-        in/out; u is patch-gathered here, the linearization tensors are
-        pre-gathered in the state."""
-        sw = self._p2sweep
-        r2 = sw.apply(self._weight_host, self._stau_host, sw.gather(u_eff.T),
-                      state.u_linT, state.vec_oldT, flavor)
-        return r2.T
-
-    def _prism_apply(self, state: NSState, u_eff, flavor: str):
-        """Fused prism sweep (ops/prism.py): product-layout view
-        (C, n2d, Nzn) in/out; u is patch-gathered here, the linearization
-        tensors are pre-gathered in the state."""
-        sw = self._psweep
-        r2d = sw.apply(self._weight_host, self._stau_host,
-                       self._fast_gather(u_eff, self.n_comp), state.u_linT,
-                       state.vec_oldT, flavor)
-        return r2d.reshape(self.n_comp, -1).T
-
     def _cell_sweep(self, b: CellBatch, state: NSState, u,
                     residual_form: bool):
         """The general sweep: gather -> evaluate -> physics -> integrate
@@ -498,12 +457,15 @@ class NavierStokesOperator:
         return r
 
     def _sweep(self, u, residual_form: bool):
-        if self._fast_sweep is not None:
+        sw = self._fast
+        if sw is not None:
+            # u is patch-gathered here, the linearization tensors are
+            # pre-gathered in the state
             flavor = ("residual" if residual_form
                       else "increment" if self.increment_form else "fixed")
-            if self._psweep is not None:
-                return self._prism_apply(self.state, u, flavor)
-            return self._patch2d_apply(self.state, u, flavor)
+            return sw.apply(self._weight_host, self._stau_host,
+                            sw.gather_nodes(u, self.n_comp),
+                            self.state.u_linT, self.state.vec_oldT, flavor)
         return self._cell_sweep(self.batch, self.state, u, residual_form)
 
     # ------------------------------------------------------------------
@@ -548,8 +510,9 @@ class NavierStokesOperator:
         d = self.dim
         if self.fuse_tables:
             new = state._replace(u_lin=u)
-            if self._fast_sweep is not None:
-                new = new._replace(u_linT=self._fast_gather(u, self.n_comp))
+            if self._fast is not None:
+                new = new._replace(
+                    u_linT=self._fast.gather_nodes(u, self.n_comp))
             if self.cell_wise_stabilization:
                 u_loc = u[batch.cell_nodes][..., :d]
                 u_star = torch.einsum("qi,eic->eqc", batch.S, u_loc)
@@ -600,8 +563,9 @@ class NavierStokesOperator:
         d = self.dim
         if self.fuse_tables:
             new = state._replace(vec_old=vec_old)
-            if self._fast_sweep is not None:
-                new = new._replace(vec_oldT=self._fast_gather(vec_old, d))
+            if self._fast is not None:
+                new = new._replace(
+                    vec_oldT=self._fast.gather_nodes(vec_old, d))
             if self.theta != 1.0:
                 new = new._replace(u_old=u_old)
             return new

@@ -47,6 +47,7 @@ from ns_gls_tpu_torch.fem.lagrange import (
     gauss_points_1d,
 )
 from ns_gls_tpu_torch.ops.structured import _delta, _physics
+from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
 
 FLAVORS = ("fixed", "increment", "residual")
 
@@ -65,7 +66,7 @@ class Patch2DTables(NamedTuple):
     jxw: torch.Tensor       # (n_patches, Lq, Lq)
     h: torch.Tensor         # (n_patches, 2, m, m)  (h_min_vertex, hq)
     patch_nodes: torch.Tensor   # (n_patches, Yn, Xn) int64 node ids
-    compress: tuple         # per multiplicity class: (n_k, K) flat positions
+    compress: ClassGather   # patch tile positions -> nodes (seam sums)
 
 
 def _band_1d(P, NQ, m):
@@ -86,33 +87,6 @@ def _band_1d(P, NQ, m):
                 # coordinates is in jinv (per-cell geometry)
                 bD[e * NQ + q, P * e + l] = D1[q, l]
     return S1, D1, bS, bD
-
-
-def _build_compress(flat_nodes, n2d, device):
-    """Dense multiplicity-class seam-compress gathers over the flattened
-    tile position space (copied from the JAX package)."""
-    order = np.argsort(flat_nodes, kind="stable")
-    s_nodes = flat_nodes[order]
-    # drop pad entries (node id n2d)
-    n_real = int(np.searchsorted(s_nodes, n2d))
-    s_nodes = s_nodes[:n_real]
-    s_pos = order[:n_real].astype(np.int64)
-    uniq, starts, counts = np.unique(
-        s_nodes, return_index=True, return_counts=True
-    )
-    if len(uniq) != n2d or not (uniq == np.arange(n2d)).all():
-        raise ValueError("patch tiles must cover every 2D node at least once")
-    compress = []
-    n0 = 0
-    while n0 < n2d:
-        K = int(counts[n0])
-        n1 = int(np.searchsorted(counts, K, side="right"))
-        idx = np.empty((n1 - n0, K), np.int64)
-        for k in range(K):
-            idx[:, k] = s_pos[starts[n0:n1] + k]
-        compress.append(torch.as_tensor(idx, device=device))
-        n0 = n1
-    return tuple(compress)
 
 
 def build_patch2d_tables(op):
@@ -174,7 +148,7 @@ def build_patch2d_tables(op):
         S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD),
         jinv=f32(jinv_t), jxw=f32(jxw_t), h=f32(h_t),
         patch_nodes=torch.as_tensor(pn, device=dev),
-        compress=_build_compress(pn.reshape(-1), space.n2d, dev),
+        compress=class_gather(pn.reshape(-1), space.n2d, dev),
     )
 
 
@@ -345,9 +319,11 @@ def patch2d_sweep(tables: Patch2DTables, sc: dict, uP, ulP, voP,
 class Patch2DSweep:
     """Applies the fused patch-2D sweep for one operator.
 
-    ``gather(v)`` maps a (lead, n2d) component-major vector view to the
-    patch tiles the sweep consumes; ``apply(...)`` runs the sweep and
-    seam-compresses back to (C, n2d).
+    The interface every fused sweep of the operator has:
+    ``gather_nodes(v, lead)`` maps the first ``lead`` components of a
+    node-major vector (n_nodes, C) to the patch tiles the sweep consumes,
+    ``view_shape(lead)`` is their shape, and ``apply(...)`` runs the
+    sweep and seam-compresses back to a node-major (n_nodes, C) result.
     """
 
     def __init__(self, op, tables: Patch2DTables):
@@ -364,13 +340,13 @@ class Patch2DSweep:
     def view_shape(self, lead: int):
         return (lead,) + tuple(self.tables.patch_nodes.shape)
 
-    def gather(self, v):
-        """(lead, n2d) -> (lead, n_patches, Yn, Xn)."""
-        return v[:, self.tables.patch_nodes]
+    def gather_nodes(self, v, lead: int):
+        """(n_nodes, C) -> (lead, n_patches, Yn, Xn)."""
+        return v[:, :lead].T[:, self.tables.patch_nodes]
 
     def apply(self, weight: float, stau: float, uP, ulP, voP, flavor: str):
         """uP/ulP/voP: (lead, n_patches, Yn, Xn) patch tiles (from
-        ``gather``).  Returns (C, n2d)."""
+        ``gather_nodes``).  Returns (n_nodes, C)."""
         sc = dict(weight=weight, stau=stau, nu=self.nu, c1=self.c1,
                   c2=self.c2)
         if flavor != "increment":
@@ -378,6 +354,4 @@ class Patch2DSweep:
         out = patch2d_sweep(self.tables, sc, uP.contiguous(),
                             ulP.contiguous(), voP.contiguous(), flavor,
                             self.consider_dt, self.cell_wise)
-        flat = out.reshape(self.C, -1)
-        outs = [flat[:, idx].sum(dim=2) for idx in self.tables.compress]
-        return torch.cat(outs, dim=1)                  # (C, n2d)
+        return class_sum(self.tables.compress, out.reshape(self.C, -1).T)

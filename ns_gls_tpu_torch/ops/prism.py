@@ -387,11 +387,12 @@ def prism_sweep(tables: PrismTables, sc: dict, uP, ulP, voP,
 # host wrapper
 # ---------------------------------------------------------------------------
 class PrismSweep:
-    """Applies the fused prism sweep for one operator.
-
-    ``gather(v2d)`` maps a (lead, n2d, Nzn) product-layout vector view to
-    the patch tiles the sweep consumes; ``apply(...)`` runs the sweep and
-    seam-compresses the cell-row tiles back to (C, n2d, Nzn).
+    """Applies the fused prism sweep for one operator, with the interface
+    of ``ops/patch2d.py`` ``Patch2DSweep``: ``gather_nodes(v, lead)``
+    maps the first ``lead`` components of a node-major vector
+    (n_nodes, C) to the patch tiles (the product numbering makes the
+    node-major vector a (lead, n2d, Nzn) view), and ``apply(...)`` runs
+    the sweep and seam-compresses the cell-row tiles back to (n_nodes, C).
     """
 
     def __init__(self, op, tables: PrismTables):
@@ -410,8 +411,9 @@ class PrismSweep:
     def view_shape(self, lead: int):
         return (lead,) + tuple(self.tables.patch_nodes.shape) + (self.Nzn,)
 
-    def gather(self, v2d):
-        """(lead, n2d, Nzn) -> (lead, n_patches, Yn, Xn, Nzn)."""
+    def gather_nodes(self, v, lead: int):
+        """(n_nodes, C) -> (lead, n_patches, Yn, Xn, Nzn)."""
+        v2d = v[:, :lead].T.reshape(lead, self.n2d, self.Nzn)
         return v2d[:, self.tables.patch_nodes]
 
     def compress(self, rows):
@@ -421,7 +423,7 @@ class PrismSweep:
 
     def apply(self, weight: float, stau: float, uP, ulP, voP, flavor: str):
         """uP/ulP/voP: (lead, n_patches, Yn, Xn, Nzn) patch tiles (from
-        ``gather``).  Returns (C, n2d, Nzn)."""
+        ``gather_nodes``).  Returns (n_nodes, C)."""
         sc = dict(weight=weight, stau=stau, nu=self.nu, c1=self.c1,
                   c2=self.c2)
         if flavor != "increment":
@@ -429,4 +431,5 @@ class PrismSweep:
         rows = prism_sweep(self.tables, sc, uP.contiguous(),
                            ulP.contiguous(), voP.contiguous(), flavor,
                            self.consider_dt, self.cell_wise)
-        return self.compress(rows)
+        out = self.compress(rows)
+        return out.reshape(out.shape[0], -1).T

@@ -14,8 +14,9 @@ zoo ``multigrid.cc:372-433``):
   device from new element matrices (the structure-frozen refresh: fixed
   slot maps from element entries to the level matrices),
 - apply on the device: a V-cycle with damped Jacobi smoothing (Gershgorin
-  damping) on padded-ELL level matrices; with ``matrix_free_fine`` level
-  0 applies the operator itself instead of its matrix.
+  damping) on padded-ELL level matrices; level 0 applies the operator
+  itself instead of its matrix (the unaggregated Q2 level would gather
+  hundreds of entries per row, and the linearization stays current).
 
 Every sum over a fixed map (assembly, Galerkin products, restriction)
 goes through ``utils/segment.py``, so two setups or applies on the same
@@ -36,7 +37,7 @@ MAX_LEVELS = 10
 
 
 class AMGLevel(NamedTuple):
-    ell_cols: torch.Tensor   # (n, width) int64 (width 0 for a matrix-free level)
+    ell_cols: torch.Tensor   # (n, width) int64; width 0 on matrix-free level 0
     ell_vals: torch.Tensor   # (n, width)
     inv_diag: torch.Tensor   # (n,)
     omega: torch.Tensor      # ()
@@ -100,8 +101,7 @@ class PreconditionerAMG:
     """Aggregation AMG on the assembled (constrained) operator matrix."""
 
     def __init__(self, op, max_coarse: int = 500, n_smooth: int = 2,
-                 theta: float = 0.08, matrix_free_fine: bool = False,
-                 smoother: str = "jacobi"):
+                 theta: float = 0.08, smoother: str = "jacobi"):
         if smoother != "jacobi":
             raise NotImplementedError(
                 f"AMG smoother '{smoother}' is not ported yet (jacobi is)"
@@ -111,10 +111,6 @@ class PreconditionerAMG:
         self.max_coarse = max_coarse
         self.n_smooth = n_smooth
         self.theta = theta
-        # level 0 applies the operator (matrix-free) instead of its ELL
-        # matrix: the unaggregated Q2 level would gather hundreds of
-        # entries per row, and the linearization stays current
-        self.matrix_free_fine = bool(matrix_free_fine)
         self.levels = None
         self.coarse_lu = None
         self._frozen_aggs = None
@@ -218,12 +214,11 @@ class PreconditionerAMG:
             cols.reshape(-1)[row_of * width + pos] = P.indices
             diag = np.searchsorted(row_of.astype(np.int64) * nn + P.indices,
                                    np.arange(nn, dtype=np.int64) * (nn + 1))
-            skip_ell = self.matrix_free_fine and k == 0
             lvl_maps.append(dict(
-                nn=nn, width=width, skip_ell=skip_ell,
+                nn=nn, width=width,
                 flat=t(row_of * width + pos),
-                cols=(t(np.zeros((nn, 0), np.int64)) if skip_ell
-                      else t(cols)),
+                # level 0 is matrix-free: no ELL matrix
+                cols=t(np.zeros((nn, 0), np.int64) if k == 0 else cols),
                 diag=t(diag),
                 rowsum=class_gather(row_of, nn, dev),
                 agg=t(self._frozen_aggs[k][0]),
@@ -256,7 +251,7 @@ class PreconditionerAMG:
         levels = []
         for k, m in enumerate(mp["levels"]):
             d_k = datas[k]
-            if m["skip_ell"]:
+            if k == 0:
                 vals = d_k.new_zeros((m["nn"], 0))
             else:
                 vals = d_k.new_zeros(m["nn"] * m["width"])
@@ -288,7 +283,7 @@ class PreconditionerAMG:
     # apply
     # ------------------------------------------------------------------
     def _apply_level(self, k, x):
-        if k == 0 and self.matrix_free_fine:
+        if k == 0:
             return self.op.vmult(x.reshape(-1, self.n_comp)).reshape(-1)
         lvl = self.levels[k]
         return (lvl.ell_vals * x[lvl.ell_cols]).sum(dim=1)

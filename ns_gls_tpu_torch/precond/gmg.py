@@ -142,9 +142,7 @@ class PreconditionerGMG:
                 kw = ({} if self.coarse_amg_default_parameters
                       else {"theta": 0.02, "n_smooth": 3,
                             "max_coarse": 1000})
-                self.coarse_amg = PreconditionerAMG(
-                    op0, matrix_free_fine=True, **kw
-                )
+                self.coarse_amg = PreconditionerAMG(op0, **kw)
             with timer("mg_init::coarse_amg"):
                 self.coarse_amg.initialize()
 

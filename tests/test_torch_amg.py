@@ -37,8 +37,9 @@ from ns_gls_tpu_torch.precond.amg import PreconditionerAMG as TAMG
 TOL = 1e-10
 F64 = torch.float64
 # the GMG coarse level's parameter set with a small coarsest level, so
-# that this small problem aggregates (1620 -> 1044 DoFs; the next
-# coarsening stalls on the pressure block, as it does on Turek 3D)
+# that this small problem aggregates (with q-wise delta 1620 -> 1044
+# DoFs and the next coarsening stalls on the pressure block, as it does
+# on Turek 3D)
 AMG_KW = dict(theta=0.02, n_smooth=3, max_coarse=40)
 
 
@@ -51,7 +52,7 @@ def prism_mesh(gen, n_refine=1):
     return mesh
 
 
-def _ops(dtype_j=jnp.float64, dtype_t=F64, n_refine=1):
+def _ops(dtype_j=jnp.float64, dtype_t=F64, n_refine=1, cell_wise=False):
     sj = JSpace(prism_mesh(jgen, n_refine), 2)
     st = TSpace(prism_mesh(tgen, n_refine), 2)
     bn = st.boundary_nodes([0])
@@ -71,7 +72,7 @@ def _ops(dtype_j=jnp.float64, dtype_t=F64, n_refine=1):
         tij.update_dt(dt)
         tit.update_dt(dt)
     kw = dict(nu=0.02, c_1=4.0, c_2=2.0, increment_form=True,
-              cell_wise_stabilization=False)
+              cell_wise_stabilization=cell_wise)
     opj = JOp(sj, caj, caj, time_integrator=tij, dtype=dtype_j, **kw)
     opt = TOp(st, cat, cat, time_integrator=tit, dtype=dtype_t,
               device="cpu", **kw)
@@ -124,16 +125,22 @@ def _check_levels(jamg, tamg):
     _close(_lu_matrix(*tamg.coarse_lu, 1), _lu_matrix(*ja.coarse_lu, 0))
 
 
-@pytest.mark.parametrize("matrix_free_fine", [False, True])
-def test_amg_hierarchy_and_vcycle(matrix_free_fine):
-    opj, opt, rng = _ops()
+@pytest.mark.parametrize("cell_wise", [False, True])
+def test_amg_hierarchy_and_vcycle(cell_wise):
+    """Level 0 applies the operator (matrix-free) in both packages; the
+    two stabilization modes give other matrices on the same structure."""
+    opj, opt, rng = _ops(cell_wise=cell_wise)
     u = rng.standard_normal((opt.n_nodes, 4))
     _lin(opj, opt, u)
-    jamg = JAMG(opj, matrix_free_fine=matrix_free_fine, **AMG_KW)
-    tamg = TAMG(opt, matrix_free_fine=matrix_free_fine, **AMG_KW)
+    jamg = JAMG(opj, matrix_free_fine=True, **AMG_KW)
+    tamg = TAMG(opt, **AMG_KW)
     jamg.initialize()
     tamg.initialize()
-    assert tamg.level_sizes == [1620, 1044]
+    # q-wise delta: the second coarsening stalls on the pressure block;
+    # cell-wise: two aggregation levels
+    assert tamg.level_sizes == ([1620, 696, 460] if cell_wise
+                                else [1620, 1044])
+    assert tamg.levels[0].ell_vals.numel() == 0
     for (ja, na), (ta, nt) in zip(jamg._frozen_aggs, tamg._frozen_aggs):
         assert na == nt and np.array_equal(ja, ta)
     _check_levels(jamg, tamg)
@@ -153,7 +160,9 @@ def test_refresh_equals_host_galerkin_chain():
     """The slot-map refresh against scipy: masked assembly, P^T A P per
     frozen aggregation level, inverse diagonal, Gershgorin damping and the
     coarsest dense matrix, at a linearization point the aggregates were
-    not built from."""
+    not built from.  Level 0 stores no ELL matrix (it is matrix-free);
+    its assembly shows in its diagonal, its damping and the levels
+    below it."""
     _, opt, rng = _ops()
     opt.set_linearization_point(torch.as_tensor(
         rng.standard_normal((opt.n_nodes, 4))))
@@ -178,10 +187,11 @@ def test_refresh_equals_host_galerkin_chain():
     A = (D @ A @ D + sp.diags((~mask).astype(float))).tocsr()
     for lvl, (agg_dofs, n_agg) in zip(tamg.levels, tamg._frozen_aggs):
         vals, cols = lvl.ell_vals.numpy(), lvl.ell_cols.numpy()
-        rows = np.repeat(np.arange(vals.shape[0]), vals.shape[1])
-        E = sp.coo_matrix((vals.reshape(-1), (rows, cols.reshape(-1))),
-                          shape=A.shape).toarray()
-        _close(E, A.toarray())
+        if vals.size:
+            rows = np.repeat(np.arange(vals.shape[0]), vals.shape[1])
+            E = sp.coo_matrix((vals.reshape(-1), (rows, cols.reshape(-1))),
+                              shape=A.shape).toarray()
+            _close(E, A.toarray())
         d = A.diagonal()
         inv = np.where(np.abs(d) > 1e-12, 1.0 / d, 1.0)
         _close(lvl.inv_diag.numpy(), inv)
@@ -208,7 +218,7 @@ def test_gmg_coarse_picks_amg_above_8000_dofs():
                             coarse_amg_default_parameters=False)
     gmg.initialize()
     assert gmg.coarse_lu is None and gmg.coarse_amg is not None
-    assert gmg.coarse_amg.matrix_free_fine
+    assert gmg.coarse_amg.levels[0].ell_vals.numel() == 0   # matrix-free
     assert (gmg.coarse_amg.theta, gmg.coarse_amg.n_smooth,
             gmg.coarse_amg.max_coarse) == (0.02, 3, 1000)
     r = torch.as_tensor(rng.standard_normal((big.n_nodes, 4)),

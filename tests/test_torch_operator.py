@@ -92,7 +92,7 @@ def _close(a, ref, tol=TOL):
 @pytest.mark.parametrize("increment", [True, False])
 def test_general_sweep_parity(increment, cell_wise, consider_dt):
     opj, opt, u, rng = make_pair(1, increment, cell_wise, consider_dt)
-    assert opt._p2sweep is None               # f64: the general sweep
+    assert opt._fast is None                  # f64: the general sweep
     v = rng.standard_normal(u.shape)
     _close(opt.vmult(torch.as_tensor(v)).numpy(), opj.vmult(jnp.asarray(v)))
     _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),
@@ -257,7 +257,7 @@ def make_pair_3d(increment, cell_wise):
 def test_general_sweep_parity_3d(increment, cell_wise):
     """The f64 general sweep (the 3D fine level) on the Turek 3D mesh."""
     opj, opt, u, rng = make_pair_3d(increment, cell_wise)
-    assert opt._psweep is None                # f64: the general sweep
+    assert opt._fast is None                  # f64: the general sweep
     v = rng.standard_normal(u.shape)
     _close(opt.vmult(torch.as_tensor(v)).numpy(), opj.vmult(jnp.asarray(v)))
     _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),

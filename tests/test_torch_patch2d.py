@@ -25,6 +25,7 @@ from ns_gls_tpu_torch.fem.constraints import AffineConstraints as TAff
 from ns_gls_tpu_torch.fem.space import FESpace as TSpace
 from ns_gls_tpu_torch.mesh.cylinder import cylinder_mesh_2d as tmesh
 from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator as TOp
+from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep
 from ns_gls_tpu_torch.ops.time_integration import (
     BDFIntegrator as TBDF,
     SolutionHistory as THist,
@@ -66,9 +67,9 @@ def _setup(n_ref, increment, cell_wise, consider_dt):
               **kw)
     opg = TOp(st, cat, cat, time_integrator=tit, dtype=F32, device="cpu",
               use_structured=False, **kw)
-    assert opj._p2sweep is not None and opt._p2sweep is not None
-    assert opg._p2sweep is None
-    assert opt._p2sweep.m == 2**n_ref
+    assert opj._p2sweep is not None and isinstance(opt._fast, Patch2DSweep)
+    assert opg._fast is None
+    assert opt._fast.m == 2**n_ref
 
     rng = np.random.default_rng(0)
     u = np.asarray(distribute(caj, jnp.asarray(

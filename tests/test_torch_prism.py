@@ -74,7 +74,7 @@ def _setup(degree, increment, cell_wise, consider_dt, jax_prism):
     opt = TOp(st, cat, cat, time_integrator=tit, dtype=F32, device="cpu",
               **kw)
     assert (opj._psweep is not None) == jax_prism
-    assert opt._psweep is not None and opt._psweep.m == 2
+    assert isinstance(opt._fast, tp.PrismSweep) and opt._fast.m == 2
 
     rng = np.random.default_rng(0)
     u = np.asarray(distribute(caj, jnp.asarray(
@@ -131,16 +131,16 @@ def test_prism_gates():
     ti.update_dt(0.1)
     op = TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
              dtype=F32, device="cpu")
-    assert op._psweep is None and tp.prism_cell_geometry(op) is None
+    assert op._fast is None and tp.prism_cell_geometry(op) is None
     ti2 = TBDF(1)
     ti2.update_dt(0.1)
     ca64 = TAff(space.n_nodes, 4).close(torch.float64, "cpu")
     op2 = TOp(space, ca64, ca64, nu=0.02, c_1=4.0, c_2=2.0,
               time_integrator=ti2, dtype=torch.float64, device="cpu")
-    assert op2._psweep is None
+    assert op2._fast is None
     op3 = TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti2,
               dtype=F32, device="cpu")
-    assert op3._psweep is not None
+    assert isinstance(op3._fast, tp.PrismSweep)
 
 
 @pytest.mark.parametrize("degree", [1, 2])
@@ -159,13 +159,13 @@ def test_seam_compress_is_multiplicity(degree):
     ca = TAff(st.n_nodes, 4).close(F32, "cpu")
     op = TOp(st, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
              dtype=F32, device="cpu")
-    sw = op._psweep
+    sw = op._fast
     tab = sw.tables
     P, m = tab.P, tab.m
     rng = np.random.default_rng(5)
-    v = torch.as_tensor(rng.standard_normal((4, st.n2d, st.nz_nodes)),
-                        dtype=F32)
-    tiles = sw.gather(v)
+    vn = torch.as_tensor(rng.standard_normal((st.n_nodes, 4)), dtype=F32)
+    v = vn.T.reshape(4, st.n2d, st.nz_nodes)        # the product layout
+    tiles = sw.gather_nodes(vn, 4)
     rows = tiles[:, :, tp.cell_row_index(P, m)]       # (4, n_p, m, P+1, ...)
     out = sw.compress(rows)
     pn = tab.patch_nodes.numpy()
