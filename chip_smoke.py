@@ -30,8 +30,28 @@ Phases (any failure exits non-zero and prints no result line):
    launched,
 8. 3D stored series: refinement 1, 4 steps, against the JAX package's
    CPU series ``validation/turek_3d_re100_ref1_series.json``,
-9. the kernel line (JSON) with launches, errors, times and bounds,
-10. the result line (JSON).
+9. structured kernels vs plain: the channel 3D driver is set up
+   (``input/channel.json`` with dim 3, degree 2, refinement 3); the 2D,
+   3D and batched-3D structured kernels against the plain version on
+   sheared lattices (P = 1, 2) and on the channel's level spaces, in
+   every flavor x delta mode x consider_dt, two launches bit-identical,
+   each timed at the finest level's shape (the batched kernel's time
+   there is logged only: no driver path gives it that shape),
+10. channel 3D main path: 128 x 32 x 32 cells of Q2 (4,343,300 DoFs, six
+    GMG levels, f64 outer, f32 levels on the 3D structured kernel, direct
+    coarse) for 3 steps through ``Driver.run``; every Newton solve
+    converges, the solution is finite, every f32 level launched the
+    kernel and none ran the general sweep,
+11. channel 2D main path: degree 2, refinement 6 (1024 x 256 cells,
+    3,153,411 DoFs, nine GMG levels on the 2D structured kernel), 3 steps,
+    the same checks,
+12. gls-vmult lane: what ``bench_gpu.py 3 5 2`` runs, fixed-point and
+    increment flavor, each with the 3D and the batched 3D kernel, and
+    refinement 6 where the script's time allows; each lane's kernel is
+    first held to the plain version and timed at the lane's own shape,
+    state and scalars (the batched kernel's line entry comes from here),
+13. the kernel line (JSON) with launches, errors, times and bounds,
+14. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -39,7 +59,6 @@ Imports nothing of the JAX package; needs the repository around it.
 from __future__ import annotations
 
 import json
-import math
 import os
 import subprocess
 import sys
@@ -48,10 +67,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# card peaks for the bound (H100 SXM data sheet, dense, at 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# phases 3 and 6: kernel vs plain version, relative to the plain max-abs
+# phases 3, 6 and 9: kernel vs plain version, relative to the plain max-abs
 # (f32 with another summation order)
 KERNEL_REL_TOL = 1e-5
 # phase 5: the port's gap to the stored series measured on a CPU
@@ -69,6 +85,15 @@ SERIES3D_CPU_GAP = 8.70e-6
 SERIES3D_TOL = min(10 * SERIES3D_CPU_GAP, 1e-4)
 MAIN3D_STEPS = 3
 SERIES3D_STEPS = 4
+# phases 10 and 11: the channel (``input/channel.json``) at full width
+CHANNEL3D = {"dim": 3, "fe degree": 2, "n global refinements": 3}
+CHANNEL3D_DOFS = 4343300
+CHANNEL2D = {"fe degree": 2, "n global refinements": 6}
+CHANNEL2D_DOFS = 3153411
+CHANNEL_STEPS = 3
+# phase 12: refinement 6 of the gls-vmult lane only when the script has
+# used less than this many seconds (its limit is 1200)
+VMULT_REF6_BEFORE_S = 520.0
 
 
 def log(msg):
@@ -97,17 +122,23 @@ def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
     from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
+    from ns_gls_tpu_torch.ops.structured import StructuredKernel
 
     return {"patch2d_gls_sweep": Patch2DKernel.launches,
-            "prism_gls_sweep": PrismKernel.launches}
+            "prism_gls_sweep": PrismKernel.launches,
+            **StructuredKernel.launches}
 
 
 def reset_kernel_counts():
     from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
 
+    from ns_gls_tpu_torch.ops.structured import StructuredKernel
+
     Patch2DKernel.launches = 0
     PrismKernel.launches = 0
+    for name in StructuredKernel.launches:
+        StructuredKernel.launches[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -216,86 +247,11 @@ def phase_kernel_vs_plain(ops):
     return worst_abs, worst_rel
 
 
-def sumfac_fmas(n1, nodes, qpts, grads):
-    """FMAs of evaluating one component of a node tile at its q-points by
-    sum factorization: one axis at a time (``nodes``/``qpts``: extents per
-    axis in the order contracted), each q-point touching n1 nodes per
-    axis.  With ``grads`` the value and the reference derivative along
-    every axis (k + 2 arrays after the k-th axis), else the value alone.
-    Integration, the transpose, costs the same."""
-    fmas = 0
-    for k in range(len(nodes)):
-        extent = math.prod(qpts[:k + 1]) * math.prod(nodes[k + 1:])
-        fmas += (k + 2 if grads else 1) * extent * n1
-    return fmas
-
-
-def sweep_cost(d, n_tiles, n1, nodes, qpts, n_out, geometry, nq, cells,
-               flavor, consider_dt, cell_wise):
-    """(bytes, flops) of the least work of one fused GLS sweep with its
-    seam compress: the input tiles read once, the compressed node-major
-    output (n_out nodes) written once, ``geometry`` table floats read
-    once; sum-factorized evaluation of u, u_lin and the history and
-    integration of the test-function weights, plus the q-point work."""
-    C = d + 1
-    incr = flavor == "increment"
-    dt_old = consider_dt and flavor in ("increment", "residual")
-    lead_in = C + (C if incr else d) + (d if dt_old else 0)
-    tile = math.prod(nodes)
-    nbytes = 4 * (lead_in * n_tiles * tile + C * n_out + geometry)
-    g = sumfac_fmas(n1, nodes, qpts, True)
-    v = sumfac_fmas(n1, nodes, qpts, False)
-    fmas = n_tiles * (C * g + (C * g if incr else d * v)
-                      + (d * v if dt_old else 0) + C * g)
-    # per q-point: reference -> physical gradients (per component, 6
-    # flops in 2D, 7 with the prismatic J in 3D; u, and u_lin in
-    # increment), |u*|^2, the physics (counted from gls_qpoint.cuh) and
-    # the test-function weights
-    grad_map = 6 if d == 2 else 7
-    phys = {2: (75, 40), 3: (150, 80)}[d][0 if incr else 1]
-    weights = 1 + C * (9 if d == 2 else 11)
-    per_q = (C * grad_map * (2 if incr else 1) + 2 * d - 1 + phys + weights
-             + (1 if cell_wise else 15))
-    # delta: per cell from the max |u*|^2, or per q-point (in per_q)
-    flops = 2 * fmas + nq * per_q + (cells * 10 if cell_wise else 0)
-    return nbytes, flops
-
-
-def patch2d_cost(tables, flavor, consider_dt, cell_wise):
-    """(bytes, flops) of one patch-2D sweep (see ``sweep_cost``)."""
-    n_p = tables.jinv.shape[0]
-    P, NQ, m = tables.P, tables.NQ, tables.m
-    Xn, Lq = P * m + 1, NQ * m
-    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
-                                       tables.S1, tables.D1))
-    return sweep_cost(2, n_p, P + 1, (Xn, Xn), (Lq, Lq),
-                      int(tables.patch_nodes.max()) + 1, geometry,
-                      n_p * Lq * Lq, n_p * m * m, flavor, consider_dt,
-                      cell_wise)
-
-
 def time_sweep(fn, n=200):
-    import torch
+    """Milliseconds per call over n launches by CUDA events, 5 warm-ups."""
+    from ns_gls_tpu_torch.utils.timer import time_cuda
 
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(n):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / n
-
-
-def bound(nbytes, flops):
-    """(bound ms, what bounds it) from the card's peaks."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
-                                   else "operations")
+    return time_cuda(fn, n, warmup=5)
 
 
 # ---------------------------------------------------------------------------
@@ -360,22 +316,6 @@ def phase_prism_vs_plain(ops):
         f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL}); two m=8 "
         f"launches bit-identical")
     return worst_abs, worst_rel
-
-
-def prism_cost(tables, flavor, consider_dt, cell_wise):
-    """(bytes, flops) of one prism sweep (see ``sweep_cost``): z, then y,
-    then x contracted on the (Yn, Xn, Nzn) patch columns; the output is
-    the compressed (C, n2d, Nzn), not the kernel's cell-row tiles."""
-    n_p = tables.jinv.shape[0]
-    P, NQ, m, nz = tables.P, tables.NQ, tables.m, tables.nz
-    Xn, Nzn = P * m + 1, P * nz + 1
-    Lq, Lz = NQ * m, NQ * nz
-    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
-                                       tables.S1, tables.D1, tables.wz))
-    n2d = int(tables.patch_nodes.max()) + 1
-    return sweep_cost(3, n_p, P + 1, (Nzn, Xn, Xn), (Lz, Lq, Lq),
-                      n2d * Nzn, geometry, n_p * Lq * Lq * Lz,
-                      n_p * m * m * nz, flavor, consider_dt, cell_wise)
 
 
 # ---------------------------------------------------------------------------
@@ -529,6 +469,295 @@ def phase_series_3d():
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12: the structured kernels, the channel, the gls-vmult lane
+# ---------------------------------------------------------------------------
+SC_CH = dict(weight=140.0, stau=140.0, nu=0.0, c1=2.0, c2=1.0)
+SC_SHEAR = dict(weight=18.75, stau=12.5, nu=0.02, c1=4.0, c2=2.0)
+
+
+def structured_inputs(tables, seed=0):
+    import numpy as np
+    import torch
+
+    from ns_gls_tpu_torch.ops.structured import lattice_shape
+
+    shp = lattice_shape(tables.P, tables.cell_shape)
+    rng = np.random.default_rng(seed)
+    dev = tables.jinv.device
+
+    def t(lead):
+        return torch.as_tensor(rng.standard_normal((lead,) + shp),
+                               dtype=torch.float32, device=dev).contiguous()
+
+    return t(tables.d + 1), t(tables.d + 1), t(tables.d)
+
+
+def sheared_tables(dim, degree, device):
+    """Tables of a sheared parallelogram lattice (full jinv): 37 x 5
+    cells in 2D, 19 x 3 x 2 in 3D, so that a cell row splits into
+    segments and ragged chunks."""
+    import dataclasses
+
+    import torch
+
+    from ns_gls_tpu_torch.fem.constraints import AffineConstraints
+    from ns_gls_tpu_torch.fem.space import FESpace
+    from ns_gls_tpu_torch.mesh.generators import subdivided_hyper_rectangle
+    from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
+
+    cs = (37, 5) if dim == 2 else (19, 3, 2)
+    mesh = subdivided_hyper_rectangle(cs, (0.0,) * dim,
+                                      (1.2, 1.0, 0.8)[:dim], colorize=True)
+    v = mesh.vertices.copy()
+    v[:, 0] = v[:, 0] + 0.35 * v[:, 1]
+    if dim == 3:
+        v[:, 1] = v[:, 1] + 0.2 * v[:, 2]
+    mesh = dataclasses.replace(mesh, vertices=v)
+    space = FESpace(mesh, degree)
+    ca = AffineConstraints(space.n_nodes, dim + 1).close(torch.float32,
+                                                        device)
+    ti = BDFIntegrator(2)
+    ti.update_dt(0.1)
+    ti.update_dt(0.08)
+    op = NavierStokesOperator(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0,
+                              time_integrator=ti, dtype=torch.float32,
+                              device=device)
+    return op._fast.tables
+
+
+def structured_cases(tables, sc, seed=0):
+    from ns_gls_tpu_torch.ops.structured import FLAVORS
+
+    u, ul, vo = structured_inputs(tables, seed)
+    return [(tables, sc, u, ul, vo, flavor, cdt, cell_wise)
+            for flavor in FLAVORS for cell_wise in (True, False)
+            for cdt in (True, False)]
+
+
+def compare_structured(label, cases, batched, errs):
+    """One structured kernel (wrapper: kernel and fold) against the plain
+    version on ``cases``, and two launches on the same inputs for equal
+    bits.  Updates ``errs`` {kernel name: max abs err}; returns the max
+    rel err."""
+    import torch
+
+    from ns_gls_tpu_torch.ops import structured as st
+
+    name = st.StructuredKernel.kernel_name(cases[0][0].d, batched)
+    a, r = compare_cases(
+        name, lambda *c: st.structured_sweep(*c, batched=batched),
+        st.structured_sweep_plain, cases)
+    errs[name] = max(errs.get(name, 0.0), a)
+    args = cases[1]
+    x = st.structured_sweep(*args, batched=batched)
+    y = st.structured_sweep(*args, batched=batched)
+    torch.cuda.synchronize()
+    if not torch.equal(x, y):
+        raise AssertionError(f"two {name} launches on the same inputs "
+                             f"differ ({label})")
+    return r
+
+
+def phase_structured_vs_plain(tag, table_sets, errs):
+    """Every structured kernel that fits the tables' dimension against
+    the plain version; ``table_sets``: (label, tables, scalars).  Updates
+    ``errs`` {kernel name: max abs err}; returns the number of cases."""
+    n_cases = 0
+    worst_rel = 0.0
+    for label, tables, sc in table_sets:
+        for batched in ((False, True) if tables.d == 3 else (False,)):
+            cases = structured_cases(tables, sc)
+            worst_rel = max(worst_rel,
+                            compare_structured(label, cases, batched, errs))
+            n_cases += len(cases)
+        log(f"[{tag}] {label}: cells {tables.cell_shape}, P={tables.P}: ok")
+    log(f"[{tag}] structured kernels vs plain: {n_cases} cases, max abs err "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }, max rel err "
+        f"{worst_rel:.3e} (tol {KERNEL_REL_TOL}); relaunches bit-identical")
+    return n_cases
+
+
+def time_structured(tag, tables, sc, batched):
+    """Times of one structured sweep at the tables' shape in the main
+    path's level flavor (increment, cell-wise delta, BDF history): the
+    wrapper (kernel and fold), the kernel alone, the plain version, and
+    the function's bound."""
+    u, ul, vo = structured_inputs(tables, seed=1)
+    return time_structured_args(
+        tag, (tables, sc, u, ul, vo, "increment", True, True), batched)
+
+
+def time_structured_args(tag, args, batched):
+    """The same times for the sweep arguments ``args`` (tables, scalars,
+    uT, u_linT, vec_oldT, flavor, consider_dt, cell_wise)."""
+    from ns_gls_tpu_torch.ops import structured as st
+    from ns_gls_tpu_torch.utils.roofline import bound, structured_cost
+
+    tables, flavor = args[0], args[5]
+    ms = time_sweep(lambda: st.structured_sweep(*args, batched=batched))
+    kernel_ms = time_sweep(
+        lambda: st.StructuredKernel.launch(*args, batched=batched))
+    plain_ms = time_sweep(lambda: st.structured_sweep_plain(*args), n=10)
+    nbytes, flops = structured_cost(tables, *args[5:])
+    bound_ms, bound_by = bound(nbytes, flops)
+    name = st.StructuredKernel.kernel_name(tables.d, batched)
+    log(f"[{tag}] {name} at cells {tables.cell_shape}, P={tables.P}, "
+        f"{flavor} sweep: kernel and fold {ms:.4f} ms (kernel alone "
+        f"{kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} B, {flops} flop)")
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+class GeneralSweepCount:
+    """Counts the calls of the general gather sweep by operator dtype
+    while it is installed."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+
+        self._cls = NavierStokesOperator
+        self._orig = orig = NavierStokesOperator._cell_sweep
+        calls = self.calls
+
+        def counted(op, *a, **kw):
+            calls[op.dtype] = calls.get(op.dtype, 0) + 1
+            return orig(op, *a, **kw)
+
+        NavierStokesOperator._cell_sweep = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._cell_sweep = self._orig
+        return False
+
+
+def phase_channel(tag, drv, params, setup_s, kernel, n_dofs):
+    """Channel main path: ``CHANNEL_STEPS`` steps; every Newton solve
+    converges, the solution is finite with the inflow enforced, every f32
+    level holds the structured sweep, ``kernel`` was launched and no f32
+    operator ran the general sweep."""
+    import torch
+
+    from ns_gls_tpu_torch.ops.structured import StructuredSweep
+
+    dim = params.dim
+    if drv.space.n_nodes * (dim + 1) != n_dofs:
+        raise AssertionError(f"{drv.space.n_nodes * (dim + 1)} DoFs, want "
+                             f"{n_dofs}")
+    if not all(isinstance(op._fast, StructuredSweep) for op in drv.mg_ops):
+        raise AssertionError("a channel level holds no structured sweep")
+    torch.cuda.reset_peak_memory_stats()
+    with GeneralSweepCount() as general:
+        _, run_s, counts = run_steps(drv, CHANNEL_STEPS)
+    stats = drv.step_stats
+    if len(stats) != CHANNEL_STEPS:
+        raise AssertionError(f"ran {len(stats)} steps, want {CHANNEL_STEPS}")
+    tol = params.nonlinear_tolerance
+    for i, s in enumerate(stats):
+        log(f"[{tag}] step {i + 1}: {s['seconds']:.3f} s, Newton "
+            f"{s['newton']} (residual {s['newton_residual']:.2e}), GMRES "
+            f"{s['gmres']}")
+        if not s["newton_residual"] <= tol:
+            raise AssertionError(f"step {i + 1}: Newton residual "
+                                 f"{s['newton_residual']:.3e} > {tol}")
+    u = drv.solution.current
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError("non-finite channel solution")
+    inflow = torch.as_tensor(drv.space.boundary_nodes([0]), device=u.device)
+    if not abs(float(u[inflow, 0].max()) - 1.0) < 1e-12:
+        raise AssertionError("the inflow value is not enforced")
+    launches = counts[kernel]
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if launches <= 0 or others:
+        raise AssertionError(f"kernel launches {counts}: want {kernel} only")
+    f32_general = general.calls.get(torch.float32, 0)
+    if f32_general or not general.calls.get(torch.float64, 0):
+        raise AssertionError(f"general sweep calls by dtype {general.calls}: "
+                             "want none in f32 and some in f64")
+    log(f"[{tag}] channel {dim}D degree {params.fe_degree} ref "
+        f"{params.n_global_refinements}: {drv.mesh.n_cells} cells, {n_dofs} "
+        f"DoFs, {len(drv.mg_ops)} GMG levels, setup {setup_s:.2f} s, "
+        f"{CHANNEL_STEPS} steps in {run_s:.2f} s; max |u| "
+        f"{float(u[:, :dim].abs().max()):.6g}")
+    log(f"[{tag}] kernel launches {counts} ({launches / CHANNEL_STEPS:.1f} "
+        f"{kernel} per step); general sweep calls: f32 {f32_general}, f64 "
+        f"{general.calls[torch.float64]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(launches=launches, stats=stats)
+
+
+def phase_vmult_lane(t_start):
+    """What ``bench_gpu.py`` runs (its own functions).  Each lane's
+    operator is first held to the plain version at the lane's own shape,
+    state and scalars (every flavor x delta mode x consider_dt, the
+    lane's own combination among them; two launches bit-identical) and
+    its sweep is timed there beside the plain version and the bound;
+    then the kernel counts are set to 0, the lane is driven
+    (``bench_gpu.measure``) and the counts are read.  Returns the
+    launches by kernel name, the comparison errors {kernel name: max abs
+    err} and, per lane, the measured numbers."""
+    import torch
+
+    import bench_gpu
+    from ns_gls_tpu_torch.ops.structured import FLAVORS
+
+    lanes = [(5, False, False), (5, True, False), (5, False, True),
+             (5, True, True)]
+    launches = {}
+    errs = {}
+    results = []
+    worst_rel = 0.0
+    for ref, increment, batched in lanes + [(6, False, False),
+                                            (6, False, True)]:
+        if ref == 6 and time.perf_counter() - t_start > VMULT_REF6_BEFORE_S:
+            log("[12] refinement 6 left out: the script has run "
+                f"{time.perf_counter() - t_start:.0f} s")
+            break
+        op, space, u = bench_gpu.build(3, ref, 2, increment, batched)
+        n_dofs = space.n_nodes * 4
+        label = (f"gls-vmult 3 {ref} 2{' --increment' if increment else ''}"
+                 f"{' --batched' if batched else ''}")
+        own = bench_gpu.sweep_args(op, u / torch.linalg.vector_norm(u))
+        cases = [own[:5] + (flavor, cdt, cell_wise)
+                 for flavor in FLAVORS for cell_wise in (True, False)
+                 for cdt in (True, False)]
+        if own[5:] not in [c[5:] for c in cases]:
+            raise AssertionError(f"{label}: the lane's own combination "
+                                 f"{own[5:]} is not among the cases")
+        worst_rel = max(worst_rel,
+                        compare_structured(label, cases, batched, errs))
+        times = time_structured_args(12, own, batched)
+        del cases, own
+        reset_kernel_counts()
+        res = bench_gpu.measure(op, u)
+        for name, n in kernel_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        results.append(dict(ref=ref, increment=increment, batched=batched,
+                            n_dofs=n_dofs, times=times, **res))
+        log(f"[12] {label}: {n_dofs} DoFs, "
+            f"{n_dofs / res['apply_us']:.1f} MDoF/s, {res['apply_us']:.1f} "
+            f"us/apply, sweep alone {res['sweep_us']:.1f} us, kernel "
+            f"{res['kernel_us']:.1f} us, bound "
+            f"{res['bound_us']:.1f} us by {res['bound_by']}")
+        del op, space, u
+        torch.cuda.empty_cache()
+    for name in ("structured3d", "structured3d_batched"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the gls-vmult lane did not launch {name}")
+    log(f"[12] {12 * len(results)} cases vs plain at the lanes' own shapes "
+        f"and state: max abs err "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }, max rel err "
+        f"{worst_rel:.3e} (tol {KERNEL_REL_TOL}); relaunches bit-identical; "
+        f"kernel launches while the lanes were driven {launches}")
+    return launches, errs, results
+
+
 def main() -> int:
     try:
         import torch
@@ -557,11 +786,17 @@ def main() -> int:
 
         # 2. build
         from ns_gls_tpu_torch.utils import cuda_build
+        from ns_gls_tpu_torch.utils.roofline import (
+            bound,
+            patch2d_cost,
+            prism_cost,
+        )
 
         t0 = time.perf_counter()
-        cuda_build.build_libraries(["patch2d", "prism"])
-        log(f"[2] built patch2d and prism in {time.perf_counter() - t0:.1f} s")
-        for name in ("patch2d", "prism"):
+        cuda_build.build_libraries(["patch2d", "prism", "structured"])
+        log(f"[2] built patch2d, prism and structured in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name in ("patch2d", "prism", "structured"):
             for line in cuda_build.build_info[name]["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[2]   {name}: {line.strip()}")
@@ -618,9 +853,57 @@ def main() -> int:
 
         # 8. 3D stored series
         phase_series_3d()
+        torch.cuda.empty_cache()
+        log(f"[-] Turek phases done at {time.perf_counter() - t_start:.1f} s")
+
+        # 9. channel 3D set-up, structured kernels against plain version
+        params_c3 = config(CHANNEL3D, "channel.json")
+        drv_c3, setup_c3 = setup_driver(params_c3)
+        log(f"[9] channel 3D driver set up in {setup_c3:.2f} s")
+        errs = {}
+        sheared = [(f"sheared {dim}D", sheared_tables(dim, degree, "cuda"),
+                    SC_SHEAR) for dim in (2, 3) for degree in (1, 2)]
+        levels3 = [(f"channel 3D level {l}", op._fast.tables, SC_CH)
+                   for l, op in enumerate(drv_c3.mg_ops)]
+        phase_structured_vs_plain(9, sheared + levels3, errs)
+        fine3 = drv_c3.mg_ops[-1]._fast.tables
+        t_s3 = time_structured(9, fine3, SC_CH, False)
+        time_structured(9, fine3, SC_CH, True)      # logged only
+        del sheared, levels3, fine3
+
+        # 10. channel 3D main path
+        ch3 = phase_channel(10, drv_c3, params_c3, setup_c3, "structured3d",
+                            CHANNEL3D_DOFS)
+        del drv_c3
+        torch.cuda.empty_cache()
+
+        # 11. channel 2D: kernel on its level spaces, then the main path
+        params_c2 = config(CHANNEL2D, "channel.json")
+        drv_c2, setup_c2 = setup_driver(params_c2)
+        levels2 = [(f"channel 2D level {l}", op._fast.tables, SC_CH)
+                   for l, op in enumerate(drv_c2.mg_ops)]
+        phase_structured_vs_plain(11, levels2, errs)
+        t_s2 = time_structured(11, drv_c2.mg_ops[-1]._fast.tables, SC_CH,
+                               False)
+        del levels2
+        ch2 = phase_channel(11, drv_c2, params_c2, setup_c2, "structured2d",
+                            CHANNEL2D_DOFS)
+        del drv_c2
+        torch.cuda.empty_cache()
+        log(f"[-] channel phases done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 12. gls-vmult lane
+        vmult_counts, vmult_errs, vmult = phase_vmult_lane(t_start)
+        # the batched kernel's row: the lane ``3 5 2 --increment
+        # --batched`` (the other rows' flavor), the only path that
+        # launches it
+        t_s3b = next(r["times"] for r in vmult
+                     if r["ref"] == 5 and r["increment"] and r["batched"])
+        errs["structured3d_batched"] = vmult_errs["structured3d_batched"]
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 9. kernel line, card line, result line
+        # 13. kernel line, card line, result line
         kernels = [dict(
             name="patch2d_gls_sweep",
             route="cuda",
@@ -646,6 +929,33 @@ def main() -> int:
             bound_by=pbound_by,
             library_ms=None,
         )]
+        # the structured kernels: time of the wrapper (kernel and fold).
+        # 2D and 3D: at the finest channel level, errors over phases 9
+        # and 11, launches from the channel main paths.  Batched, which
+        # no driver path selects: error, times and bound at the gls-vmult
+        # lane's shape (32^3 cells) and state, launches from that lane
+        for name, line, t, launches in (
+                ("structured3d", 540, t_s3, ch3["launches"]),
+                ("structured2d", 1131, t_s2, ch2["launches"]),
+                ("structured3d_batched", 910, t_s3b,
+                 vmult_counts["structured3d_batched"])):
+            kernels.append(dict(
+                name=name,
+                route="cuda",
+                source="ns_gls_tpu_torch/csrc/structured.cu",
+                replaces=f"ns_gls_tpu/ops/structured.py:{line}",
+                launches=launches,
+                max_abs_err=errs[name],
+                ms=t["ms"],
+                plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"],
+                library_ms=None,
+            ))
+        for k in kernels:
+            if k["launches"] <= 0:
+                raise AssertionError(f"{k['name']} was not launched on its "
+                                     "path")
         log(smi)
         log(json.dumps({"kernels": kernels}))
         print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,7 @@
 // What bounds the function on an H100, at the Turek 2D ref-3 shapes
 // (P = 2, NQ = 3, m = 8: 289 nodes and 576 q-points per patch, 88
 // patches, 22,992 nodes), increment flavor with the history term
-// (chip_smoke.py patch2d_cost):
+// (utils/roofline.py patch2d_cost):
 //   bytes: per patch u 3468 + u_lin 3468 + vec_old 2312 + jinv 9216
 //          + jxw 2304 + h 512 = 21.3 KB, x 88, plus the seam-compressed
 //          output 3 x 22,992 floats: 2.15 MB -> 0.64 us at 3.35 TB/s

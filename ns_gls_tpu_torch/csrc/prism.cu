@@ -40,7 +40,7 @@
 //
 // What bounds the function on an H100, at the Turek 3D ref-3 shapes
 // (P = 2, NQ = 3, m = 8, nz = 32: Xn = 17, Nzn = 65, 100 patches, 204,800
-// cells), increment flavor with the history term (chip_smoke.py
+// cells), increment flavor with the history term (utils/roofline.py
 // prism_cost):
 //   bytes: u 4 + u_lin 4 + vec_old 3 node tiles of 100 x 17^2 x 65 floats
 //          = 82.6 MB, the seam-compressed output 4 x 1,697,280 floats

@@ -220,6 +220,8 @@ class Driver:
         # per time step: Newton and GMRES iterations, seconds
         self.step_stats = []
         self._t0 = 0.0
+        # simulated time after the last completed step
+        self.time_reached = 0.0
         self._counter0 = 1
         self._restarted = False
 
@@ -494,7 +496,7 @@ class Driver:
             vectors, self.params.dtype, self.device
         )
         set_dt_history(self.time_integrator, dt_history)
-        self._t0 = float(t)
+        self._t0 = self.time_reached = float(t)
         self._counter0 = int(counter)
         self._restarted = True
 
@@ -554,6 +556,7 @@ class Driver:
                 self.log(f"    [S] l2-norm of solution: {norm:.8g}")
 
                 t += dt
+                self.time_reached = t
                 self._output(t)
                 rec = self.sim.postprocess(t, self.solution.current)
                 if rec:

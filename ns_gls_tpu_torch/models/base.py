@@ -98,7 +98,7 @@ class SimulationBase:
     def mapping_degree(self, fe_degree: int, requested: int) -> int:
         return fe_degree if requested == 0 else requested
 
-    def setup_postprocess(self, space, nu: float):
+    def setup_postprocess(self, space, nu: float, device="cuda"):
         pass
 
     def postprocess(self, t: float, solution) -> Optional[dict]:

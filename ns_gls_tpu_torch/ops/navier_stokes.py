@@ -17,11 +17,13 @@ The computational core — the port of the reference's
 
 Layout: cells are the leading (batch) axis; basis contractions are
 einsums over the cell batch.  In f32 with a BDF or stationary integrator
-the whole sweep is a fused kernel (CUDA on the card): the patch kernel on
-patch-2D spaces (``ops/patch2d.py``) and the prism kernel on extruded 3D
-spaces (``ops/prism.py``); everything else runs the general gather sweep
-below.  The weak-outflow face terms of the reference are
-not ported yet.
+the whole sweep is a fused kernel (CUDA on the card), picked in the JAX
+package's order: the structured kernels on affine lattice spaces
+(``ops/structured.py``: subdivided rectangles and boxes, no gather at
+all), else the prism kernel on extruded 3D spaces (``ops/prism.py``) or
+the patch kernel on patch-2D spaces (``ops/patch2d.py``); everything
+else runs the general gather sweep below.  The weak-outflow face terms
+of the reference are not ported yet.
 
 State updates replace the ``state`` tuple with new tensors (as the JAX
 reference's immutable pytrees do); nothing here writes into a tensor that
@@ -67,8 +69,9 @@ class NSState(NamedTuple):
       fields have extent 0,
     - fused: only the *vectors* (u_lin, vec_old, u_old) are stored and the
       q-point tables are recomputed inside the sweep; the table fields
-      have q-extent 0.  The patch-2D and prism sweeps also keep the
-      patch-gathered views ``u_linT`` / ``vec_oldT``.
+      have q-extent 0.  The fused sweeps also keep the lattice views
+      (structured) or patch-gathered views (patch-2D, prism)
+      ``u_linT`` / ``vec_oldT``.
     """
 
     weight: torch.Tensor        # () primary BDF/theta weight
@@ -84,7 +87,8 @@ class NSState(NamedTuple):
     u_lin: torch.Tensor         # (n_nodes, C) fused mode, else (0, C)
     vec_old: torch.Tensor       # (n_nodes, C) fused mode, else (0, C)
     u_old: torch.Tensor         # (n_nodes, C) fused theta mode, else (0, C)
-    u_linT: torch.Tensor        # patch-2D: (C, n_patches, Yn, Xn); prism:
+    u_linT: torch.Tensor        # structured: (C,) + lattice_shape;
+    #                             patch-2D: (C, n_patches, Yn, Xn); prism:
     #                             (C, n_patches, Yn, Xn, Nzn); else (0,)
     vec_oldT: torch.Tensor      # the same with lead d
 
@@ -129,11 +133,11 @@ class NavierStokesOperator:
     ``get_max_u``, ``invalidate_system``; diagonals and assembled matrices
     are in ``ops/assembly.py``.
 
-    ``use_structured`` admits the fused patch-2D or prism sweep where the
-    configuration allows it (patch-2D or extruded 3D space, f32,
-    theta = 1); it is on by
-    default and the tests switch it off to hold the two sweeps against
-    each other.
+    ``use_structured`` admits a fused sweep where the configuration
+    allows it (f32, theta = 1): the structured sweep on an affine lattice
+    space, else the prism sweep on an extruded 3D space or the patch-2D
+    sweep on a patch-2D space.  It is on by default and the tests switch
+    it off to hold the sweeps against each other.
     """
 
     def __init__(
@@ -200,26 +204,39 @@ class NavierStokesOperator:
         if self.affine_geometry:
             jinv_np = jinv_np[:, :1]
 
-        # fused sweep: patch-2D (ops/patch2d.py) on 2D patch spaces, prism
+        # fused sweep, in the JAX package's order: structured
+        # (ops/structured.py) on affine lattices, else prism
         # (ops/prism.py) on extruded 3D meshes, the Turek/Hoffmann 3D
-        # family; it consumes the linearization VECTORS, so it forces
-        # fused tables
+        # family, or patch-2D (ops/patch2d.py) on 2D patch spaces; it
+        # consumes the linearization VECTORS, so it forces fused tables
         self._fast = None
         if use_structured:
+            from ns_gls_tpu_torch.ops.structured import (
+                StructuredSweep,
+                build_structured_tables,
+            )
+
+            candidates = [(build_structured_tables, StructuredSweep)]
             if space.dim == 2:
                 from ns_gls_tpu_torch.ops.patch2d import (
-                    Patch2DSweep as sweep,
-                    build_patch2d_tables as build,
+                    Patch2DSweep,
+                    build_patch2d_tables,
                 )
+
+                candidates.append((build_patch2d_tables, Patch2DSweep))
             else:
                 from ns_gls_tpu_torch.ops.prism import (
-                    PrismSweep as sweep,
-                    build_prism_tables as build,
+                    PrismSweep,
+                    build_prism_tables,
                 )
-            tables = build(self)
-            if tables is not None:
-                self.fuse_tables = True
-                self._fast = sweep(self, tables)
+
+                candidates.append((build_prism_tables, PrismSweep))
+            for build, sweep in candidates:
+                tables = build(self)
+                if tables is not None:
+                    self.fuse_tables = True
+                    self._fast = sweep(self, tables)
+                    break
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
@@ -278,7 +295,7 @@ class NavierStokesOperator:
         )
 
     def _fast_path_view_shape(self, lead: int):
-        """Shape of the patch-gathered linearization views."""
+        """Shape of the lattice / patch-gathered linearization views."""
         return self._fast.view_shape(lead) if self._fast is not None else (0,)
 
     # ------------------------------------------------------------------
@@ -457,10 +474,15 @@ class NavierStokesOperator:
         return r
 
     def _sweep(self, u, residual_form: bool):
+        """One sweep over the cells: the fused sweep this operator holds
+        (the JAX package's ``_fast_apply`` with its ``_structured_apply``
+        / ``_prism_apply`` / ``_patch2d_apply``, behind one interface
+        here) or the general one."""
         sw = self._fast
         if sw is not None:
-            # u is patch-gathered here, the linearization tensors are
-            # pre-gathered in the state
+            # u is viewed as a lattice (structured: a reshape, no index)
+            # or patch-gathered here; the linearization tensors are kept
+            # that way in the state
             flavor = ("residual" if residual_form
                       else "increment" if self.increment_form else "fixed")
             return sw.apply(self._weight_host, self._stau_host,

@@ -104,5 +104,23 @@ def get_collection() -> TimerCollection:
     return _collection
 
 
+def time_cuda(fn, n, warmup=0):
+    """Milliseconds per call of ``fn`` on the card: n calls between two
+    CUDA events, after ``warmup`` untimed calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
 def print_wall_time_statistics():
     _collection.print_all()

@@ -20,6 +20,10 @@ def test_import_loads_no_jax():
         "import json, sys\n"
         "import ns_gls_tpu_torch, ns_gls_tpu_torch.driver\n"
         "import ns_gls_tpu_torch.__main__\n"
+        "import ns_gls_tpu_torch.ops.structured\n"
+        "import ns_gls_tpu_torch.models.channel\n"
+        "import ns_gls_tpu_torch.utils.roofline\n"
+        "import bench_gpu, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'ns_gls_tpu' "
         "or m.startswith('ns_gls_tpu.'))))\n"
@@ -33,7 +37,8 @@ def test_import_loads_no_jax():
 
 def test_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)|ns_gls_tpu\.", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_gpu.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ns_gls_tpu_torch")):
         files += [os.path.join(d, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
@@ -75,3 +80,83 @@ def test_unported_configuration_raises():
                                        key: value})
         with pytest.raises(NotImplementedError):
             Driver(params, device="cpu")
+
+
+def test_bench_gpu_needs_cuda_or_explicit_cpu(monkeypatch, capsys):
+    """``bench_gpu.py`` exits non-zero without a card; ``--device cpu``
+    rehearses the control flow (two chained applies of the structured
+    sweep's plain version) and prints no device metric."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_gpu
+    finally:
+        sys.path.remove(ROOT)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_gpu.main([]) == 2
+    assert "MDoF/s" not in capsys.readouterr().out
+    for argv in (["2", "2", "1", "--device", "cpu"],
+                 ["3", "1", "2", "--increment", "--batched", "--device",
+                  "cpu"]):
+        assert bench_gpu.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "not measured" in out and "MDoF/s" not in out
+    op, space, u = bench_gpu.build(3, 1, 2, True, True, "cpu")
+    assert op._fast.batched and op.increment_form
+    assert space.n_nodes * 4 == 500 and u.shape == (125, 4)
+
+
+def test_bench_gpu_rejects_batched_outside_3d(capsys):
+    """``--batched`` names the batched 3D kernel: with dim 2 the parser
+    refuses it instead of running the 2D kernel under that flag."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_gpu
+    finally:
+        sys.path.remove(ROOT)
+    with pytest.raises(SystemExit) as exc:
+        bench_gpu.main(["2", "2", "1", "--batched", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "--batched" in capsys.readouterr().err
+
+
+def test_bench_gpu_sweep_args_are_the_operators_own():
+    """``sweep_args`` hands out the operator's own lattice state, scalars
+    and flavor: the sweep on them is what ``vmult`` computes."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_gpu
+    finally:
+        sys.path.remove(ROOT)
+    from ns_gls_tpu_torch.ops.structured import structured_sweep
+
+    op, _, u = bench_gpu.build(3, 1, 2, True, False, "cpu")
+    args = bench_gpu.sweep_args(op, u)
+    assert args[5:] == ("increment", True, True)
+    assert args[1]["nu"] == 0.1 and args[1]["c1"] == 4.0
+    assert args[3] is op.state.u_linT and args[4] is op.state.vec_oldT
+    out = structured_sweep(*args)
+    assert torch.equal(out.reshape(4, -1).T, op.vmult(u))
+
+
+def test_structured_cost_counts_the_function():
+    """The bound's byte count: u, u_lin (velocity only outside the
+    increment flavor), the history where the flavor reads it, the output
+    and the tables, each once."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_gpu
+    finally:
+        sys.path.remove(ROOT)
+    from ns_gls_tpu_torch.utils.roofline import bound, structured_cost
+
+    op, space, _ = bench_gpu.build(3, 2, 2, False, False, "cpu")
+    tab = op._fast.tables
+    n = space.n_nodes
+    geometry = 64 * (9 + 27 + 2) + 2 * 9
+    b_incr, f_incr = structured_cost(tab, "increment", True, True)
+    b_fix, f_fix = structured_cost(tab, "fixed", True, True)
+    assert b_incr == 4 * ((4 + 4 + 3 + 4) * n + geometry)
+    assert b_fix == 4 * ((4 + 3 + 0 + 4) * n + geometry)
+    assert f_incr > f_fix > 0
+    ms, by = bound(b_incr, f_incr)
+    assert by in ("bytes", "operations") and ms > 0

@@ -1,0 +1,265 @@
+"""The port's structured sweep (its plain PyTorch version, which the CUDA
+kernels are held to on the card) against the JAX package, on the meshes of
+the JAX package's ``tests/test_structured.py`` (3x2 and 3x2x2 cells, plain
+and sheared): in 2D at Q1/Q2 and in 3D at Q1 against the Pallas kernels,
+run as the JAX package's own tests run them on the CPU (interpret mode
+through ``use_structured=True``), and in 3D at Q2 against the JAX general
+sweep (``use_structured=False``; the interpret-mode Q2 3D kernel is
+slow-marked in the JAX tests).
+
+Both sides run in f32 with different summation orders (the Pallas
+increment and fixed flavors also split their band products in bf16x3):
+5e-6 relative to the reference's max-abs, as the JAX package's own
+structured tests use.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ns_gls_tpu.fem.constraints import AffineConstraints as JAff, distribute
+from ns_gls_tpu.fem.space import FESpace as JSpace
+from ns_gls_tpu.mesh import generators as jgen
+from ns_gls_tpu.ops.navier_stokes import NavierStokesOperator as JOp
+from ns_gls_tpu.ops.time_integration import (
+    BDFIntegrator as JBDF,
+    SolutionHistory as JHist,
+)
+from ns_gls_tpu_torch.fem.constraints import AffineConstraints as TAff
+from ns_gls_tpu_torch.fem.space import FESpace as TSpace
+from ns_gls_tpu_torch.mesh import generators as tgen
+from ns_gls_tpu_torch.ops import structured as ts
+from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator as TOp
+from ns_gls_tpu_torch.ops.time_integration import (
+    BDFIntegrator as TBDF,
+    SolutionHistory as THist,
+    ThetaIntegrator as TTheta,
+)
+
+TOL = 5e-6
+F32 = torch.float32
+
+
+def lattice_mesh(gen, dim, shear=0.0):
+    mesh = gen.subdivided_hyper_rectangle(
+        (3, 2) + ((2,) if dim == 3 else ()),
+        (0.0,) * dim,
+        (1.2, 1.0) + ((0.8,) if dim == 3 else ()),
+        colorize=True,
+    )
+    if shear:
+        # sheared parallelogram lattice: structured and affine, with
+        # off-diagonal Jacobian entries
+        v = mesh.vertices.copy()
+        v[:, 0] = v[:, 0] + shear * v[:, 1]
+        mesh = dataclasses.replace(mesh, vertices=v)
+    return mesh
+
+
+def _setup(dim, degree, increment, cell_wise, consider_dt, jax_structured,
+           shear=0.0, batched=False):
+    """JAX operator (Pallas structured kernel in interpret mode, or the
+    general sweep) and the port's structured operator, all f32, with one
+    numpy seed."""
+    C = dim + 1
+    sj = JSpace(lattice_mesh(jgen, dim, shear), degree)
+    st = TSpace(lattice_mesh(tgen, dim, shear), degree)
+    assert st.structured
+    bn = st.boundary_nodes([0])
+    vals = [[1.0] + [0.0] * (dim - 1)] * len(bn)
+    bj = JAff(sj.n_nodes, C)
+    bj.add_dirichlet(bn, list(range(dim)), values=vals)
+    bt = TAff(st.n_nodes, C)
+    bt.add_dirichlet(bn, list(range(dim)), values=vals)
+    caj = bj.close(jnp.float32)
+    cat = bt.close(F32, "cpu")
+    tij, tit = JBDF(2), TBDF(2)
+    for dt in (0.1, 0.08):
+        tij.update_dt(dt)
+        tit.update_dt(dt)
+    kw = dict(nu=0.02, c_1=4.0, c_2=2.0, consider_time_derivative=consider_dt,
+              increment_form=increment, cell_wise_stabilization=cell_wise)
+    opj = JOp(sj, caj, caj, time_integrator=tij, fuse_tables=True,
+              dtype=jnp.float32, use_structured=jax_structured, **kw)
+    opt = TOp(st, cat, cat, time_integrator=tit, dtype=F32, device="cpu",
+              **kw)
+    assert (opj._ssweep is not None) == jax_structured
+    assert isinstance(opt._fast, ts.StructuredSweep)
+    if batched:
+        opt._fast = ts.StructuredSweep(opt, opt._fast.tables, batched=True)
+
+    rng = np.random.default_rng(0)
+    u = np.array(distribute(caj, jnp.asarray(
+        rng.standard_normal((st.n_nodes, C)), jnp.float32)))
+    hist = [u] + [rng.standard_normal((st.n_nodes, C)).astype(np.float32)
+                  for _ in range(2)]
+    opj.constraints_inhomogeneous = caj
+    opj.set_previous_solution(JHist([jnp.asarray(h) for h in hist]))
+    opj.set_linearization_point(jnp.asarray(u))
+    opt.constraints_inhomogeneous = cat
+    opt.set_previous_solution(THist.from_numpy(hist, F32, "cpu"))
+    opt.set_linearization_point(torch.as_tensor(u))
+    v = rng.standard_normal(u.shape).astype(np.float32)
+    return opj, opt, u, v
+
+
+def _close(a, ref):
+    a = np.asarray(a, np.float64)
+    ref = np.asarray(ref, np.float64)
+    err = np.abs(a - ref).max() / np.abs(ref).max()
+    assert err <= TOL, err
+
+
+def _check(opj, opt, u, v):
+    _close(opt.vmult(torch.as_tensor(v)).numpy(), opj.vmult(jnp.asarray(v)))
+    _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),
+           opj.evaluate_residual(jnp.asarray(u)))
+
+
+@pytest.mark.parametrize("degree,consider_dt,increment,cell_wise", [
+    (1, True, False, True), (1, True, True, False), (2, True, True, True),
+    (2, True, False, False), (1, False, True, True), (2, False, False, False),
+    (2, False, True, False),
+])
+def test_plain_structured_2d_vs_pallas(degree, consider_dt, increment,
+                                       cell_wise):
+    """2D, Q1 and Q2: increment / fixed vmult and the residual, both
+    delta modes, with and without the time derivative in the
+    stabilization (without it the residual drops the history, in both
+    packages)."""
+    _check(*_setup(2, degree, increment, cell_wise, consider_dt, True))
+
+
+@pytest.mark.parametrize("consider_dt,increment,cell_wise", [
+    (True, False, False), (True, True, True), (False, True, False),
+    (False, False, True),
+])
+def test_plain_structured_3d_q1_vs_pallas(consider_dt, increment, cell_wise):
+    _check(*_setup(3, 1, increment, cell_wise, consider_dt, True))
+
+
+@pytest.mark.parametrize("increment,cell_wise", [(True, True),
+                                                 (False, False)])
+def test_structured_3d_q2_vs_general_sweep(increment, cell_wise):
+    """Q2 in 3D (the channel's and the operator benchmark's degree on the
+    card) against the JAX general sweep."""
+    _check(*_setup(3, 2, increment, cell_wise, True, False))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_plain_structured_sheared_vs_pallas(dim):
+    """Sheared lattice: the full jinv contraction."""
+    opj, opt, u, v = _setup(dim, 1, True, True, True, True, shear=0.35)
+    ji = opt._fast.tables.jinv.reshape(-1, dim, dim)
+    assert float(ji[:, 0, 1].abs().max()) > 0.1     # dxi_x/dx_y != 0
+    _check(opj, opt, u, v)
+
+
+def test_structured_q3_vs_general_sweep():
+    """Degree 3 (two interior residue classes) against the JAX general
+    sweep, 2D."""
+    _check(*_setup(2, 3, True, True, True, False))
+
+
+@pytest.mark.parametrize("increment", [True, False])
+def test_batched_equals_unbatched_on_cpu(increment):
+    """``batched=True`` picks another kernel on the card only; on the CPU
+    both run the same plain version."""
+    _, op_a, u, v = _setup(3, 1, increment, True, True, False)
+    _, op_b, _, _ = _setup(3, 1, increment, True, True, False, batched=True)
+    assert op_b._fast.batched and not op_a._fast.batched
+    assert ts.StructuredKernel.kernel_name(3, True) == "structured3d_batched"
+    assert ts.StructuredKernel.kernel_name(2, True) == "structured2d"
+    a = op_a.vmult(torch.as_tensor(v))
+    b = op_b.vmult(torch.as_tensor(v))
+    assert torch.equal(a, b)
+
+
+def _gate_op(space, ti, dtype):
+    C = space.dim + 1
+    ca = TAff(space.n_nodes, C).close(dtype, "cpu")
+    return TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
+               dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["f64", "theta", "no_lattice", "curved",
+                                  "off", "ok"])
+def test_structured_gates(case):
+    """f64, the theta method, a mesh without a lattice and a non-affine
+    lattice give no structured sweep, as in the JAX package."""
+    mesh = tgen.subdivided_hyper_rectangle((2, 2), (0.0, 0.0), (1.0, 1.0),
+                                           colorize=True)
+    ti = TBDF(1)
+    ti.update_dt(0.1)
+    dtype = F32
+    if case == "f64":
+        dtype = torch.float64
+    elif case == "theta":
+        ti = TTheta(0.5)
+        ti.update_dt(0.1)
+    elif case == "no_lattice":
+        mesh.lattice = None
+    elif case == "curved":
+        v = mesh.vertices.copy()
+        v[:, 0] = v[:, 0] * (1.0 + 0.2 * v[:, 1])
+        mesh = dataclasses.replace(mesh, vertices=v)
+    space = TSpace(mesh, 1)
+    if case == "off":
+        ca = TAff(space.n_nodes, 3).close(dtype, "cpu")
+        op = TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0,
+                 time_integrator=ti, dtype=dtype, device="cpu",
+                 use_structured=False)
+    else:
+        op = _gate_op(space, ti, dtype)
+    if case == "ok":
+        assert isinstance(op._fast, ts.StructuredSweep)
+        assert op.state.u_linT.shape == (3, 3, 1, 3)
+        assert op.state.vec_oldT.shape == (2, 3, 1, 3)
+    else:
+        # a mesh without a lattice still takes the patch-2D sweep
+        assert not isinstance(op._fast, ts.StructuredSweep)
+        assert (op._fast is None) == (case != "no_lattice")
+        assert ts.build_structured_tables(op) is None or case == "off"
+
+
+@pytest.mark.parametrize("dim,degree", [(2, 1), (2, 2), (2, 3), (3, 1),
+                                        (3, 2), (3, 3)])
+def test_lattice_index_and_fold(dim, degree):
+    """The class-grouped index map equals the FESpace numbering, and the
+    kernels' cell-row tiles, folded, equal the scatter-add: tiles are
+    built here from per-cell values summed along x only."""
+    st = TSpace(lattice_mesh(tgen, dim), degree)
+    P = degree
+    cs = tuple(st.cell_shape)
+    lat = st.mesh.lattice
+    perm = np.lexsort(tuple(lat[:, k] for k in range(dim)))
+    idx = ts.lattice_cell_nodes(P, cs)
+    assert np.array_equal(idx, st.cell_nodes[perm])
+    shp = ts.lattice_shape(P, cs)
+    assert int(np.prod(shp)) == st.n_nodes
+
+    rng = np.random.default_rng(3)
+    n1 = P + 1
+    C = dim + 1
+    r_loc = rng.standard_normal((C, idx.shape[0], n1 ** dim))
+    ref = np.zeros((C, st.n_nodes))
+    for c in range(C):
+        np.add.at(ref[c], idx.reshape(-1), r_loc[c].reshape(-1))
+    # tiles: per cell row, the x overlap-add of that row's cells
+    nx = cs[0]
+    Nx = P * nx + 1
+    rows = cs[1:][::-1]                       # ([nz,] ny)
+    tiles = np.zeros((C,) + rows + (n1,) * (dim - 1) + (Nx,))
+    rl = r_loc.reshape((C,) + rows + (nx,) + (n1,) * dim)
+    for ex in range(nx):
+        tiles[..., P * ex:P * ex + n1] += rl[(slice(None),) * (dim)
+                                             + (ex,)]
+    tab = ts.StructuredTables(d=dim, P=P, NQ=P + 1, cell_shape=cs,
+                              S1=None, D1=None, jinv=None, jxw=None, h=None)
+    out = ts.fold_tiles(tab, torch.as_tensor(tiles))
+    assert tuple(out.shape) == (C,) + shp
+    np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
+                               atol=1e-12)

@@ -1,13 +1,17 @@
 """Where a time step of the PyTorch port goes on the GPU.
 
     python tools/profile_torch_step.py [config] [--warmup 2] [--steps 2]
+        [--dim D] [--degree P] [--refinements R]
 
-Runs the config (default ``input/turek_2d_re100.json``, output off)
-through the port's ``Driver`` on CUDA for ``--warmup`` steps, then
+Runs the config (default ``input/turek_2d_re100.json``, output off;
+``--dim``, ``--degree`` and ``--refinements`` override its "dim", "fe
+degree" and "n global refinements", e.g. ``input/channel.json --dim 3
+--degree 2 --refinements 3``) through the port's ``Driver`` on CUDA for ``--warmup`` steps, then
 continues from that state for ``--steps`` more under ``torch.profiler``
 and prints: seconds per profiled step, the device busy share (summed
-kernel time over wall time), the top device operations by total time,
-and the driver's scope timers.
+kernel time over the profiled steps' seconds, and over the profiled wall,
+which also holds the profiler's start and stop), the top device operations
+by total time, and the driver's scope timers.
 """
 
 from __future__ import annotations
@@ -37,15 +41,22 @@ def main():
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--dim", type=int, default=None)
+    ap.add_argument("--degree", type=int, default=None)
+    ap.add_argument("--refinements", type=int, default=None)
     args = ap.parse_args()
 
     raw = _load_json(args.config)
     raw.update({"paraview prefix": "", "output granularity": 0.0})
+    for key, value in (("dim", args.dim), ("fe degree", args.degree),
+                       ("n global refinements", args.refinements)):
+        if value is not None:
+            raw[key] = value
     set_verbose(False)
     drv = Driver(Parameters.from_dict(raw), device="cuda")
-    recs = drv.run(max_steps=args.warmup)
+    drv.run(max_steps=args.warmup)
     sol = [v.cpu().numpy() for v in drv.solution.vectors]
-    drv.restart_from(sol, list(drv.time_integrator._dt), recs[-1]["t"],
+    drv.restart_from(sol, list(drv.time_integrator._dt), drv.time_reached,
                      args.warmup + 1)
     get_collection().reset()
     torch.cuda.synchronize()
@@ -64,14 +75,28 @@ def main():
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    import subprocess
+
+    print("device: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0])
+    print(f"{drv.mesh.n_cells} cells, "
+          f"{drv.space.n_nodes * (drv.params.dim + 1)} DoFs, "
+          f"{len(drv.mg_ops)} GMG levels")
     print(f"profiled steps: {len(stats)}, wall {wall:.3f} s "
           f"({wall / max(len(stats), 1):.4f} s/step, profiler on; "
           f"{[round(s['seconds'], 4) for s in stats]} s per step); "
           f"Newton {[s['newton'] for s in stats]}, "
           f"GMRES {[s['gmres'] for s in stats]}")
-    print(f"device busy: {busy_us / 1e6:.4f} s = "
-          f"{100 * busy_us / 1e6 / wall:.1f}% of wall")
+    # both shares: ``wall`` also holds the profiler's start and stop,
+    # which dwarf a short window; the steps' own seconds do not
+    step_s = sum(s["seconds"] for s in stats)
+    busy_s = busy_us / 1e6
+    print(f"device busy: {busy_s:.4f} s = "
+          f"{100 * busy_s / max(step_s, 1e-9):.1f}% of the profiled "
+          f"steps' {step_s:.3f} s, {100 * busy_s / wall:.1f}% of the "
+          f"profiled wall {wall:.3f} s")
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
     get_collection().print_all()
 
