@@ -2,6 +2,7 @@
 """gls-vmult operator benchmark of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 bench_gpu.py [dim] [ref] [degree] [--increment] [--batched]
+    python3 bench_gpu.py --sphere [ref] [degree]
 
 The reference's second executable (``performance.cc``): a hypercube
 refined ``ref`` times (default 3 5 2: 32^3 cells of Q2, 1,098,500 DoFs),
@@ -12,6 +13,12 @@ normalized, output), timed with CUDA events.  The operator runs the
 structured sweep (``ops/structured.py``); ``--increment`` times the
 Newton-increment flavor instead of the fixed-point one, ``--batched`` the
 3D kernel that contracts all components together.
+
+``--sphere`` is the general-mesh lane (the JAX package's ``bench.py
+--sphere``): the Gmsh sphere mesh ``meshes/sphere.msh`` refined ``ref``
+times (default 3 2: 24,576 cells of Q2, 811,272 DoFs), no constraints,
+BDF-2, the Newton-increment flavor, q-wise delta, nu = 0.001, c1 = 2,
+c2 = 1, on the patch-3D sweep (``ops/patch3d.py``).
 
 Prints the card's name and power limit, MDoF/s and microseconds per
 apply, the sweep alone (kernel and fold), its kernel alone and the
@@ -37,7 +44,6 @@ def build(dim=3, refinements=5, degree=2, increment=False, batched=False,
           device="cuda"):
     """The benchmark operator (f32, structured sweep) with its state set,
     the space, and the start vector (n_nodes, dim + 1)."""
-    import numpy as np
     import torch
 
     from ns_gls_tpu_torch.fem.constraints import AffineConstraints
@@ -45,10 +51,7 @@ def build(dim=3, refinements=5, degree=2, increment=False, batched=False,
     from ns_gls_tpu_torch.mesh.generators import subdivided_hyper_rectangle
     from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
     from ns_gls_tpu_torch.ops.structured import StructuredSweep
-    from ns_gls_tpu_torch.ops.time_integration import (
-        BDFIntegrator,
-        SolutionHistory,
-    )
+    from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
 
     dtype = torch.float32
     mesh = subdivided_hyper_rectangle(
@@ -70,13 +73,55 @@ def build(dim=3, refinements=5, degree=2, increment=False, batched=False,
                            "structured sweep")
     if batched:
         op._fast = StructuredSweep(op, op._fast.tables, batched=True)
+    return op, space, random_state(op)
+
+
+def random_state(op):
+    """Set a BDF-2 history and linearization point from
+    ``numpy.random.default_rng(0)`` (u, 0.9 u, 0.8 u); returns u."""
+    import numpy as np
+    import torch
+
+    from ns_gls_tpu_torch.ops.time_integration import SolutionHistory
+
     rng = np.random.default_rng(0)
-    u = rng.standard_normal((space.n_nodes, C)).astype(np.float32)
+    u = rng.standard_normal((op.n_nodes, op.n_comp)).astype(np.float32)
     op.set_previous_solution(SolutionHistory.from_numpy(
-        [u, u * np.float32(0.9), u * np.float32(0.8)], dtype, op.device))
+        [u, u * np.float32(0.9), u * np.float32(0.8)], op.dtype, op.device))
     u = torch.as_tensor(u, device=op.device)
     op.set_linearization_point(u)
-    return op, space, u
+    return u
+
+
+def build_sphere(refinements=3, degree=2, device="cuda"):
+    """The sphere lane's operator (f32, patch-3D sweep) with its state
+    set, the space, and the start vector (n_nodes, 4): the operator of
+    the JAX package's ``bench.py`` ``build_sphere``."""
+    import torch
+
+    from ns_gls_tpu_torch.fem.constraints import AffineConstraints
+    from ns_gls_tpu_torch.fem.space import FESpace
+    from ns_gls_tpu_torch.mesh.gmsh import read_msh
+    from ns_gls_tpu_torch.models.sphere import MESH_FILE
+    from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from ns_gls_tpu_torch.ops.patch3d import Patch3DSweep
+    from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
+
+    dtype = torch.float32
+    space = FESpace(read_msh(MESH_FILE).refine_global(refinements), degree)
+    ca = AffineConstraints(space.n_nodes, 4).close(dtype, device)
+    ti = BDFIntegrator(2)
+    ti.update_dt(0.1)
+    ti.update_dt(0.1)
+    op = NavierStokesOperator(
+        space, ca, ca, nu=0.001, c_1=2.0, c_2=1.0, time_integrator=ti,
+        consider_time_derivative=True, increment_form=True,
+        cell_wise_stabilization=False, dtype=dtype, device=device,
+    )
+    if not isinstance(op._fast, Patch3DSweep):
+        raise RuntimeError("the sphere operator did not take the patch-3D "
+                           "sweep")
+    return op, space, random_state(op)
 
 
 def chained_applies(op, v, n):
@@ -90,8 +135,8 @@ def chained_applies(op, v, n):
 
 
 def sweep_args(op, v):
-    """The arguments the operator's apply gives its structured sweep on
-    the vector v: (tables, scalars, uT, u_linT, vec_oldT, flavor,
+    """The arguments the operator's apply gives its fused sweep on the
+    vector v: (tables, scalars, uT, u_linT, vec_oldT, flavor,
     consider_dt, cell_wise), with the operator's own state and scalars."""
     sw = op._fast
     st = op.state
@@ -103,14 +148,28 @@ def sweep_args(op, v):
             sw.consider_dt, sw.cell_wise)
 
 
+def kernel_of(op):
+    """(kernel wrapper, cost function, launch counts) of the operator's
+    fused sweep: the structured kernels, or the patch-3D one."""
+    from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel, Patch3DSweep
+    from ns_gls_tpu_torch.ops.structured import StructuredKernel
+    from ns_gls_tpu_torch.utils.roofline import patch3d_cost, structured_cost
+
+    sw = op._fast
+    if isinstance(sw, Patch3DSweep):
+        return (Patch3DKernel.launch, patch3d_cost,
+                lambda: {"patch3d_gls_sweep": Patch3DKernel.launches})
+    return ((lambda *a: StructuredKernel.launch(*a, sw.batched)),
+            structured_cost, lambda: dict(StructuredKernel.launches))
+
+
 def measure(op, u):
     """Device times of the apply chain, of the sweep alone (kernel and
-    fold) and of the kernel alone, best of three windows each; the
-    sweep's bound from this operator's tables."""
+    seam sum or fold) and of the kernel alone, best of three windows
+    each; the sweep's bound from this operator's tables."""
     import torch
 
-    from ns_gls_tpu_torch.ops.structured import StructuredKernel
-    from ns_gls_tpu_torch.utils.roofline import bound, structured_cost
+    from ns_gls_tpu_torch.utils.roofline import bound
     from ns_gls_tpu_torch.utils.timer import time_cuda
 
     reps = REPS
@@ -128,14 +187,15 @@ def measure(op, u):
     def sweep():
         return sw.apply(sc["weight"], sc["stau"], uT, ulT, voT, flavor)
 
+    launch, cost, _ = kernel_of(op)
+
     def kernel():
-        return StructuredKernel.launch(*args, sw.batched)
+        return launch(*args)
 
     sweep()
     sweep_ms = min(time_cuda(sweep, reps) for _ in range(3))
     kernel_ms = min(time_cuda(kernel, reps) for _ in range(3))
-    nbytes, flops = structured_cost(tables, flavor, sw.consider_dt,
-                                    sw.cell_wise)
+    nbytes, flops = cost(tables, flavor, sw.consider_dt, sw.cell_wise)
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(apply_us=apply_ms * 1e3, sweep_us=sweep_ms * 1e3,
                 kernel_us=kernel_ms * 1e3, bound_us=bound_ms * 1e3,
@@ -145,13 +205,27 @@ def measure(op, u):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="bench_gpu.py")
-    ap.add_argument("dim", nargs="?", type=int, default=3)
-    ap.add_argument("ref", nargs="?", type=int, default=5)
-    ap.add_argument("degree", nargs="?", type=int, default=2)
+    ap.add_argument("dim", nargs="?", type=int, default=None)
+    ap.add_argument("ref", nargs="?", type=int, default=None)
+    ap.add_argument("degree", nargs="?", type=int, default=None)
     ap.add_argument("--increment", action="store_true")
     ap.add_argument("--batched", action="store_true")
+    ap.add_argument("--sphere", action="store_true",
+                    help="the sphere lane: the numbers are [ref] [degree]")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.sphere:
+        if args.degree is not None or args.increment or args.batched:
+            ap.error("--sphere takes [ref] [degree] and runs the increment "
+                     "flavor on the patch-3D kernel")
+        args.dim, args.ref, args.degree = (
+            3, 3 if args.dim is None else args.dim,
+            2 if args.ref is None else args.ref)
+        args.increment = True
+    else:
+        args.dim = 3 if args.dim is None else args.dim
+        args.ref = 5 if args.ref is None else args.ref
+        args.degree = 2 if args.degree is None else args.degree
     if args.batched and args.dim != 3:
         ap.error("--batched selects the batched 3D kernel: it needs dim 3")
 
@@ -165,14 +239,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    op, space, u = build(args.dim, args.ref, args.degree, args.increment,
-                         args.batched, args.device)
+    if args.sphere:
+        op, space, u = build_sphere(args.ref, args.degree, args.device)
+    else:
+        op, space, u = build(args.dim, args.ref, args.degree,
+                             args.increment, args.batched, args.device)
     n_dofs = space.n_nodes * (args.dim + 1)
     lane = dict(dim=args.dim, ref=args.ref, degree=args.degree,
                 flavor="increment" if args.increment else "fixed",
-                batched=args.batched,
+                batched=args.batched, sphere=args.sphere,
                 n_cells=space.mesh.n_cells, n_dofs=n_dofs)
-    print(f"gls-vmult: {space.mesh.n_cells} cells, degree {args.degree}, "
+    print(f"gls-vmult{' (sphere)' if args.sphere else ''}: "
+          f"{space.mesh.n_cells} cells, degree {args.degree}, "
           f"{n_dofs} DoFs, {lane['flavor']} flavor"
           f"{', batched kernel' if lane['batched'] else ''}; set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -182,8 +260,6 @@ def main(argv=None) -> int:
         print(f"CPU rehearsal: two chained applies, finite = {ok}; "
               "device metrics: not measured")
         return 0 if ok else 1
-
-    from ns_gls_tpu_torch.ops.structured import StructuredKernel
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -199,7 +275,7 @@ def main(argv=None) -> int:
           f"{res['bound_us']:.1f} us by {res['bound_by']} "
           f"({res['bound_bytes']} B, {res['bound_flops']} flop)")
     print(json.dumps(dict(lane, card=card, mdofs_per_s=mdofs, **res,
-                          launches=dict(StructuredKernel.launches))))
+                          launches=kernel_of(op)[2]())))
     return 0
 
 

@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device: require CUDA; print the card's name and power limit,
 2. build: compile the CUDA kernels from ``ns_gls_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together),
+   ``nvcc`` per source, all started together: patch2d, prism, structured,
+   patch3d),
 3. patch-2D kernel vs plain: the patch-2D kernel against its plain
    PyTorch version on the card, on the Turek 2D ref-3 space (m = 8) and
    every GMG level space (m = 1, 2, 4), in every flavor x delta mode x
@@ -50,8 +51,24 @@ Phases (any failure exits non-zero and prints no result line):
     refinement 6 where the script's time allows; each lane's kernel is
     first held to the plain version and timed at the lane's own shape,
     state and scalars (the batched kernel's line entry comes from here),
-13. the kernel line (JSON) with launches, errors, times and bounds,
-14. the result line (JSON).
+13. patch-3D kernel vs plain: the ``input/sphere_amg.json`` driver is set
+    up as given (its level spaces are reused by phase 14) and the
+    ``input/sphere.json`` one too (phase 15); the patch-3D kernel against
+    its plain version on every patch-3D level space of the first (m = 2,
+    4, 8) and on the single-cell-patch Q1 space of the second (m = 1), in
+    every flavor x delta mode x consider_dt, two launches bit-identical,
+    timed at the m = 8 shape in the path's own flavor,
+14. sphere main path: ``input/sphere_amg.json`` as given (refinement 3,
+    Q2, 811,272 DoFs, stationary exact Newton, f64 outer, f32 levels on
+    the patch-3D kernel over an iso-Q1 coarsest level with AMG) through
+    ``Driver.run``, output off; the Newton solve converges, the solution
+    is finite, slip walls carry no normal flux and the sphere no
+    velocity, the patch-3D kernel was launched and only the iso-Q1 level
+    ran the general sweep in f32,
+15. transient sphere: ``input/sphere.json`` as given (Q1, refinement 0,
+    BDF-2, inexact Newton, direct coarse) for 3 steps, the same checks,
+16. the kernel line (JSON) with launches, errors, times and bounds,
+17. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -66,9 +83,11 @@ import time
 import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the kernels' sources, ``ns_gls_tpu_torch/csrc/<name>.cu``
+KERNEL_SOURCES = ["patch2d", "prism", "structured", "patch3d"]
 
-# phases 3, 6 and 9: kernel vs plain version, relative to the plain max-abs
-# (f32 with another summation order)
+# phases 3, 6, 9 and 13: kernel vs plain version, relative to the plain
+# max-abs (f32 with another summation order)
 KERNEL_REL_TOL = 1e-5
 # phase 5: the port's gap to the stored series measured on a CPU
 # (f64 outer, f32 levels on the plain patch-2D sweep): 1.29e-7 of
@@ -94,6 +113,12 @@ CHANNEL_STEPS = 3
 # phase 12: refinement 6 of the gls-vmult lane only when the script has
 # used less than this many seconds (its limit is 1200)
 VMULT_REF6_BEFORE_S = 520.0
+# phases 14 and 15: the sphere, and its boundary conditions as the JAX
+# package's tests/test_sphere_checkpoint.py checks them
+SPHERE_DOFS = 811272
+SPHERE_STEPS = 3
+SLIP_FLUX_TOL = 1e-9
+NO_SLIP_TOL = 1e-12
 
 
 def log(msg):
@@ -121,22 +146,25 @@ def config(overrides: dict, name: str = "turek_2d_re100.json"):
 def kernel_counts() -> dict:
     """The launch counts of every kernel wrapper, by kernel name."""
     from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
+    from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
     from ns_gls_tpu_torch.ops.structured import StructuredKernel
 
     return {"patch2d_gls_sweep": Patch2DKernel.launches,
             "prism_gls_sweep": PrismKernel.launches,
-            **StructuredKernel.launches}
+            **StructuredKernel.launches,
+            "patch3d_gls_sweep": Patch3DKernel.launches}
 
 
 def reset_kernel_counts():
     from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
+    from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
-
     from ns_gls_tpu_torch.ops.structured import StructuredKernel
 
     Patch2DKernel.launches = 0
     PrismKernel.launches = 0
+    Patch3DKernel.launches = 0
     for name in StructuredKernel.launches:
         StructuredKernel.launches[name] = 0
 
@@ -260,23 +288,25 @@ def time_sweep(fn, n=200):
 SC3 = dict(weight=187.5, stau=100.0, nu=0.001, c1=2.0, c2=1.0)
 
 
-def prism_inputs(tables, seed=0):
+def tile_inputs(shape, device, seed=0):
+    """Random u (4), u_lin (4) and vec_old (3) node tiles of ``shape``."""
     import numpy as np
     import torch
 
-    n_p = tables.jinv.shape[0]
-    Xn = tables.P * tables.m + 1
-    Nzn = tables.P * tables.nz + 1
     rng = np.random.default_rng(seed)
-    dev = tables.jinv.device
 
     def t(lead):
-        return torch.as_tensor(
-            rng.standard_normal((lead, n_p, Xn, Xn, Nzn)),
-            dtype=torch.float32, device=dev,
-        ).contiguous()
+        return torch.as_tensor(rng.standard_normal((lead,) + shape),
+                               dtype=torch.float32, device=device)
 
     return t(4), t(4), t(3)
+
+
+def prism_inputs(tables, seed=0):
+    Xn = tables.P * tables.m + 1
+    Nzn = tables.P * tables.nz + 1
+    return tile_inputs((tables.jinv.shape[0], Xn, Xn, Nzn),
+                       tables.jinv.device, seed)
 
 
 def phase_prism_vs_plain(ops):
@@ -613,10 +643,11 @@ def time_structured_args(tag, args, batched):
 
 class GeneralSweepCount:
     """Counts the calls of the general gather sweep by operator dtype
-    while it is installed."""
+    while it is installed, and keeps the f32 operators that made them."""
 
     def __init__(self):
         self.calls = {}
+        self.f32_ops = []
 
     def __enter__(self):
         from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
@@ -624,9 +655,15 @@ class GeneralSweepCount:
         self._cls = NavierStokesOperator
         self._orig = orig = NavierStokesOperator._cell_sweep
         calls = self.calls
+        f32_ops = self.f32_ops
 
         def counted(op, *a, **kw):
+            import torch
+
             calls[op.dtype] = calls.get(op.dtype, 0) + 1
+            if op.dtype == torch.float32 and not any(o is op
+                                                     for o in f32_ops):
+                f32_ops.append(op)
             return orig(op, *a, **kw)
 
         NavierStokesOperator._cell_sweep = counted
@@ -758,6 +795,209 @@ def phase_vmult_lane(t_start):
     return launches, errs, results
 
 
+# ---------------------------------------------------------------------------
+# phases 13-15: the patch-3D kernel and the sphere
+# ---------------------------------------------------------------------------
+def patch3d_inputs(tables, seed=0):
+    Xn = tables.P * tables.m + 1
+    return tile_inputs((tables.jinv.shape[0], Xn, Xn, Xn),
+                       tables.jinv.device, seed)
+
+
+def sweep_scalars(op):
+    """The scalars the operator hands its fused sweep."""
+    sw = op._fast
+    return dict(weight=op._weight_host, stau=op._stau_host, nu=sw.nu,
+                c1=sw.c1, c2=sw.c2)
+
+
+def phase_patch3d_vs_plain(level_sets):
+    """The patch-3D kernel against its plain version on every level space
+    of ``level_sets`` ((label, tables, scalars)), in every flavor x delta
+    mode x consider_dt; two launches on the same inputs give the same
+    bits.  Returns (max abs err, max rel err)."""
+    import torch
+
+    from ns_gls_tpu_torch.ops import patch3d as p3
+
+    worst_rel = 0.0
+    worst_abs = 0.0
+    n_cases = 0
+    for label, tables, sc in level_sets:
+        u, ul, vo = patch3d_inputs(tables)
+        cases = []
+        for flavor in p3.FLAVORS:
+            ulf = ul if flavor == "increment" else ul[:3].contiguous()
+            for cell_wise in (True, False):
+                for cdt in (True, False):
+                    cases.append((tables, sc, u, ulf, vo, flavor, cdt,
+                                  cell_wise))
+        a, r = compare_cases("patch-3D", p3.Patch3DKernel.launch,
+                             p3.patch3d_sweep_plain, cases)
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        n_cases += len(cases)
+        x = p3.Patch3DKernel.launch(*cases[4])
+        y = p3.Patch3DKernel.launch(*cases[4])
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            raise AssertionError(f"two patch-3D launches on the same inputs "
+                                 f"differ ({label})")
+        log(f"[13] {label}: P={tables.P} m={tables.m} "
+            f"patches={tables.jinv.shape[0]}: {len(cases)} cases ok")
+    log(f"[13] kernel vs plain: {n_cases} cases, max abs err "
+        f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol "
+        f"{KERNEL_REL_TOL}); relaunches bit-identical")
+    return worst_abs, worst_rel
+
+
+def time_patch3d(tables, sc, flavor, consider_dt, cell_wise):
+    """Kernel, plain version and bound of one patch-3D sweep at the
+    tables' shape."""
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.utils.roofline import bound, patch3d_cost
+
+    u, ul, vo = patch3d_inputs(tables, seed=1)
+    if flavor != "increment":
+        ul = ul[:3].contiguous()
+    args = (tables, sc, u, ul, vo, flavor, consider_dt, cell_wise)
+    ms = time_sweep(lambda: p3.Patch3DKernel.launch(*args))
+    plain_ms = time_sweep(lambda: p3.patch3d_sweep_plain(*args), n=20)
+    nbytes, flops = patch3d_cost(tables, flavor, consider_dt, cell_wise)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"[13] m={tables.m} P={tables.P} {flavor} sweep (consider_dt "
+        f"{consider_dt}, cell-wise {cell_wise}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+        f"({nbytes} B, {flops} flop)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_sphere_solution(tag, drv):
+    """Finite solution; no normal flux through the slip walls (id 2), no
+    velocity on the sphere (id 0).  Returns (max flux, max |u| there)."""
+    import torch
+
+    u = drv.solution.current
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"[{tag}] non-finite sphere solution")
+    nodes, normals = drv.space.boundary_node_normals([2])
+    un = u[torch.as_tensor(nodes, device=u.device), :3]
+    flux = float((un * torch.as_tensor(normals, dtype=u.dtype,
+                                       device=u.device)).sum(1).abs().max())
+    wall = torch.as_tensor(drv.space.boundary_nodes([0]), device=u.device)
+    no_slip = float(u[wall, :3].abs().max())
+    if not flux < SLIP_FLUX_TOL:
+        raise AssertionError(f"[{tag}] slip-wall flux {flux:.3e}")
+    if not no_slip < NO_SLIP_TOL:
+        raise AssertionError(f"[{tag}] velocity on the sphere {no_slip:.3e}")
+    return flux, no_slip
+
+
+def phase_sphere(tag, drv, params, setup_s, steps):
+    """A sphere run of ``steps`` time steps (one stationary solve when the
+    config has no time integration): every Newton solve converges, the
+    boundary conditions hold, the patch-3D kernel was launched and no
+    f32 level but the iso-Q1 coarsest ran the general sweep."""
+    import torch
+
+    from ns_gls_tpu_torch.ops.patch3d import Patch3DSweep
+
+    iso = [op for op in drv.mg_ops if op.space.iso_q1]
+    if not all(isinstance(op._fast, Patch3DSweep) for op in drv.mg_ops
+               if not op.space.iso_q1):
+        raise AssertionError("a sphere level holds no patch-3D sweep")
+    torch.cuda.reset_peak_memory_stats()
+    with GeneralSweepCount() as general:
+        _, run_s, counts = run_steps(drv, steps)
+    stats = drv.step_stats
+    if len(stats) != steps:
+        raise AssertionError(f"ran {len(stats)} steps, want {steps}")
+    tol = params.nonlinear_tolerance
+    for i, s in enumerate(stats):
+        log(f"[{tag}] step {i + 1}: {s['seconds']:.3f} s, Newton "
+            f"{s['newton']} (residual {s['newton_residual']:.2e}), GMRES "
+            f"{s['gmres']}")
+        if not s["newton_residual"] <= tol:
+            raise AssertionError(f"step {i + 1}: Newton residual "
+                                 f"{s['newton_residual']:.3e} > {tol}")
+    flux, no_slip = check_sphere_solution(tag, drv)
+    launches = counts["patch3d_gls_sweep"]
+    others = {k: v for k, v in counts.items()
+              if k != "patch3d_gls_sweep" and v}
+    if launches <= 0 or others:
+        raise AssertionError(f"kernel launches {counts}: want "
+                             "patch3d_gls_sweep only")
+    if any(not any(op is o for o in iso) for op in general.f32_ops):
+        raise AssertionError("an f32 level other than the iso-Q1 coarsest "
+                             "ran the general sweep")
+    n_dofs = drv.space.n_nodes * 4
+    log(f"[{tag}] sphere Q{params.fe_degree} ref "
+        f"{params.n_global_refinements}: {drv.mesh.n_cells} cells, {n_dofs} "
+        f"DoFs, GMG levels {[op.space.n_nodes * 4 for op in drv.mg_ops]}, "
+        f"setup {setup_s:.2f} s, {steps} step(s) in {run_s:.2f} s; max |u| "
+        f"{float(drv.solution.current[:, :3].abs().max()):.6g}, slip flux "
+        f"{flux:.2e}, velocity on the sphere {no_slip:.2e}")
+    log(f"[{tag}] kernel launches {counts}; general sweep calls by dtype "
+        f"{ {str(k): v for k, v in general.calls.items()} } (f32 on "
+        f"{len(general.f32_ops)} iso-Q1 level(s)); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(launches=launches, stats=stats, n_dofs=n_dofs)
+
+
+def phases_sphere():
+    """Phases 13-15; returns the patch-3D kernel's entry of the kernel
+    line: its error over phase 13, its time at the finest sphere level in
+    the main path's flavor, its launches from phase 14."""
+    import torch
+
+    # 13. sphere drivers set up, patch-3D kernel against plain version
+    params_s = config({}, "sphere_amg.json")
+    drv_s, setup_s = setup_driver(params_s)
+    if drv_s.space.n_nodes * 4 != SPHERE_DOFS:
+        raise AssertionError(f"{drv_s.space.n_nodes * 4} sphere DoFs, "
+                             f"want {SPHERE_DOFS}")
+    params_t = config({}, "sphere.json")
+    drv_t, setup_t = setup_driver(params_t)
+    log(f"[13] sphere_amg.json driver set up in {setup_s:.2f} s, "
+        f"sphere.json in {setup_t:.2f} s")
+    # the sphere_amg levels with the scalars the stationary path gives
+    # them (weight 0, 1/dt 1), the transient level with BDF ones
+    for op in drv_s.mg_ops:
+        op.update_weight()
+    level_sets = [(f"sphere_amg level {l}", op._fast.tables,
+                   sweep_scalars(op))
+                  for l, op in enumerate(drv_s.mg_ops)
+                  if op._fast is not None]
+    level_sets.append(("sphere level 0", drv_t.mg_ops[0]._fast.tables, SC3))
+    max_abs, _ = phase_patch3d_vs_plain(level_sets)
+    fine = drv_s.mg_ops[-1]
+    t = time_patch3d(fine._fast.tables, sweep_scalars(fine), "increment",
+                     fine.consider_time_derivative,
+                     fine.cell_wise_stabilization)
+    del level_sets, fine
+
+    # 14. sphere main path
+    sph = phase_sphere(14, drv_s, params_s, setup_s, 1)
+    del drv_s
+    torch.cuda.empty_cache()
+
+    # 15. transient sphere
+    phase_sphere(15, drv_t, params_t, setup_t, SPHERE_STEPS)
+    return dict(
+        name="patch3d_gls_sweep",
+        route="cuda",
+        source="ns_gls_tpu_torch/csrc/patch3d.cu",
+        replaces="ns_gls_tpu/ops/patch3d.py:260",
+        launches=sph["launches"],
+        max_abs_err=max_abs,
+        ms=t["ms"],
+        plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"],
+        library_ms=None,
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -793,10 +1033,10 @@ def main() -> int:
         )
 
         t0 = time.perf_counter()
-        cuda_build.build_libraries(["patch2d", "prism", "structured"])
-        log(f"[2] built patch2d, prism and structured in "
+        cuda_build.build_libraries(KERNEL_SOURCES)
+        log(f"[2] built {', '.join(KERNEL_SOURCES)} in "
             f"{time.perf_counter() - t0:.1f} s")
-        for name in ("patch2d", "prism", "structured"):
+        for name in KERNEL_SOURCES:
             for line in cuda_build.build_info[name]["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[2]   {name}: {line.strip()}")
@@ -901,9 +1141,14 @@ def main() -> int:
         t_s3b = next(r["times"] for r in vmult
                      if r["ref"] == 5 and r["increment"] and r["batched"])
         errs["structured3d_batched"] = vmult_errs["structured3d_batched"]
+        log(f"[-] gls-vmult phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 13-15. the patch-3D kernel and the sphere
+        p3_line = phases_sphere()
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 13. kernel line, card line, result line
+        # 16. kernel line, card line, result line
         kernels = [dict(
             name="patch2d_gls_sweep",
             route="cuda",
@@ -952,6 +1197,7 @@ def main() -> int:
                 bound_by=t["bound_by"],
                 library_ms=None,
             ))
+        kernels.append(p3_line)
         for k in kernels:
             if k["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was not launched on its "

@@ -20,9 +20,11 @@ einsums over the cell batch.  In f32 with a BDF or stationary integrator
 the whole sweep is a fused kernel (CUDA on the card), picked in the JAX
 package's order: the structured kernels on affine lattice spaces
 (``ops/structured.py``: subdivided rectangles and boxes, no gather at
-all), else the prism kernel on extruded 3D spaces (``ops/prism.py``) or
-the patch kernel on patch-2D spaces (``ops/patch2d.py``); everything
-else runs the general gather sweep below.  The weak-outflow face terms
+all), else the prism kernel on extruded 3D spaces (``ops/prism.py``), the
+patch-3D kernel on general 3D patch spaces (``ops/patch3d.py``) or the
+patch kernel on patch-2D spaces (``ops/patch2d.py``); everything else
+(f64, the theta method, iso-Q1 coarse spaces) runs the general gather
+sweep below.  The weak-outflow face terms
 of the reference are not ported yet.
 
 State updates replace the ``state`` tuple with new tensors (as the JAX
@@ -70,7 +72,7 @@ class NSState(NamedTuple):
     - fused: only the *vectors* (u_lin, vec_old, u_old) are stored and the
       q-point tables are recomputed inside the sweep; the table fields
       have q-extent 0.  The fused sweeps also keep the lattice views
-      (structured) or patch-gathered views (patch-2D, prism)
+      (structured) or patch-gathered views (patch-2D, prism, patch-3D)
       ``u_linT`` / ``vec_oldT``.
     """
 
@@ -89,7 +91,8 @@ class NSState(NamedTuple):
     u_old: torch.Tensor         # (n_nodes, C) fused theta mode, else (0, C)
     u_linT: torch.Tensor        # structured: (C,) + lattice_shape;
     #                             patch-2D: (C, n_patches, Yn, Xn); prism:
-    #                             (C, n_patches, Yn, Xn, Nzn); else (0,)
+    #                             (C, n_patches, Yn, Xn, Nzn); patch-3D:
+    #                             (C, n_patches, Yn, Xn, Zn); else (0,)
     vec_oldT: torch.Tensor      # the same with lead d
 
 
@@ -135,8 +138,9 @@ class NavierStokesOperator:
 
     ``use_structured`` admits a fused sweep where the configuration
     allows it (f32, theta = 1): the structured sweep on an affine lattice
-    space, else the prism sweep on an extruded 3D space or the patch-2D
-    sweep on a patch-2D space.  It is on by default and the tests switch
+    space, else the prism sweep on an extruded 3D space, the patch-3D
+    sweep on any other 3D patch space or the patch-2D sweep on a patch-2D
+    space.  It is on by default and the tests switch
     it off to hold the sweeps against each other.
     """
 
@@ -207,8 +211,10 @@ class NavierStokesOperator:
         # fused sweep, in the JAX package's order: structured
         # (ops/structured.py) on affine lattices, else prism
         # (ops/prism.py) on extruded 3D meshes, the Turek/Hoffmann 3D
-        # family, or patch-2D (ops/patch2d.py) on 2D patch spaces; it
-        # consumes the linearization VECTORS, so it forces fused tables
+        # family, then patch-3D (ops/patch3d.py) on general 3D meshes,
+        # the Gmsh sphere family, or patch-2D (ops/patch2d.py) on 2D
+        # patch spaces; it consumes the linearization VECTORS, so it
+        # forces fused tables
         self._fast = None
         if use_structured:
             from ns_gls_tpu_torch.ops.structured import (
@@ -225,12 +231,17 @@ class NavierStokesOperator:
 
                 candidates.append((build_patch2d_tables, Patch2DSweep))
             else:
+                from ns_gls_tpu_torch.ops.patch3d import (
+                    Patch3DSweep,
+                    build_patch3d_tables,
+                )
                 from ns_gls_tpu_torch.ops.prism import (
                     PrismSweep,
                     build_prism_tables,
                 )
 
                 candidates.append((build_prism_tables, PrismSweep))
+                candidates.append((build_patch3d_tables, Patch3DSweep))
             for build, sweep in candidates:
                 tables = build(self)
                 if tables is not None:
@@ -476,8 +487,8 @@ class NavierStokesOperator:
     def _sweep(self, u, residual_form: bool):
         """One sweep over the cells: the fused sweep this operator holds
         (the JAX package's ``_fast_apply`` with its ``_structured_apply``
-        / ``_prism_apply`` / ``_patch2d_apply``, behind one interface
-        here) or the general one."""
+        / ``_prism_apply`` / ``_patch2d_apply`` / ``_patch3d_apply``,
+        behind one interface here) or the general one."""
         sw = self._fast
         if sw is not None:
             # u is viewed as a lattice (structured: a reshape, no index)

@@ -204,6 +204,42 @@ def _lead_ul(flavor: str) -> int:
     return 4 if flavor == "increment" else 3
 
 
+def evaluate_tiles(t, bS, bD, zS, zD, grads: bool):
+    """Node tiles (n_p, Yn, Xn, Zn) -> value and reference derivatives
+    (x, y, z) at the q-points (n_p, Lq_y, Lq_x, Lz), contracted z, then
+    x, then y with the 1D bands (x and y: bS/bD, z: zS/zD)."""
+    tz = torch.einsum("az,pyxz->pyxa", zS, t)
+    xs = torch.einsum("qx,pyxa->pyqa", bS, tz)
+    val = torch.einsum("ky,pyqa->pkqa", bS, xs)
+    if not grads:
+        return val, None, None, None
+    dx = torch.einsum("ky,pyqa->pkqa", bS,
+                      torch.einsum("qx,pyxa->pyqa", bD, tz))
+    dy = torch.einsum("ky,pyqa->pkqa", bD, xs)
+    tzd = torch.einsum("az,pyxz->pyxa", zD, t)
+    dz = torch.einsum("ky,pyqa->pkqa", bS,
+                      torch.einsum("qx,pyxa->pyqa", bS, tzd))
+    return val, dx, dy, dz
+
+
+def integrate_tiles(w_val, gx, gy, gz, bS, bD, zS, zD, S1, D1, m: int):
+    """Adjoint of :func:`evaluate_tiles`: the test-function weights at the
+    q-points (value, and reference x, y, z gradient weights, each
+    (n_p, Lq_y, Lq_x, Lz)) -> cell-row tiles (n_p, m, P+1, Xn, Zn).  The
+    z then x adjoints of the terms with y-test values (A) and y-test
+    derivatives (B), then y per cell row with the 1D tables."""
+    zs = torch.einsum("az,pkqa->pkqz", zS, w_val)
+    zs = zs + torch.einsum("az,pkqa->pkqz", zD, gz)
+    A = (torch.einsum("qx,pkqz->pkxz", bS, zs)
+         + torch.einsum("qx,pkqz->pkxz", bD,
+                        torch.einsum("az,pkqa->pkqz", zS, gx)))
+    B = torch.einsum("qx,pkqz->pkxz", bS,
+                     torch.einsum("az,pkqa->pkqz", zS, gy))
+    Yq = (A.shape[0], m, S1.shape[0]) + tuple(A.shape[2:])
+    return (torch.einsum("qj,peqxz->pejxz", S1, A.reshape(Yq))
+            + torch.einsum("qj,peqxz->pejxz", D1, B.reshape(Yq)))
+
+
 def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
                       flavor: str, consider_dt: bool, cell_wise: bool):
     """Plain PyTorch version of the prism sweep (the CUDA kernel's
@@ -221,20 +257,7 @@ def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
     need_dt_old = consider_dt and flavor in ("increment", "residual")
 
     def fwd(t, grads):
-        # t (n_p, Yn, Xn, Nzn) -> value and reference derivatives at the
-        # q-points (n_p, Lq_y, Lq_x, Lz)
-        tz = torch.einsum("az,pyxz->pyxa", zS, t)
-        xs = torch.einsum("qx,pyxa->pyqa", bS, tz)
-        val = torch.einsum("ky,pyqa->pkqa", bS, xs)
-        if not grads:
-            return val, None, None, None
-        dx = torch.einsum("ky,pyqa->pkqa", bS,
-                          torch.einsum("qx,pyxa->pyqa", bD, tz))
-        dy = torch.einsum("ky,pyqa->pkqa", bD, xs)
-        tzd = torch.einsum("az,pyxz->pyxa", zD, t)
-        dz = torch.einsum("ky,pyqa->pkqa", bS,
-                          torch.einsum("qx,pyxa->pyqa", bS, tzd))
-        return val, dx, dy, dz
+        return evaluate_tiles(t, bS, bD, zS, zD, grads)
 
     u = [fwd(uP[c], True) for c in range(C)]
     ul = [fwd(ulP[c], need_lin_grads) for c in range(_lead_ul(flavor))]
@@ -278,26 +301,13 @@ def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
 
     wz_row = tables.wz.repeat(nz)                     # (Lz,) = w(qz)
     jxw = tables.jxw[..., None] * wz_row
-    Yq = (n_p, m, NQ) + tuple(uP.shape[3:])
     out = []
     for c in range(C):
         g0, g1, g2 = grad_res[c]
-        w_val = val_res[c] * jxw
-        gx = (g0 * a00 + g1 * a01) * jxw
-        gy = (g0 * a10 + g1 * a11) * jxw
-        gz = (g2 * idz) * jxw
-        # adjoint of z then x: terms with y-test values (A) and y-test
-        # derivatives (B), then y per cell row with the 1D tables
-        zs = torch.einsum("az,pkqa->pkqz", zS, w_val)
-        zs = zs + torch.einsum("az,pkqa->pkqz", zD, gz)
-        A = (torch.einsum("qx,pkqz->pkxz", bS, zs)
-             + torch.einsum("qx,pkqz->pkxz", bD,
-                            torch.einsum("az,pkqa->pkqz", zS, gx)))
-        B = torch.einsum("qx,pkqz->pkxz", bS,
-                         torch.einsum("az,pkqa->pkqz", zS, gy))
-        out.append(torch.einsum("qj,peqxz->pejxz", tables.S1, A.reshape(Yq))
-                   + torch.einsum("qj,peqxz->pejxz", tables.D1,
-                                  B.reshape(Yq)))
+        out.append(integrate_tiles(
+            val_res[c] * jxw, (g0 * a00 + g1 * a01) * jxw,
+            (g0 * a10 + g1 * a11) * jxw, (g2 * idz) * jxw,
+            bS, bD, zS, zD, tables.S1, tables.D1, m))
     return torch.stack(out)
 
 

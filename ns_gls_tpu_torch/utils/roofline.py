@@ -95,6 +95,22 @@ def prism_cost(tables, flavor, consider_dt, cell_wise):
                       n_p * m * m * nz, flavor, consider_dt, cell_wise)
 
 
+def patch3d_cost(tables, flavor, consider_dt, cell_wise):
+    """(bytes, flops) of one patch-3D sweep (see ``sweep_cost``): z, then
+    y, then x contracted on the (Xn, Xn, Xn) patch lattices, a full 3 x 3
+    J^-1 per cell and q-point; the output is the seam-compressed node
+    vector, not the kernel's cell-row tiles."""
+    n_p = tables.jinv.shape[0]
+    P, NQ, m = tables.P, tables.NQ, tables.m
+    Xn, Lq = P * m + 1, NQ * m
+    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
+                                       tables.S1, tables.D1))
+    return sweep_cost(3, n_p, P + 1, (Xn, Xn, Xn), (Lq, Lq, Lq),
+                      int(tables.patch_nodes.max()) + 1, geometry,
+                      n_p * Lq ** 3, n_p * m ** 3, flavor, consider_dt,
+                      cell_wise, full_jinv=True)
+
+
 def structured_cost(tables, flavor, consider_dt, cell_wise):
     """(bytes, flops) of one structured sweep (see ``sweep_cost``): the
     whole lattice is one tile, contracted z, then y, then x; the output

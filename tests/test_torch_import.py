@@ -22,6 +22,8 @@ def test_import_loads_no_jax():
         "import ns_gls_tpu_torch.__main__\n"
         "import ns_gls_tpu_torch.ops.structured\n"
         "import ns_gls_tpu_torch.models.channel\n"
+        "import ns_gls_tpu_torch.models.sphere, ns_gls_tpu_torch.mesh.gmsh\n"
+        "import ns_gls_tpu_torch.ops.patch3d\n"
         "import ns_gls_tpu_torch.utils.roofline\n"
         "import bench_gpu, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "

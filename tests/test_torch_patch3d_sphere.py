@@ -1,0 +1,109 @@
+"""The port's patch-3D sweep (its plain PyTorch version) against the JAX
+package, beside ``tests/test_torch_patch3d.py``:
+
+- single-cell patches (m = 1, 2 x 2 x 2 node tiles) of an unrefined
+  general 3D mesh against the Pallas kernel in interpret mode,
+- the Gmsh sphere at refinement 1 (48 patches of m = 2; curved cells on
+  the spherical manifold; patches in their coarse cells' own frames,
+  meeting at vertices of irregular valence) at Q1 and Q2 against the JAX
+  general sweep (``use_structured=False``; the JAX package slow-marks its
+  sphere case in interpret mode), in every flavor and delta mode: the
+  test of patch orientation,
+- the seam-compress tables on the sphere against the JAX package's.
+
+Both sides run in f32 with different summation orders: 5e-6 relative to
+the reference's max-abs, as the JAX package's own patch-3D tests use.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ns_gls_tpu.fem.space import FESpace as JSpace
+from ns_gls_tpu.mesh import generators as jgen
+from ns_gls_tpu.mesh.gmsh import read_msh as jread
+from ns_gls_tpu_torch.fem.constraints import AffineConstraints as TAff
+from ns_gls_tpu_torch.fem.space import FESpace as TSpace
+from ns_gls_tpu_torch.mesh import generators as tgen
+from ns_gls_tpu_torch.mesh.gmsh import read_msh as tread
+from ns_gls_tpu_torch.ops import prism as tpr
+from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator as TOp
+from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator as TBDF
+from tests.test_torch_patch3d import (
+    F32,
+    _check,
+    _setup,
+    general3d_mesh,
+    sphere_mesh,
+)
+
+
+@pytest.mark.parametrize("increment,cell_wise", [(True, False),
+                                                 (False, True)])
+def test_plain_patch3d_vs_pallas_single_cell_patches(increment, cell_wise):
+    """m = 1: every cell is its own patch."""
+    opj, opt, u, v = _setup(general3d_mesh(jgen, 0), general3d_mesh(tgen, 0),
+                            1, increment, cell_wise, True, True, 1)
+    _check(opj, opt, u, v)
+
+
+@pytest.mark.parametrize("degree,increment,cell_wise", [
+    (1, True, False), (1, False, True), (1, True, True), (1, False, False),
+    (2, True, False), (2, False, True), (2, True, True), (2, False, False),
+])
+def test_plain_patch3d_vs_general_sweep_sphere(degree, increment, cell_wise):
+    """The sphere at refinement 1 in every flavor and delta mode against
+    the JAX general sweep."""
+    opj, opt, u, v = _setup(sphere_mesh(jread), sphere_mesh(tread), degree,
+                            increment, cell_wise, True, False, 2)
+    _check(opj, opt, u, v)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_seam_compress_is_multiplicity(degree):
+    """Table parity on the sphere: the patch gather, spread to cell rows
+    and seam-compressed, gives each node its value times the number of
+    cell-row tiles that hold it; that number is at least the node's
+    patch multiplicity, and the JAX seam-compress classes give each node
+    the same multiplicity as the port's space."""
+    from ns_gls_tpu.ops.patch3d import build_patch3d_tables as jbuild
+
+    st = TSpace(sphere_mesh(tread), degree)
+    sj = JSpace(sphere_mesh(jread), degree)
+    ti = TBDF(1)
+    ti.update_dt(0.1)
+    ca = TAff(st.n_nodes, 4).close(F32, "cpu")
+    op = TOp(st, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
+             dtype=F32, device="cpu")
+    sw = op._fast
+    tab = sw.tables
+    P, m = tab.P, tab.m
+    rng = np.random.default_rng(5)
+    vn = torch.as_tensor(rng.standard_normal((st.n_nodes, 4)), dtype=F32)
+    tiles = sw.gather_nodes(vn, 4)
+    rows = tiles[:, :, tpr.cell_row_index(P, m)]   # (4, n_p, m, P+1, X, Z)
+    out = sw.compress(rows)
+    pn = tab.patch_nodes.numpy()
+    count = np.bincount(pn[:, tpr.cell_row_index(P, m)].reshape(-1),
+                        minlength=st.n_nodes)
+    np.testing.assert_allclose(out.numpy(), vn.numpy().T * count[None],
+                               rtol=1e-6, atol=1e-6)
+    assert (count >= st.node_mult3).all()
+    ones = sw.compress(torch.ones_like(rows))
+    assert (ones.numpy() == count[None]).all()
+    # the tiles are the space's lattices in (y, x, z) order
+    assert np.array_equal(pn,
+                          np.asarray(st.patch_nodes3).transpose(0, 2, 3, 1))
+
+    class _Op:
+        space = sj
+        theta = 1.0
+        dtype = jnp.float32
+
+    assert np.array_equal(np.asarray(sj.patch_nodes3),
+                          np.asarray(st.patch_nodes3))
+    jt = jbuild(_Op)
+    jmult = np.concatenate([np.full(len(idx), idx.shape[1])
+                            for idx in jt.compress])
+    assert np.array_equal(jmult, st.node_mult3)
