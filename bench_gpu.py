@@ -3,6 +3,7 @@
 
     python3 bench_gpu.py [dim] [ref] [degree] [--increment] [--batched]
     python3 bench_gpu.py --sphere [ref] [degree]
+    python3 bench_gpu.py --turek [ref] [degree]
 
 The reference's second executable (``performance.cc``): a hypercube
 refined ``ref`` times (default 3 5 2: 32^3 cells of Q2, 1,098,500 DoFs),
@@ -19,6 +20,13 @@ Newton-increment flavor instead of the fixed-point one, ``--batched`` the
 times (default 3 2: 24,576 cells of Q2, 811,272 DoFs), no constraints,
 BDF-2, the Newton-increment flavor, q-wise delta, nu = 0.001, c1 = 2,
 c2 = 1, on the patch-3D sweep (``ops/patch3d.py``).
+
+``--turek`` is the flagship-geometry lane (the JAX package's ``bench.py
+--turek``): the curved, extruded Turek 3D mesh refined ``ref`` times
+(default 3 2: 204,800 cells of Q2, 6,789,120 DoFs, the finest level of
+``input/turek_3d_re100.json``), no constraints, BDF-2, the
+Newton-increment flavor, q-wise delta, nu = 0.001, c1 = 2, c2 = 1, on
+the prism sweep (``ops/prism.py``).
 
 Prints the card's name and power limit, MDoF/s and microseconds per
 apply, the sweep alone (kernel and fold), its kernel alone and the
@@ -124,6 +132,36 @@ def build_sphere(refinements=3, degree=2, device="cuda"):
     return op, space, random_state(op)
 
 
+def build_turek(refinements=3, degree=2, device="cuda"):
+    """The Turek lane's operator (f32, prism sweep) with its state set,
+    the space, and the start vector (n_nodes, 4): the operator of the JAX
+    package's ``bench.py`` ``build_turek``."""
+    import torch
+
+    from ns_gls_tpu_torch.fem.constraints import AffineConstraints
+    from ns_gls_tpu_torch.fem.space import FESpace
+    from ns_gls_tpu_torch.mesh.cylinder import cylinder_mesh_3d
+    from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from ns_gls_tpu_torch.ops.prism import PrismSweep
+    from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
+
+    dtype = torch.float32
+    space = FESpace(cylinder_mesh_3d().refine_global(refinements), degree)
+    ca = AffineConstraints(space.n_nodes, 4).close(dtype, device)
+    ti = BDFIntegrator(2)
+    ti.update_dt(0.1)
+    ti.update_dt(0.1)
+    op = NavierStokesOperator(
+        space, ca, ca, nu=0.001, c_1=2.0, c_2=1.0, time_integrator=ti,
+        consider_time_derivative=True, increment_form=True,
+        cell_wise_stabilization=False, dtype=dtype, device=device,
+    )
+    if not isinstance(op._fast, PrismSweep):
+        raise RuntimeError("the Turek operator did not take the prism "
+                           "sweep")
+    return op, space, random_state(op)
+
+
 def chained_applies(op, v, n):
     """n chained applies, each on the previous, normalized, output."""
     import torch
@@ -144,21 +182,29 @@ def sweep_args(op, v):
               c1=sw.c1, c2=sw.c2)
     flavor = "increment" if op.increment_form else "fixed"
     uT = sw.gather_nodes(v, op.n_comp).contiguous()
-    return (sw.tables, sc, uT, st.u_linT, st.vec_oldT, flavor,
-            sw.consider_dt, sw.cell_wise)
+    return (sw.tables, sc, uT, st.u_linT.contiguous(),
+            st.vec_oldT.contiguous(), flavor, sw.consider_dt, sw.cell_wise)
 
 
 def kernel_of(op):
     """(kernel wrapper, cost function, launch counts) of the operator's
-    fused sweep: the structured kernels, or the patch-3D one."""
+    fused sweep: the structured kernels, the patch-3D or the prism one."""
     from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel, Patch3DSweep
+    from ns_gls_tpu_torch.ops.prism import PrismKernel, PrismSweep
     from ns_gls_tpu_torch.ops.structured import StructuredKernel
-    from ns_gls_tpu_torch.utils.roofline import patch3d_cost, structured_cost
+    from ns_gls_tpu_torch.utils.roofline import (
+        patch3d_cost,
+        prism_cost,
+        structured_cost,
+    )
 
     sw = op._fast
     if isinstance(sw, Patch3DSweep):
         return (Patch3DKernel.launch, patch3d_cost,
                 lambda: {"patch3d_gls_sweep": Patch3DKernel.launches})
+    if isinstance(sw, PrismSweep):
+        return (PrismKernel.launch, prism_cost,
+                lambda: {"prism_gls_sweep": PrismKernel.launches})
     return ((lambda *a: StructuredKernel.launch(*a, sw.batched)),
             structured_cost, lambda: dict(StructuredKernel.launches))
 
@@ -212,12 +258,18 @@ def main(argv=None) -> int:
     ap.add_argument("--batched", action="store_true")
     ap.add_argument("--sphere", action="store_true",
                     help="the sphere lane: the numbers are [ref] [degree]")
+    ap.add_argument("--turek", action="store_true",
+                    help="the Turek 3D lane: the numbers are [ref] [degree]")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.sphere:
+    if args.sphere and args.turek:
+        ap.error("--sphere and --turek are two lanes: give one")
+    if args.sphere or args.turek:
+        lane_name = "--sphere" if args.sphere else "--turek"
+        kernel = "patch-3D" if args.sphere else "prism"
         if args.degree is not None or args.increment or args.batched:
-            ap.error("--sphere takes [ref] [degree] and runs the increment "
-                     "flavor on the patch-3D kernel")
+            ap.error(f"{lane_name} takes [ref] [degree] and runs the "
+                     f"increment flavor on the {kernel} kernel")
         args.dim, args.ref, args.degree = (
             3, 3 if args.dim is None else args.dim,
             2 if args.ref is None else args.ref)
@@ -241,15 +293,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.sphere:
         op, space, u = build_sphere(args.ref, args.degree, args.device)
+    elif args.turek:
+        op, space, u = build_turek(args.ref, args.degree, args.device)
     else:
         op, space, u = build(args.dim, args.ref, args.degree,
                              args.increment, args.batched, args.device)
     n_dofs = space.n_nodes * (args.dim + 1)
     lane = dict(dim=args.dim, ref=args.ref, degree=args.degree,
                 flavor="increment" if args.increment else "fixed",
-                batched=args.batched, sphere=args.sphere,
+                batched=args.batched, sphere=args.sphere, turek=args.turek,
                 n_cells=space.mesh.n_cells, n_dofs=n_dofs)
-    print(f"gls-vmult{' (sphere)' if args.sphere else ''}: "
+    tag = " (sphere)" if args.sphere else (" (turek)" if args.turek else "")
+    print(f"gls-vmult{tag}: "
           f"{space.mesh.n_cells} cells, degree {args.degree}, "
           f"{n_dofs} DoFs, {lane['flavor']} flavor"
           f"{', batched kernel' if lane['batched'] else ''}; set up in "

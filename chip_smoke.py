@@ -23,12 +23,14 @@ Phases (any failure exits non-zero and prints no result line):
 6. prism kernel vs plain: the Turek 3D driver is set up (its level
    spaces are built once and reused by phase 7); the prism kernel against
    its plain version on every level space (m = 1, 2, 4, 8) in every
-   flavor x delta mode x consider_dt, two launches bit-identical,
+   flavor x delta mode x consider_dt, two launches bit-identical; its time
+   and bound at each level shape,
 7. 3D main path: ``input/turek_3d_re100.json`` as given (refinement 3,
    f64 outer, f32 prism GMG levels, AMG coarse iterated by GMRES) for 3
    steps through ``Driver.run``, output off; every Newton solve
    converges, the functionals are finite and the prism kernel was
-   launched,
+   launched; its launches per level and the time they take above their
+   bounds,
 8. 3D stored series: refinement 1, 4 steps, against the JAX package's
    CPU series ``validation/turek_3d_re100_ref1_series.json``,
 9. structured kernels vs plain: the channel 3D driver is set up
@@ -348,6 +350,55 @@ def phase_prism_vs_plain(ops):
     return worst_abs, worst_rel
 
 
+def time_prism_levels(ops):
+    """The prism kernel's time and bound at every level shape, in the
+    timing case (increment, history, q-wise delta): {m: dict}."""
+    from ns_gls_tpu_torch.ops import prism as pr
+    from ns_gls_tpu_torch.utils.roofline import bound, prism_cost
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    levels = {}
+    for op in ops:
+        tables = op._fast.tables
+        u, ul, vo = prism_inputs(tables, seed=1)
+        args = (tables, SC3, u, ul, vo, "increment", True, False)
+        ms = time_sweep(lambda: pr.PrismKernel.launch(*args))
+        dev_us = device_time_us(lambda: pr.PrismKernel.launch(*args),
+                                "prism_kernel")
+        bound_ms, by = bound(*prism_cost(tables, "increment", True, False))
+        levels[tables.m] = dict(nz=tables.nz, us=1e3 * ms, device_us=dev_us,
+                                bound_us=1e3 * bound_ms, bound_by=by)
+        log(f"[6] m={tables.m} nz={tables.nz}: launches back to back "
+            f"{1e3 * ms:.1f} us each, kernel device time {dev_us:.1f} us, "
+            f"bound {1e3 * bound_ms:.2f} us by {by}")
+    return levels
+
+
+class PrismLaunchesByLevel:
+    """Counts the prism kernel's launches by level (m) while installed."""
+
+    def __enter__(self):
+        from ns_gls_tpu_torch.ops.prism import PrismKernel
+
+        self.counts = counts = {}
+        self._attr = PrismKernel.__dict__["launch"]
+        orig = PrismKernel.launch
+
+        def launch(tables, *a, **kw):
+            out = orig(tables, *a, **kw)
+            counts[tables.m] = counts.get(tables.m, 0) + 1
+            return out
+
+        PrismKernel.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from ns_gls_tpu_torch.ops.prism import PrismKernel
+
+        PrismKernel.launch = self._attr
+        return False
+
+
 # ---------------------------------------------------------------------------
 # phases 4, 5, 7, 8: the driver
 # ---------------------------------------------------------------------------
@@ -460,11 +511,12 @@ def phase_series():
     return worst
 
 
-def phase_main_path_3d(drv, params, setup_s):
+def phase_main_path_3d(drv, params, setup_s, levels):
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    recs, run_s, counts = run_steps(drv, MAIN3D_STEPS)
+    with PrismLaunchesByLevel() as by_level:
+        recs, run_s, counts = run_steps(drv, MAIN3D_STEPS)
     launches = counts["prism_gls_sweep"]
     check_run(params, drv, recs, MAIN3D_STEPS)
     if launches <= 0:
@@ -479,6 +531,16 @@ def phase_main_path_3d(drv, params, setup_s):
     log(f"[7] kernel launches {counts} ({launches / MAIN3D_STEPS:.1f} prism "
         f"per step); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # launches per level beside phase 6's device time and bound there
+    above = 0.0
+    for m in sorted(by_level.counts):
+        n, lv = by_level.counts[m], levels[m]
+        ms_above = n / MAIN3D_STEPS * (lv["device_us"] - lv["bound_us"]) / 1e3
+        above += ms_above
+        log(f"[7] m={m}: {n} launches ({n / MAIN3D_STEPS:.1f} per step) at "
+            f"{lv['device_us']:.1f} us of device time against a bound of "
+            f"{lv['bound_us']:.2f} us: {ms_above:.1f} ms per step above it")
+    log(f"[7] prism kernel above its bounds: {above:.1f} ms per step")
     return dict(launches=launches, stats=stats)
 
 
@@ -1075,10 +1137,11 @@ def main() -> int:
         log(f"[6] Turek 3D ref {params3.n_global_refinements} driver set "
             f"up in {setup3_s:.2f} s")
         pmax_abs, _ = phase_prism_vs_plain(drv3.mg_ops)
+        plevels = time_prism_levels(drv3.mg_ops)
         ptables = drv3.mg_ops[-1]._fast.tables
         u, ul, vo = prism_inputs(ptables, seed=1)
         pargs = (ptables, SC3, u, ul, vo, "increment", True, False)
-        pms = time_sweep(lambda: pr.PrismKernel.launch(*pargs))
+        pms = plevels[ptables.m]["us"] / 1e3
         pplain_ms = time_sweep(lambda: pr.prism_sweep_plain(*pargs), n=20)
         nbytes, flops = prism_cost(ptables, "increment", True, False)
         pbound_ms, pbound_by = bound(nbytes, flops)
@@ -1088,7 +1151,7 @@ def main() -> int:
         del u, ul, vo, pargs, ptables
 
         # 7. 3D main path
-        main3 = phase_main_path_3d(drv3, params3, setup3_s)
+        main3 = phase_main_path_3d(drv3, params3, setup3_s, plevels)
         del drv3
 
         # 8. 3D stored series

@@ -24,19 +24,9 @@
 //                                    node row P*ey + j integrated over
 //                                    cell row ey only
 // with Xn = P*m + 1, Nzn = P*nz + 1, Lq = NQ*m, q-point row iy = ey*NQ+qy,
-// column ix = ex*NQ + qx.
-//
-// Design.  One thread block per (patch, cell row ey).  The block walks up
-// the z column in slabs of ZS cell layers: it stages the slab's (P+1)
-// node rows x Xn x (P*ZS+1) z-planes of u, u_lin and vec_old in shared
-// memory, one thread per q-point evaluates from its cell's (P+1)^3 nodes,
-// runs the physics in registers and writes its 16 test-function weights
-// to shared memory, then one thread per node integrates from the (at most
-// four) cells of the slab around it.  The z-plane shared by two slabs is
-// carried to the next slab in shared memory and added there, in a fixed
-// order; node rows shared by two cell rows (and patch seams) are left to
-// the caller's seam compress, which sums whole z-runs in a fixed order.
-// No atomics: two launches on the same inputs give the same bits.
+// column ix = ex*NQ + qx.  Node rows shared by two cell rows (and patch
+// seams) are left to the caller's seam compress, which sums whole z-runs
+// in a fixed order.
 //
 // What bounds the function on an H100, at the Turek 3D ref-3 shapes
 // (P = 2, NQ = 3, m = 8, nz = 32: Xn = 17, Nzn = 65, 100 patches, 204,800
@@ -51,26 +41,147 @@
 //          22 kFLOP per cell x 204,800 = 4.56 GFLOP -> 68 us at
 //          67 TFLOP/s f32.
 // So the function is bound by operations, about twice the bytes' time.
-// This design does no sum factorization: each q-point thread sums over
-// its cell's 27 nodes, and each node thread over the 27 q-points of up to
-// four cells, about 93 kFLOP per cell, four times what the function
-// needs; evaluating along one axis at a time, as the TPU kernel's band
-// matmuls do, is later work.
+// The previous design of this file summed, per q-point, over the cell's
+// 27 nodes and, per node, over 27 q-points of up to four cells: 93 kFLOP
+// per cell, every operand a shared-memory load; it took 2,016.9-2,030.6
+// us per launch at that shape (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+// section 6), 29.7x the bound.
+//
+// Design.  One thread block per (patch, cell row ey, z chunk); it walks
+// its chunk of the z column in slabs of ZS cell layers.
+//  - Sum factorization one axis at a time, the order of the TPU kernel's
+//    band products: a slab is evaluated along z (E1), then x (E2), then
+//    y (E3, one thread per q-point, which then runs the physics in
+//    registers); the test-function weights are integrated back along y
+//    (I3), x (I2) and z (I1).  About 22 kFLOP per cell, a quarter of the
+//    previous design's.  P and NQ are template parameters, so the 1D
+//    tables and the short contractions live in registers.
+//  - z in registers: prismatic geometry makes z separate.  In I1 one
+//    thread owns a (component, node row j, node x) column for the whole
+//    walk and keeps the z-plane shared by two cell layers in a register
+//    (the carry), across slabs too; it writes its finished planes
+//    straight to the output tile.
+//  - Overlapped slab loads: the next slab's node tiles are copied to
+//    shared memory with cp.async (double buffer) while this slab computes.
+//  - z chunks: the launcher splits each z column in two when each half
+//    still holds two slabs; the shorter walks and twice the blocks cut the
+//    time at m = 4 and 8.  A chunk's block also evaluates the cell layer
+//    just below it and writes only the z-planes it owns (the plane on a
+//    chunk seam gets both layers' contributions in the same order as in
+//    one walk), so the output layout, the seam compress and the plain
+//    version are those of one walk.
+//  - Exact f32 FMAs, no tensor cores, no atomics: two launches on the
+//    same inputs give the same bits.
+// Launch: 256 threads, at most 128 registers (two blocks per SM); at the
+// ref-3 shape slabs of 2 cell layers (432 q-points) and each column in two
+// z chunks: 1,600 blocks of ~100 KB of shared memory.
+//
+// The loops over a stage's items advance their indices as mixed-radix
+// digits (StridedDigits) and the slab copies take their field's first
+// row from a per-block table: runtime divisions and 64-bit address math
+// per item cost more than the items' own work.
+//
+// Measured (tools/prism_levels.py, device time by torch.profiler, NVIDIA
+// H100 80GB HBM3, 700.00 W): 586.2 us at m = 8 (the previous design
+// 2,013.4 us in the same process), 8.6x the bound; 89.0 us at m = 4
+// (290.1), 14.1 us at m = 2 (35.7), 5.6 us at m = 1 (13.1).  Other slab
+// depths and chunk counts were slower (its --sweep).  The kernel is bound
+// by latency (barriers, the physics' dependency chains at 16 warps per
+// SM), not by the FMA units or shared-memory bandwidth;
+// tools/prism_stage_clocks.py counts the cycles of each stage.
 #include <cuda_runtime.h>
 
 #include "gls_qpoint.cuh"
+
+#ifndef PRISM_HOST_REHEARSAL
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 // q-points per slab the launcher aims for (about two per thread)
 constexpr int kSlabQ = 512;
+// I1 columns (4 components x node rows x nodes) a thread may own
+constexpr int kMaxCols = 4;
 
 struct PrismDims {
-  int n_p, P, NQ, m, nz, ZS;
+  int n_p, m, nz;
+  int ZS;    // cell layers per slab
+  int ZC;    // cell layers per z chunk (a block's share of the column)
+  int nzb;   // z chunks per column
 };
 
-__global__ void __launch_bounds__(kThreads)
+// shared-memory regions of one block, in floats: the staged slabs (two
+// buffers), region 1 (A, Az -> W -> V), region 2 (X, XD, XZ -> Y) and
+// |u*|^2 per q-point
+struct PrismSmem {
+  size_t in, r1, r2, qs;
+  __host__ __device__ size_t total() const { return in + r1 + r2 + qs; }
+};
+
+__host__ __device__ inline size_t max2(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+__host__ __device__ inline PrismSmem prism_smem(int P, int NQ, int m,
+                                                int ZS, int NF, int NG) {
+  const size_t n1 = P + 1, Xn = P * m + 1, Lq = NQ * m;
+  const size_t NR = n1 * Xn, ZN = P * ZS + 1, LZ = NQ * ZS;
+  const size_t QS = NQ * Lq * LZ, XS = n1 * Lq * LZ;
+  return PrismSmem{2 * NF * NR * ZN,
+                   max2(max2((NF + NG) * NR * LZ, 16 * QS), 8 * NR * LZ),
+                   max2((NF + 2 * NG) * XS, 12 * XS), QS};
+}
+
+// The items of a block-strided loop (item = threadIdx.x, then + blockDim.x)
+// as digits of a mixed radix, digit 0 fastest, advanced without a division
+// per item (the divisions of a runtime radix cost more than a light item's
+// work).  The last digit is not reduced: the loop ends when it reaches its
+// radix.
+template <int N>
+struct StridedDigits {
+  int d[N], s[N], r[N];
+  __device__ explicit StridedDigits(const int (&radix)[N]) {
+    int v = threadIdx.x, st = blockDim.x;
+#pragma unroll
+    for (int k = 0; k < N - 1; ++k) {
+      r[k] = radix[k];
+      d[k] = v % r[k];
+      v /= r[k];
+      s[k] = st % r[k];
+      st /= r[k];
+    }
+    r[N - 1] = radix[N - 1];
+    d[N - 1] = v;
+    s[N - 1] = st;
+  }
+  __device__ bool valid() const { return d[N - 1] < r[N - 1]; }
+  __device__ void next() {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < N - 1; ++k) {
+      d[k] += s[k] + c;
+      c = d[k] >= r[k];
+      if (c) d[k] -= r[k];
+    }
+    d[N - 1] += s[N - 1] + c;
+  }
+};
+
+template <int P, int NQ>
+__global__ void __launch_bounds__(kThreads, 2)
 prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
              const float* __restrict__ vo, const float* __restrict__ jinv,
              const float* __restrict__ jxw, const float* __restrict__ hcell,
@@ -79,156 +190,244 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
              PrismDims dm, int flavor, int consider_dt, int cell_wise,
              GlsScalars sc) {
   extern __shared__ float smem[];
-  const int P = dm.P, NQ = dm.NQ, m = dm.m, nz = dm.nz, ZS = dm.ZS;
-  const int p = blockIdx.x / m;
-  const int ey = blockIdx.x - p * m;
-  const int n1 = P + 1;
+  constexpr int n1 = P + 1;
+  const int m = dm.m, nz = dm.nz, ZS = dm.ZS;
+  int b = blockIdx.x;
+  const int kz = b % dm.nzb;
+  b /= dm.nzb;
+  const int ey = b % m;
+  const int p = b / m;
   const int Xn = P * m + 1;
   const int Nzn = P * nz + 1;
   const int Lq = NQ * m;
-  const int NQ3 = NQ * NQ * NQ;
-  const int ZN = P * ZS + 1;      // z-planes staged per slab (at most)
-  const int NR = n1 * Xn;         // nodes per z-plane of the block's rows
-  const int NS = NR * ZN;         // nodes staged per slab (at most)
-  const int QS = m * ZS * NQ3;    // q-points per slab (at most)
+  const int NR = n1 * Xn;
+  const int ZN = P * ZS + 1;
+  const int LZ = NQ * ZS;
+  const int QS = NQ * Lq * LZ;
   const bool incr = flavor == GLS_INCREMENT;
   const int lead_ul = incr ? 4 : 3;
   const bool need_dt_old =
       consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + lead_ul + (need_dt_old ? 3 : 0);   // staged fields
+  const int NG = incr ? 8 : 4;                         // fields with grads
 
-  float* sS1 = smem;                 // (NQ, P+1)
-  float* sD1 = sS1 + NQ * n1;        // (NQ, P+1)
-  float* swz = sD1 + NQ * n1;        // (NQ)
-  float* su = swz + NQ;              // (4, NS)  [c][(j*Xn + x)*ZN + zl]
-  float* sul = su + 4 * NS;          // (4, NS)
-  float* svo = sul + 4 * NS;         // (3, NS)
-  float* susq = svo + 3 * NS;        // (QS) |u*|^2 per q-point
-  float* sw = susq + QS;             // (16, QS) test-function weights
-  float* scarry = sw + 16 * QS;      // (2, 4, NR) z-seam carry, two buffers
+  // the z chunk: owned layers [zb, ze), walked from lo (one layer below
+  // zb when the chunk does not start the column)
+  const int zb = kz * dm.ZC;
+  const int ze = min(zb + dm.ZC, nz);
+  const int lo = zb > 0 ? zb - 1 : 0;
 
-  for (int i = threadIdx.x; i < NQ * n1; i += blockDim.x) {
-    sS1[i] = S1g[i];
-    sD1[i] = D1g[i];
-  }
-  for (int i = threadIdx.x; i < NQ; i += blockDim.x) swz[i] = wzg[i];
+  // 1D tables in registers
+  float S1[NQ][n1], D1[NQ][n1];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      S1[q][i] = __ldg(S1g + q * n1 + i);
+      D1[q][i] = __ldg(D1g + q * n1 + i);
+    }
+
+  const PrismSmem sm = prism_smem(P, NQ, m, ZS, NF, NG);
+  const int XS = n1 * Lq * LZ;                        // one field's X
+  float* sIn = smem;                                  // (2, NF, NR, ZN)
+  float* sA = sIn + sm.in;                            // (NF, NR, LZ)
+  float* sAz = sA + NF * NR * LZ;                     // (NG, NR, LZ)
+  float* sW = sA;                                     // (4 k, 4 c, QS)
+  float* sV = sA;                                     // (4 c, 2, NR, LZ)
+  float* sX = sA + sm.r1;                             // (NF, n1, Lq, LZ)
+  float* sXD = sX + NF * XS;                          // (NG, n1, Lq, LZ)
+  float* sXZ = sXD + NG * XS;                         // (NG, n1, Lq, LZ)
+  float* sY = sX;                                     // (4 c, 3, n1, Lq, LZ)
+  float* susq = sX + sm.r2;                           // (QS)
 
   const size_t cstride = (size_t)dm.n_p * Xn * Xn * Nzn;
-  const size_t ptile = (size_t)p * Xn * Xn * Nzn;
+  const size_t rows0 = ((size_t)p * Xn + (size_t)P * ey) * Xn;  // row j=0,x=0
   const float* ji = jinv + (size_t)p * 5 * Lq * Lq;
   const float* jw = jxw + (size_t)p * Lq * Lq;
   const float* hp = hcell + (size_t)p * 2 * m * m;
   const size_t ostride = (size_t)dm.n_p * m * NR * Nzn;
   const size_t orow = ((size_t)p * m + ey) * NR * Nzn;
+  const int LL = Lq * Lq;
 
-  int slab = 0;
-  for (int z0 = 0; z0 < nz; z0 += ZS, ++slab) {
-    const int zs = min(ZS, nz - z0);   // cell layers in this slab
-    const int zn = P * zs + 1;         // z-planes in this slab
-    const int nq = m * zs * NQ3;
-    const int nn = NR * zn;
-    const bool last = z0 + zs >= nz;
+  // the block's first node row of every staged field
+  __shared__ const float* sField[11];
+  if (threadIdx.x < NF) {
+    const int f = threadIdx.x;
+    sField[f] = (f < 4 ? u + f * cstride
+                       : (f < 4 + lead_ul ? ul + (f - 4) * cstride
+                                          : vo + (f - 4 - lead_ul) * cstride)) +
+                rows0 * Nzn;
+  }
+  __syncthreads();
 
-    // ---- phase 0: stage the slab's node tiles -------------------------
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      const int r = i / zn, zl = i - r * zn;     // r = j*Xn + x
-      const int j = r / Xn, x = r - j * Xn;
-      const size_t g = ptile + ((size_t)(P * ey + j) * Xn + x) * Nzn +
-                       P * z0 + zl;
-      const int s = r * ZN + zl;
+  // copy the node tiles of the slab starting at cell layer zl0 into
+  // buffer buf (cp.async; the caller commits)
+  auto stage = [&](int zl0, int zs, int buf) {
+    const int zn = P * zs + 1;
+    float* dst0 = sIn + buf * NF * NR * ZN;
+    for (StridedDigits<3> e({zn, NR, NF}); e.valid(); e.next()) {
+      const int zl = e.d[0], r = e.d[1], f = e.d[2];
+      cp_async4(dst0 + (f * NR + r) * ZN + zl,
+                sField[f] + (r * Nzn + P * zl0 + zl));
+    }
+  };
+
+  // I1 columns owned by this thread and their z carries
+  float carry[kMaxCols];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) su[c * NS + s] = u[c * cstride + g];
-      for (int c = 0; c < lead_ul; ++c) sul[c * NS + s] = ul[c * cstride + g];
-      if (need_dt_old) {
+  for (int k = 0; k < kMaxCols; ++k) carry[k] = 0.f;
+
+  const int n_slabs = (ze - lo + ZS - 1) / ZS;
+  stage(lo, min(ZS, ze - lo), 0);
+  cp_async_commit();
+  for (int s = 0; s < n_slabs; ++s) {
+    const int zl0 = lo + s * ZS;
+    const int zs = min(ZS, ze - zl0);   // cell layers in this slab
+    const int lz = NQ * zs;             // q-point layers in this slab
+    if (s + 1 < n_slabs) {
+      const int z1 = zl0 + ZS;
+      stage(z1, min(ZS, ze - z1), (s + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sbuf = sIn + (s & 1) * NF * NR * ZN;
+
+    // ---- E1: along z, node columns (f, r) ------------------------------
+    for (StridedDigits<2> it({NR, NF}); it.valid(); it.next()) {
+      const int f = it.d[1], row = f * NR + it.d[0];
+      const float* col = sbuf + row * ZN;
+      float* a = sA + row * LZ;
+      float* az = sAz + row * LZ;
+      for (int ezl = 0; ezl < zs; ++ezl) {
+        float nd[n1];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) svo[c * NS + s] = vo[c * cstride + g];
+        for (int k = 0; k < n1; ++k) nd[k] = col[P * ezl + k];
+#pragma unroll
+        for (int qz = 0; qz < NQ; ++qz) {
+          float v = 0.f, d = 0.f;
+#pragma unroll
+          for (int k = 0; k < n1; ++k) {
+            v = fmaf(S1[qz][k], nd[k], v);
+            d = fmaf(D1[qz][k], nd[k], d);
+          }
+          a[ezl * NQ + qz] = v;
+          if (f < NG) az[ezl * NQ + qz] = d;
+        }
       }
     }
     __syncthreads();
 
-    // q-point q of the slab: q = (((ezl*NQ + qz)*NQ + qy)*m + ex)*NQ + qx
-
-    // ---- phase 1 (cell-wise delta): |u*|^2 at every q-point -----------
-    if (cell_wise) {
-      for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-        int t = q;
-        const int qx = t % NQ; t /= NQ;
-        const int ex = t % m; t /= m;
-        const int qy = t % NQ; t /= NQ;
-        const int qz = t % NQ;
-        const int ezl = t / NQ;
-        float us[3] = {0.f, 0.f, 0.f};
-        for (int k = 0; k < n1; ++k) {
-          const float sz = sS1[qz * n1 + k];
-          for (int j = 0; j < n1; ++j) {
-            const float syz = sS1[qy * n1 + j] * sz;
-            const int row = (j * Xn + P * ex) * ZN + P * ezl + k;
-            for (int i = 0; i < n1; ++i) {
-              const float s = sS1[qx * n1 + i] * syz;
-              const int n = row + i * ZN;
+    // ---- E2: along x, items (f, j, ex, iz) -> NQ q-columns each --------
+    for (StridedDigits<4> it({lz, m, n1, NF}); it.valid(); it.next()) {
+      const int iz = it.d[0], ex = it.d[1], j = it.d[2], f = it.d[3];
+      const int a0 = (f * NR + j * Xn + P * ex) * LZ + iz;
+      float av[n1];
 #pragma unroll
-              for (int c = 0; c < 3; ++c) us[c] += s * sul[c * NS + n];
-            }
+      for (int i = 0; i < n1; ++i) av[i] = sA[a0 + i * LZ];
+      const int x0 = ((f * n1 + j) * Lq + ex * NQ) * LZ + iz;
+#pragma unroll
+      for (int qx = 0; qx < NQ; ++qx) {
+        float v = 0.f;
+#pragma unroll
+        for (int i = 0; i < n1; ++i) v = fmaf(S1[qx][i], av[i], v);
+        sX[x0 + qx * LZ] = v;
+      }
+      if (f < NG) {
+        float zv[n1];
+#pragma unroll
+        for (int i = 0; i < n1; ++i) zv[i] = sAz[a0 + i * LZ];
+#pragma unroll
+        for (int qx = 0; qx < NQ; ++qx) {
+          float dx = 0.f, dz = 0.f;
+#pragma unroll
+          for (int i = 0; i < n1; ++i) {
+            dx = fmaf(D1[qx][i], av[i], dx);
+            dz = fmaf(S1[qx][i], zv[i], dz);
           }
+          sXD[x0 + qx * LZ] = dx;
+          sXZ[x0 + qx * LZ] = dz;
         }
-        susq[q] = us[0] * us[0] + us[1] * us[1] + us[2] * us[2];
+      }
+    }
+    __syncthreads();
+
+    // q-point q of the slab: q = (qy * Lq + ix) * lz + iz
+    // ---- E3a (cell-wise delta): |u*|^2 at every q-point ---------------
+    if (cell_wise) {
+      for (StridedDigits<3> it({lz, Lq, NQ}); it.valid(); it.next()) {
+        const int iz = it.d[0], ix = it.d[1], qy = it.d[2];
+        const int q = (qy * Lq + ix) * lz + iz;
+        float Sy[n1];
+#pragma unroll
+        for (int j = 0; j < n1; ++j) Sy[j] = __ldg(S1g + qy * n1 + j);
+        float us = 0.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float* xr = sX + ((4 + c) * n1 * Lq + ix) * LZ + iz;
+          float v = 0.f;
+#pragma unroll
+          for (int j = 0; j < n1; ++j) v = fmaf(Sy[j], xr[j * Lq * LZ], v);
+          us = fmaf(v, v, us);
+        }
+        susq[q] = us;
       }
       __syncthreads();
     }
 
-    // ---- phase 2: evaluate, physics, test-function weights ------------
-    for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-      int t = q;
-      const int qx = t % NQ; t /= NQ;
-      const int ex = t % m; t /= m;
-      const int qy = t % NQ; t /= NQ;
-      const int qz = t % NQ;
-      const int ezl = t / NQ;
+    // ---- E3b: along y, delta, physics, test-function weights ----------
+    for (StridedDigits<3> it({lz, Lq, NQ}); it.valid(); it.next()) {
+      const int iz = it.d[0], ix = it.d[1], qy = it.d[2];
+      const int q = (qy * Lq + ix) * lz + iz;
+      const int ex = ix / NQ;
+      const int ezl = iz / NQ, qz = iz - ezl * NQ;
+      // this q-point's row of the 1D tables (qy is not a compile-time
+      // index, so it is not taken from the register copies)
+      float Sy[n1], Dy[n1];
+#pragma unroll
+      for (int j = 0; j < n1; ++j) {
+        Sy[j] = __ldg(S1g + qy * n1 + j);
+        Dy[j] = __ldg(D1g + qy * n1 + j);
+      }
 
-      float uv[4] = {0.f, 0.f, 0.f, 0.f}, udx[4] = {0.f, 0.f, 0.f, 0.f},
-            udy[4] = {0.f, 0.f, 0.f, 0.f}, udz[4] = {0.f, 0.f, 0.f, 0.f};
+      // value and reference gradients of field f at this q-point
+      auto eval = [&](int f, float& v, float& gx, float& gy, float& gz,
+                      bool grads) {
+        const int o = (f * n1 * Lq + ix) * LZ + iz;
+        v = gx = gy = gz = 0.f;
+#pragma unroll
+        for (int j = 0; j < n1; ++j) {
+          const float xv = sX[o + j * Lq * LZ];
+          v = fmaf(Sy[j], xv, v);
+          if (grads) {
+            gy = fmaf(Dy[j], xv, gy);
+            gx = fmaf(Sy[j], sXD[o + j * Lq * LZ], gx);
+            gz = fmaf(Sy[j], sXZ[o + j * Lq * LZ], gz);
+          }
+        }
+      };
+      float uv[4], udx[4], udy[4], udz[4];
       float lv[4] = {0.f, 0.f, 0.f, 0.f}, ldx[4] = {0.f, 0.f, 0.f, 0.f},
             ldy[4] = {0.f, 0.f, 0.f, 0.f}, ldz[4] = {0.f, 0.f, 0.f, 0.f};
       float dto[3] = {0.f, 0.f, 0.f};
-      for (int k = 0; k < n1; ++k) {
-        const float sz = sS1[qz * n1 + k];
-        const float dz = sD1[qz * n1 + k];
-        for (int j = 0; j < n1; ++j) {
-          const float sy = sS1[qy * n1 + j];
-          const float dy = sD1[qy * n1 + j];
-          const int row = (j * Xn + P * ex) * ZN + P * ezl + k;
-          for (int i = 0; i < n1; ++i) {
-            const float sx = sS1[qx * n1 + i];
-            const float dx = sD1[qx * n1 + i];
-            const float s = sx * sy * sz, gx = dx * sy * sz,
-                        gy = sx * dy * sz, gz = sx * sy * dz;
-            const int n = row + i * ZN;
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const float a = su[c * NS + n];
-              uv[c] += s * a;
-              udx[c] += gx * a;
-              udy[c] += gy * a;
-              udz[c] += gz * a;
-            }
-            if (incr) {
+      for (int c = 0; c < 4; ++c) eval(c, uv[c], udx[c], udy[c], udz[c], true);
+      if (incr) {
 #pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const float a = sul[c * NS + n];
-                lv[c] += s * a;
-                ldx[c] += gx * a;
-                ldy[c] += gy * a;
-                ldz[c] += gz * a;
-              }
-            } else {
+        for (int c = 0; c < 4; ++c)
+          eval(4 + c, lv[c], ldx[c], ldy[c], ldz[c], true);
+      } else {
+        float g0, g1, g2;
 #pragma unroll
-              for (int c = 0; c < 3; ++c) lv[c] += s * sul[c * NS + n];
-            }
-            if (need_dt_old) {
+        for (int c = 0; c < 3; ++c) eval(4 + c, lv[c], g0, g1, g2, false);
+      }
+      if (need_dt_old) {
+        float g0, g1, g2;
 #pragma unroll
-              for (int c = 0; c < 3; ++c) dto[c] += s * svo[c * NS + n];
-            }
-          }
-        }
+        for (int c = 0; c < 3; ++c)
+          eval(4 + lead_ul + c, dto[c], g0, g1, g2, false);
       }
 
       // stabilization parameters
@@ -236,21 +435,25 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
       float d1, d2;
       if (cell_wise) {
         float msq = 0.f;
-        const int cq0 = ezl * NQ3 * m;   // q of (ezl, qz=0, qy=0, ex=0)
-        for (int c = 0; c < NQ * NQ; ++c)       // (qz, qy)
-          for (int a = 0; a < NQ; ++a)
-            msq = fmaxf(msq, susq[cq0 + (c * m + ex) * NQ + a]);
-        gls_delta_cell(sc, hp[cell2d], msq, d1, d2);
+        for (int a = 0; a < NQ; ++a)            // qy'
+#pragma unroll
+          for (int bq = 0; bq < NQ; ++bq)       // qx'
+#pragma unroll
+            for (int c = 0; c < NQ; ++c)        // qz'
+              msq = fmaxf(msq, susq[(a * Lq + ex * NQ + bq) * lz +
+                                    ezl * NQ + c]);
+        gls_delta_cell(sc, __ldg(hp + cell2d), msq, d1, d2);
       } else {
-        gls_delta_q(sc, hp[m * m + cell2d],
+        gls_delta_q(sc, __ldg(hp + m * m + cell2d),
                     lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], d1, d2);
       }
 
       // reference -> physical gradients (prismatic J)
-      const int q2 = (ey * NQ + qy) * Lq + ex * NQ + qx;
-      const int LL = Lq * Lq;
-      const float a00 = ji[q2], a01 = ji[LL + q2], a10 = ji[2 * LL + q2],
-                  a11 = ji[3 * LL + q2], idz = ji[4 * LL + q2];
+      const int q2 = (ey * NQ + qy) * Lq + ix;
+      const float a00 = __ldg(ji + q2), a01 = __ldg(ji + LL + q2),
+                  a10 = __ldg(ji + 2 * LL + q2),
+                  a11 = __ldg(ji + 3 * LL + q2),
+                  idz = __ldg(ji + 4 * LL + q2);
       float ug[3][3], pg[3];
       float gus[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
       float gps[3] = {0.f, 0.f, 0.f};
@@ -281,111 +484,215 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
       gls_physics<3>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
                      uv[3], pg, us, gus, gps, dto, d1, d2, vr, gr);
 
-      const float w = jw[q2] * swz[qz];
+      const float w = __ldg(jw + q2) * __ldg(wzg + qz);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        sw[c * QS + q] = vr[c] * w;
-        sw[(4 + c) * QS + q] = (gr[c][0] * a00 + gr[c][1] * a01) * w;
-        sw[(8 + c) * QS + q] = (gr[c][0] * a10 + gr[c][1] * a11) * w;
-        sw[(12 + c) * QS + q] = (gr[c][2] * idz) * w;
+        sW[c * QS + q] = vr[c] * w;
+        sW[(4 + c) * QS + q] = (gr[c][0] * a00 + gr[c][1] * a01) * w;
+        sW[(8 + c) * QS + q] = (gr[c][0] * a10 + gr[c][1] * a11) * w;
+        sW[(12 + c) * QS + q] = (gr[c][2] * idz) * w;
       }
     }
     __syncthreads();
 
-    // ---- phase 3: integrate onto the slab's nodes ---------------------
-    const float* cin = scarry + (slab & 1) * 4 * NR;
-    float* cout = scarry + ((slab + 1) & 1) * 4 * NR;
-    for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-      const int r = i / zn, zl = i - r * zn;
-      const int j = r / Xn, x = r - j * Xn;
-      const int ex_lo = x > 0 ? (x - 1) / P : 0;
-      const int ex_hi = min(x / P, m - 1);
-      const int ez_lo = zl > 0 ? (zl - 1) / P : 0;
-      const int ez_hi = min(zl / P, zs - 1);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int ezl = ez_lo; ezl <= ez_hi; ++ezl) {
-        const int k = zl - P * ezl;
-        for (int ex = ex_lo; ex <= ex_hi; ++ex) {
-          const int ii = x - P * ex;
-          for (int qz = 0; qz < NQ; ++qz) {
-            const float sz = sS1[qz * n1 + k];
-            const float dz = sD1[qz * n1 + k];
-            for (int qy = 0; qy < NQ; ++qy) {
-              const float sy = sS1[qy * n1 + j];
-              const float dy = sD1[qy * n1 + j];
-              const int qrow = (((ezl * NQ + qz) * NQ + qy) * m + ex) * NQ;
-              for (int qx = 0; qx < NQ; ++qx) {
-                const float sx = sS1[qx * n1 + ii];
-                const float dx = sD1[qx * n1 + ii];
-                const float s = sx * sy * sz, gx = dx * sy * sz,
-                            gy = sx * dy * sz, gz = sx * sy * dz;
-                const int q = qrow + qx;
+    // ---- I3: along y, items (c, ix, iz) -> node rows j -----------------
+    for (StridedDigits<3> it({lz, Lq, 4}); it.valid(); it.next()) {
+      const int iz = it.d[0], ix = it.d[1], c = it.d[2];
+      float wv[NQ], wx[NQ], wy[NQ], wzv[NQ];
 #pragma unroll
-                for (int c = 0; c < 4; ++c)
-                  acc[c] += s * sw[c * QS + q] + gx * sw[(4 + c) * QS + q] +
-                            gy * sw[(8 + c) * QS + q] +
-                            gz * sw[(12 + c) * QS + q];
-              }
-            }
-          }
+      for (int qy = 0; qy < NQ; ++qy) {
+        const int q = (qy * Lq + ix) * lz + iz;
+        wv[qy] = sW[c * QS + q];
+        wx[qy] = sW[(4 + c) * QS + q];
+        wy[qy] = sW[(8 + c) * QS + q];
+        wzv[qy] = sW[(12 + c) * QS + q];
+      }
+#pragma unroll
+      for (int j = 0; j < n1; ++j) {
+        float yv = 0.f, yx = 0.f, yz = 0.f;
+#pragma unroll
+        for (int qy = 0; qy < NQ; ++qy) {
+          yv = fmaf(S1[qy][j], wv[qy], yv);
+          yv = fmaf(D1[qy][j], wy[qy], yv);
+          yx = fmaf(S1[qy][j], wx[qy], yx);
+          yz = fmaf(S1[qy][j], wzv[qy], yz);
         }
-      }
-      if (zl == 0 && z0 > 0) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] += cin[c * NR + r];
-      }
-      if (zl == zn - 1 && !last) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cout[c * NR + r] = acc[c];
-      } else {
-        const size_t o = orow + (size_t)r * Nzn + P * z0 + zl;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) out[c * ostride + o] = acc[c];
+        const int o = ((c * 3 * n1 + j) * Lq + ix) * LZ + iz;
+        sY[o] = yv;
+        sY[o + n1 * Lq * LZ] = yx;
+        sY[o + 2 * n1 * Lq * LZ] = yz;
       }
     }
     __syncthreads();
+
+    // ---- I2: along x, items (c, j, ex, iz) -> nodes P*ex .. P*ex+P-1 --
+    // (and P*m for the last cell); the left node also takes cell ex-1's
+    for (StridedDigits<4> it({lz, m, n1, 4}); it.valid(); it.next()) {
+      const int iz = it.d[0], ex = it.d[1], j = it.d[2], c = it.d[3];
+      const int o = ((c * 3 * n1 + j) * Lq + ex * NQ) * LZ + iz;
+      const int YS = n1 * Lq * LZ;   // Yv -> Yx -> Yz
+      float yv[NQ], yx[NQ], yz[NQ];
+#pragma unroll
+      for (int qx = 0; qx < NQ; ++qx) {
+        yv[qx] = sY[o + qx * LZ];
+        yx[qx] = sY[o + qx * LZ + YS];
+        yz[qx] = sY[o + qx * LZ + 2 * YS];
+      }
+      float lv = 0.f, lzv = 0.f;     // cell ex-1 at its local node P
+      if (ex > 0) {
+#pragma unroll
+        for (int qx = 0; qx < NQ; ++qx) {
+          const int ol = o - NQ * LZ + qx * LZ;
+          lv = fmaf(S1[qx][P], sY[ol], lv);
+          lv = fmaf(D1[qx][P], sY[ol + YS], lv);
+          lzv = fmaf(S1[qx][P], sY[ol + 2 * YS], lzv);
+        }
+      }
+      float* vvp = sV + ((c * 2) * NR + j * Xn + P * ex) * LZ + iz;
+      float* vzp = vvp + NR * LZ;
+#pragma unroll
+      for (int i = 0; i < n1; ++i) {
+        if (i == P && ex != m - 1) break;
+        float vv = 0.f, vz = 0.f;
+#pragma unroll
+        for (int qx = 0; qx < NQ; ++qx) {
+          vv = fmaf(S1[qx][i], yv[qx], vv);
+          vv = fmaf(D1[qx][i], yx[qx], vv);
+          vz = fmaf(S1[qx][i], yz[qx], vz);
+        }
+        if (i == 0) {
+          vv = lv + vv;
+          vz = lzv + vz;
+        }
+        vvp[i * LZ] = vv;
+        vzp[i * LZ] = vz;
+      }
+    }
+    __syncthreads();
+
+    // ---- I1: along z, one column (c, r) per thread, carry in registers -
+#pragma unroll
+    for (int k = 0; k < kMaxCols; ++k) {
+      const int it = threadIdx.x + k * blockDim.x;
+      if (it < 4 * NR) {
+        const int c = it / NR, r = it - c * NR;
+        const float* vvp = sV + ((c * 2) * NR + r) * LZ;
+        const float* vzp = sV + ((c * 2 + 1) * NR + r) * LZ;
+        float* o = out + c * ostride + orow + (size_t)r * Nzn;
+        for (int ezl = 0; ezl < zs; ++ezl) {
+          const int zg = zl0 + ezl;            // global cell layer
+          float vv[NQ], vz[NQ];
+#pragma unroll
+          for (int qz = 0; qz < NQ; ++qz) {
+            vv[qz] = vvp[ezl * NQ + qz];
+            vz[qz] = vzp[ezl * NQ + qz];
+          }
+#pragma unroll
+          for (int kk = 0; kk <= P; ++kk) {
+            float acc = 0.f;
+#pragma unroll
+            for (int qz = 0; qz < NQ; ++qz) {
+              acc = fmaf(S1[qz][kk], vv[qz], acc);
+              acc = fmaf(D1[qz][kk], vz[qz], acc);
+            }
+            if (kk == 0) {
+              acc += carry[k];
+              if (zg >= zb) o[P * zg] = acc;
+            } else if (kk < P) {
+              if (zg >= zb) o[P * zg + kk] = acc;
+            } else {
+              carry[k] = acc;
+            }
+          }
+        }
+        if (s == n_slabs - 1 && ze == nz) o[P * nz] = carry[k];
+      }
+    }
+    // the next iteration's barrier orders I1's reads of sV before E1
+    // rewrites that region
   }
+}
+
+template <int P, int NQ>
+int launch_tp(const float* u, const float* ul, const float* vo,
+              const float* jinv, const float* jxw, const float* h,
+              const float* S1, const float* D1, const float* wz, float* out,
+              int n_p, int m, int nz, int flavor, int consider_dt,
+              int cell_wise, GlsScalars sc, int zs_req, int nzb_req,
+              cudaStream_t stream) {
+  constexpr int NQ3 = NQ * NQ * NQ;
+  const int Xn = P * m + 1;
+  if (4 * (P + 1) * Xn > kMaxCols * kThreads)
+    return (int)cudaErrorInvalidValue;
+  int ZS = zs_req > 0 ? zs_req : kSlabQ / (m * NQ3);
+  ZS = ZS < 1 ? 1 : (ZS > nz ? nz : ZS);
+  // z chunks: each column in two halves when each half still holds two
+  // slabs (the measured best at m = 4 and 8; the coarser levels walk one
+  // or two slabs and keep their columns whole)
+  int nzb = nzb_req > 0 ? nzb_req : (nz >= 4 * ZS ? 2 : 1);
+  nzb = nzb > nz ? nz : nzb;
+  const int ZC = (nz + nzb - 1) / nzb;
+  nzb = (nz + ZC - 1) / ZC;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
+  const int NG = incr ? 8 : 4;
+  const size_t bytes =
+      prism_smem(P, NQ, m, ZS, NF, NG).total() * sizeof(float);
+  // the opt-in limit and the kernel's dynamic shared-memory attribute are
+  // looked up and raised once, not at every launch
+  static int max_optin = 0;
+  static size_t attr_bytes = 0;
+  cudaError_t err;
+  if (max_optin == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(
+        &max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // (the field pointer table is static shared memory beside it)
+  if (bytes + 11 * sizeof(float*) > (size_t)max_optin)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > attr_bytes) {
+    err = cudaFuncSetAttribute(prism_kernel<P, NQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_bytes = bytes;
+  }
+  if (n_p == 0 || nz == 0) return 0;
+  PrismDims dm{n_p, m, nz, ZS, ZC, nzb};
+  prism_kernel<P, NQ><<<n_p * m * nzb, kThreads, bytes, stream>>>(
+      u, ul, vo, jinv, jxw, h, S1, D1, wz, out, dm, flavor, consider_dt,
+      cell_wise, sc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---- host launcher (plain C interface, bound with ctypes) -------------
+// zs_req / nzb_req: cell layers per slab and z chunks per column, 0 for
+// the launcher's choice.  Degrees 1-4 with NQ = P + 1 Gauss points.
 extern "C" int prism_sweep_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
     const float* wz, float* out, int n_p, int P, int NQ, int m, int nz,
     int flavor, int consider_dt, int cell_wise, float weight, float stau,
-    float nu, float c1, float c2, void* stream) {
-  const int n1 = P + 1;
-  const int Xn = P * m + 1;
-  const int NQ3 = NQ * NQ * NQ;
-  int ZS = kSlabQ / (m * NQ3);
-  ZS = ZS < 1 ? 1 : (ZS > nz ? nz : ZS);
-  const int ZN = P * ZS + 1;
-  const size_t NR = (size_t)n1 * Xn;
-  const size_t NS = NR * ZN;
-  const size_t QS = (size_t)m * ZS * NQ3;
-  const size_t floats = 2 * (size_t)NQ * n1 + NQ + 11 * NS + 17 * QS + 8 * NR;
-  const size_t bytes = floats * sizeof(float);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int max_optin = 0;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)max_optin) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(prism_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n_p == 0 || nz == 0) return 0;
+    float nu, float c1, float c2, int zs_req, int nzb_req, void* stream) {
   GlsScalars sc{weight, stau, nu, c1, c2};
-  PrismDims dm{n_p, P, NQ, m, nz, ZS};
-  prism_kernel<<<n_p * m, kThreads, bytes, (cudaStream_t)stream>>>(
-      u, ul, vo, jinv, jxw, h, S1, D1, wz, out, dm, flavor, consider_dt,
-      cell_wise, sc);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define PRISM_CASE(PP)                                                      \
+  if (P == PP && NQ == PP + 1)                                              \
+    return launch_tp<PP, PP + 1>(u, ul, vo, jinv, jxw, h, S1, D1, wz, out,  \
+                                 n_p, m, nz, flavor, consider_dt, cell_wise, \
+                                 sc, zs_req, nzb_req, st);
+  PRISM_CASE(1)
+  PRISM_CASE(2)
+  PRISM_CASE(3)
+  PRISM_CASE(4)
+#undef PRISM_CASE
+  return (int)cudaErrorInvalidValue;
 }

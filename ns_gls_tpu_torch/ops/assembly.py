@@ -8,6 +8,13 @@ Replaces the reference's basis-vector tricks:
 - ``MatrixFreeTools::compute_matrix`` / ``initialize_system_matrix``
   (``operator_ns.cc:1303-1434``) used for the GMG coarse solve and the
   direct solver.
+
+The element contributions are summed into the diagonal and the dense
+matrix by the multiplicity-class sums of ``utils/segment.py``, each
+target's contributions added one after the other in source order (the
+order of a serial scatter-add) on every device and thread count: a
+float32 ``index_put_(..., accumulate=True)`` with trailing dimensions
+sums in a thread-dependent order on the CPU.
 """
 
 from __future__ import annotations
@@ -20,8 +27,21 @@ from ns_gls_tpu_torch.ops.navier_stokes import (
     fe_evaluate,
     fe_integrate,
 )
+from ns_gls_tpu_torch.utils.segment import class_sum, target_sums
 
 _CHUNK = 2048
+
+
+def _sums(op, name: str, source: torch.Tensor, index=None):
+    """The operator's ``target_sums`` tables of ``index(source)`` (of
+    ``source`` itself by default), cached until ``source`` is replaced."""
+    cache = op.__dict__.setdefault("_assembly_sums", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] is not source:
+        idx = source if index is None else index(source)
+        hit = (source, target_sums(idx.cpu().numpy(), op.device))
+        cache[name] = hit
+    return hit[1]
 
 
 def _local_apply(op: NavierStokesOperator):
@@ -105,8 +125,9 @@ def compute_diagonal(op: NavierStokesOperator) -> torch.Tensor:
     d_loc = element_matrices(op, diagonal_only=True)
     diag = torch.zeros((op.n_nodes, op.n_comp), dtype=op.dtype,
                        device=op.device)
-    # in place on the fresh tensor
-    diag.index_put_((op.batch.cell_nodes,), d_loc, accumulate=True)
+    ts = _sums(op, "diag", op.batch.cell_nodes)
+    diag[ts.targets] = class_sum(ts.gather, d_loc.reshape(-1, op.n_comp),
+                                   in_order=True)
     ca = op.constraints_homogeneous
     if ca.n:
         diag = diag.reshape(-1)
@@ -133,22 +154,31 @@ def assemble_dense(op: NavierStokesOperator) -> torch.Tensor:
              ).reshape(emat.shape[0], -1)
     A = torch.zeros((n, n), dtype=op.dtype, device=op.device)
     # every update below is in place on the fresh matrix
-    A.index_put_((gdofs[:, :, None], gdofs[:, None, :]), emat,
-                 accumulate=True)
+    # the (row, column) pairs of the element matrices, flat in A
+    ts = _sums(op, "dense", op.batch.cell_nodes,
+               lambda _: gdofs[:, :, None] * n + gdofs[:, None, :])
+    A.view(-1)[ts.targets] = class_sum(ts.gather, emat.reshape(-1),
+                                       in_order=True)
     ca = op.constraints_homogeneous
     if ca.n:
-        rows, cols = ca.rows, ca.cols
-        w = ca.weights.to(op.dtype)
-        every = torch.arange(n, device=op.device)
+        rows = ca.rows
+        w = ca.weights.to(op.dtype)                            # (m, K)
+        mk = w.numel()
+        # the masters' current entries come first among their sources,
+        # so each is updated in the order of a serial scatter-add
+        tc = _sums(op, "masters", ca.cols, lambda c: torch.cat(
+            [torch.unique(c), c.reshape(-1)]))
         # A C: move constrained columns onto their masters
         contrib = A[:, rows]                                   # (n, m)
-        A.index_put_((every[:, None, None], cols[None]),
-                     contrib[:, :, None] * w[None], accumulate=True)
+        A[:, tc.targets] = class_sum(tc.gather, torch.cat(
+            [A[:, tc.targets], (contrib[:, :, None] * w[None]).reshape(n, mk)],
+            dim=1), dim=1, in_order=True)
         A[:, rows] = 0.0
         # Cᵀ A: same on the row side
         contrib_r = A[rows, :]                                 # (m, n)
-        A.index_put_((cols[:, :, None], every[None, None, :]),
-                     w[:, :, None] * contrib_r[:, None, :], accumulate=True)
+        A[tc.targets, :] = class_sum(tc.gather, torch.cat(
+            [A[tc.targets, :], (w[:, :, None] * contrib_r[:, None, :])
+             .reshape(mk, n)]), in_order=True)
         A[rows, :] = 0.0
         A[rows, rows] = 1.0
     return A

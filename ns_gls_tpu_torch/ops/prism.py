@@ -328,7 +328,7 @@ class PrismKernel:
             lib = load_library("prism")
             fn = lib.prism_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [vp]
+            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 2 + [vp]
             fn.restype = ci
             cls._fn = fn
         return cls._fn
@@ -341,6 +341,10 @@ class PrismKernel:
         Xn = P * m + 1
         Nzn = P * nz + 1
         C = 4
+        if not (1 <= P <= 4 and NQ == P + 1):
+            raise ValueError(f"prism kernel: degree {P} with {NQ} Gauss "
+                             "points; it is built for degrees 1-4 with "
+                             "degree + 1 points")
         lead_ul = _lead_ul(flavor)
         for name, t, lead in (("u", uP, C), ("u_lin", ulP, lead_ul),
                               ("vec_old", voP, 3)):
@@ -368,11 +372,13 @@ class PrismKernel:
             n_p, P, NQ, m, nz, FLAVORS.index(flavor), int(consider_dt),
             int(cell_wise),
             sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
+            0, 0,      # slab depth and z chunks: the launcher's choice
             torch.cuda.current_stream(uP.device).cuda_stream,
         )
         if err != 0:
             hint = (" (the slab's shared-memory tiles exceed the card's "
-                    "per-block limit)" if err == 1 else "")
+                    "per-block limit, or the block has too few threads for "
+                    "its node columns)" if err == 1 else "")
             raise RuntimeError(
                 f"prism kernel launch failed: CUDA error {err}{hint}"
             )

@@ -3,6 +3,8 @@ for the CPU, and never a silent move to the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -16,3 +18,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             'pass device="cpu" to run on the CPU'
         )
     return dev
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Cap torch's intra-op thread pool at ``n`` threads inside the block
+    and restore the previous size after it."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

@@ -46,11 +46,42 @@ def class_gather(target: np.ndarray, n_out: int, device) -> ClassGather:
     return ClassGather(tuple(classes), perm)
 
 
-def class_sum(cg: ClassGather, src: torch.Tensor, dim: int = 0):
+def _in_order(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``src[idx[:, k]]`` summed one k after the other: the order of a
+    serial scatter-add over the sources."""
+    out = src[idx[:, 0]]
+    for k in range(1, idx.shape[1]):
+        out = out + src[idx[:, k]]
+    return out
+
+
+def class_sum(cg: ClassGather, src: torch.Tensor, dim: int = 0,
+              in_order: bool = False):
     """Segment sum of ``src`` along ``dim`` with the tables of
-    :func:`class_gather` (the other dimensions ride along)."""
+    :func:`class_gather` (the other dimensions ride along).  With
+    ``in_order`` each target's sources are added one after the other in
+    source order, as a serial scatter-add would (one gather per source
+    slot instead of one per class)."""
     src = src.movedim(dim, 0)
-    out = torch.cat([src[idx].sum(dim=1) for idx in cg.classes], dim=0)
+    if in_order:
+        out = torch.cat([_in_order(src, idx) for idx in cg.classes], dim=0)
+    else:
+        out = torch.cat([src[idx].sum(dim=1) for idx in cg.classes], dim=0)
     if cg.perm is not None:
         out = out[cg.perm]
     return out.movedim(0, dim)
+
+
+class TargetSums(NamedTuple):
+    gather: ClassGather     # sums over the targets that have a source
+    targets: torch.Tensor   # (n_present,) those targets, ascending
+
+
+def target_sums(target: np.ndarray, device) -> TargetSums:
+    """Tables that sum, for every value t present in ``target``, the
+    source positions p with ``target[p] == t`` (targets without a source
+    are left out, unlike :func:`class_gather`)."""
+    uniq, inv = np.unique(np.asarray(target, np.int64).reshape(-1),
+                          return_inverse=True)
+    return TargetSums(class_gather(inv, len(uniq), device),
+                      torch.as_tensor(uniq, device=device))

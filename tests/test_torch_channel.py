@@ -37,6 +37,15 @@ from ns_gls_tpu_torch.models import make_simulation as tmake
 from ns_gls_tpu_torch.models.channel import SimulationChannel
 from ns_gls_tpu_torch.ops import structured as ts
 import ns_gls_tpu_torch.utils.logging as tlog
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 jlog.set_verbose(False)
 tlog.set_verbose(False)

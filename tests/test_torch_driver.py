@@ -28,6 +28,15 @@ import ns_gls_tpu.utils.logging as jlog
 from ns_gls_tpu_torch.config import Parameters as TParams
 from ns_gls_tpu_torch.driver import Driver as TDriver
 import ns_gls_tpu_torch.utils.logging as tlog
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 jlog.set_verbose(False)
 tlog.set_verbose(False)

@@ -25,6 +25,15 @@ from ns_gls_tpu.ops.time_integration import BDFIntegrator as JBDF
 from ns_gls_tpu_torch.fem.space import FESpace as TSpace
 from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TCyl
 from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator as TBDF
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 TOL = 1e-14
 
@@ -213,6 +222,57 @@ def test_cylinder_3d_functionals():
     rt = simt.postprocess(0.1, torch.as_tensor(u))
     for k in ("drag", "lift", "p_diff"):
         assert rt[k] == pytest.approx(rj[k], rel=1e-12, abs=1e-12), k
+
+
+def _vtu_arrays(path):
+    """The binary DataArrays of a VTU file by name (points: "Points")."""
+    import base64
+    import struct
+    import xml.etree.ElementTree as ET
+
+    types = {"Float64": np.float64, "Int64": np.int64, "UInt8": np.uint8}
+    out = {}
+    root = ET.parse(path).getroot()
+    for parent in root.iter():
+        for da in parent.findall("DataArray"):
+            if da.get("format") != "binary":
+                continue
+            raw = base64.b64decode(da.text)
+            n = struct.unpack("<I", raw[:4])[0]
+            name = da.get("Name") or parent.tag
+            out[name] = np.frombuffer(raw[4:4 + n], types[da.get("type")])
+    return out
+
+
+def test_cylinder_3d_slices(tmp_path):
+    """The two 3D slice files (z = 0 midplane, cross-section through the
+    cylinder axis) of the Turek 3D model at refinement 0, written by both
+    packages from one random solution: the same cells, points and values
+    to round-off."""
+    from ns_gls_tpu.models.cylinder import SimulationCylinder as JC
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TC
+
+    sj, st = _spaces("turek3d0")
+    sims = {}
+    for name, sim, space in (("jax", JC(3), sj), ("torch", TC(3), st)):
+        sim.paraview_prefix = str(tmp_path / name)
+        sim.output_granularity = 0.1
+        sims[name] = (sim, space)
+    sims["jax"][0].setup_postprocess(sj, 0.001)
+    sims["torch"][0].setup_postprocess(st, 0.001, "cpu")
+    u = np.random.default_rng(5).standard_normal((st.n_nodes, 4))
+    sims["jax"][0].postprocess(0.0, jnp.asarray(u))
+    sims["torch"][0].postprocess(0.0, torch.as_tensor(u))
+    for c in (0, 1):
+        aj = _vtu_arrays(tmp_path / f"jax_slice_{c}_0.vtu")
+        at = _vtu_arrays(tmp_path / f"torch_slice_{c}_0.vtu")
+        assert set(at) == set(aj) == {"Points", "connectivity", "offsets",
+                                      "types", "u", "p"}
+        for k in ("connectivity", "offsets", "types"):
+            assert np.array_equal(at[k], aj[k]), (c, k)
+        for k in ("Points", "u", "p"):
+            assert _close(at[k], aj[k]), (c, k)
+        assert np.abs(aj["u"]).max() > 0.0     # the slice found its cells
 
 
 @pytest.mark.parametrize("which", ["turek1", "multiblock", "turek3d1"])

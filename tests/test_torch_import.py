@@ -10,6 +10,15 @@ import sys
 
 import pytest
 import torch
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -162,3 +171,32 @@ def test_structured_cost_counts_the_function():
     assert f_incr > f_fix > 0
     ms, by = bound(b_incr, f_incr)
     assert by in ("bytes", "operations") and ms > 0
+
+
+def test_bench_gpu_turek_lane_rehearsal(capsys):
+    """``bench_gpu.py --turek [ref] [degree]``: the JAX package's ``bench.py
+    --turek`` operator (the extruded Turek 3D mesh, Q2, BDF-2, increment
+    flavor, q-wise delta, nu = 0.001) on the prism sweep; ``--device cpu``
+    rehearses it and prints no device metric."""
+    sys.path.insert(0, ROOT)
+    try:
+        import bench_gpu
+    finally:
+        sys.path.remove(ROOT)
+    from ns_gls_tpu_torch.ops.prism import PrismSweep
+
+    assert bench_gpu.main(["--turek", "0", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "(turek): 400 cells, degree 2, 16704 DoFs, increment" in out
+    assert "not measured" in out and "MDoF/s" not in out
+    with pytest.raises(SystemExit) as exc:
+        bench_gpu.main(["--turek", "--sphere", "--device", "cpu"])
+    assert exc.value.code == 2
+    capsys.readouterr()
+    op, space, u = bench_gpu.build_turek(0, 2, "cpu")
+    assert isinstance(op._fast, PrismSweep) and op.increment_form
+    assert not op.cell_wise_stabilization and op.nu == 0.001
+    args = bench_gpu.sweep_args(op, u)
+    assert args[5:] == ("increment", True, False)
+    out = op._fast.apply(args[1]["weight"], args[1]["stau"], *args[2:6])
+    assert torch.equal(out, op.vmult(u))

@@ -30,6 +30,15 @@ from ns_gls_tpu_torch.ops.time_integration import (
     BDFIntegrator as TBDF,
     SolutionHistory as THist,
 )
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 TOL = 1e-5
 F32 = torch.float32

@@ -37,6 +37,15 @@ from tests.test_torch_patch3d import (
     general3d_mesh,
     sphere_mesh,
 )
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 
 @pytest.mark.parametrize("increment,cell_wise", [(True, False),

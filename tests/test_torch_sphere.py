@@ -23,6 +23,15 @@ from ns_gls_tpu_torch.fem.space import FESpace as TSpace
 from ns_gls_tpu_torch.mesh.gmsh import read_msh as tread
 from ns_gls_tpu_torch.models import UNPORTED, make_simulation as tmake
 from ns_gls_tpu_torch.models.sphere import MESH_FILE, SimulationSphere
+from ns_gls_tpu_torch.utils.device import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the host's cores: one torch thread each."""
+    with torch_threads(1):
+        yield
+
 
 
 def test_read_msh_equals_jax():

@@ -8,7 +8,8 @@
 # (the chained apply's time moves with the host, the kernel's does not),
 # then 3 6 2 (beyond L2) with both kernels, 2 9 2 (the 2D kernel) and the
 # sphere on the patch-3D kernel: --sphere 3 2 (811,272 DoFs, 38 MB of
-# operands, in L2) and --sphere 4 2 (6,390,280 DoFs, streaming from HBM).
+# operands, in L2) and --sphere 4 2 (6,390,280 DoFs, streaming from HBM),
+# and the Turek 3D mesh on the prism kernel: --turek 3 (6,789,120 DoFs).
 # Prints bench_gpu.py's own lines; with an argument, also writes them there.
 set -u
 out="${1:-/dev/null}"
@@ -21,4 +22,5 @@ python3 bench_gpu.py 3 6 2 --batched
 python3 bench_gpu.py 2 9 2
 python3 bench_gpu.py --sphere 3 2
 python3 bench_gpu.py --sphere 4 2
+python3 bench_gpu.py --turek 3
 } 2>&1 | tee "$out"

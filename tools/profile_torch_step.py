@@ -158,7 +158,7 @@ def main():
     # profiled steps less the summed bound of their launches, per step
     for name, (applies, bound_ms) in tally.items():
         rows = [e for e in events if e.device_type == DeviceType.CUDA
-                and f"{name}(" in e.key]
+                and (f"{name}(" in e.key or f"{name}<" in e.key)]
         dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
         n = sum(e.count for e in rows)
         print(f"fused kernel {name}: {n} launches ({applies} sweep "
