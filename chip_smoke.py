@@ -36,10 +36,12 @@ Phases (any failure exits non-zero and prints no result line):
 9. structured kernels vs plain: the channel 3D driver is set up
    (``input/channel.json`` with dim 3, degree 2, refinement 3); the 2D,
    3D and batched-3D structured kernels against the plain version on
-   sheared lattices (P = 1, 2) and on the channel's level spaces, in
-   every flavor x delta mode x consider_dt, two launches bit-identical,
-   each timed at the finest level's shape (the batched kernel's time
-   there is logged only: no driver path gives it that shape),
+   sheared lattices (P = 1, 2 in 2D; P = 1-4, every degree the 3D
+   kernel has a specialization for, in 3D) and on the channel's level
+   spaces, in every flavor x delta mode x consider_dt, two launches
+   bit-identical, each timed at the finest level's shape (the batched
+   kernel's time there is logged only: no driver path gives it that
+   shape); the 3D kernel's registers, spills and shared memory per block,
 10. channel 3D main path: 128 x 32 x 32 cells of Q2 (4,343,300 DoFs, six
     GMG levels, f64 outer, f32 levels on the 3D structured kernel, direct
     coarse) for 3 steps through ``Driver.run``; every Newton solve
@@ -703,6 +705,27 @@ def time_structured_args(tag, args, batched):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def log_structured3d_build(tag, table_sets):
+    """Registers, spills and shared memory per block of the 3D kernel
+    as built, at each degree among ``table_sets`` (under the plan of the
+    largest lattice of that degree, in the main path's flavor)."""
+    from ns_gls_tpu_torch.ops import structured as st
+
+    largest = {}
+    for t in table_sets:
+        n = t.jinv.shape[0]
+        if n > largest.get(t.P, (0, None))[0]:
+            largest[t.P] = (n, t)
+    for P, (_, t) in sorted(largest.items()):
+        plan = st.brick_plan(P, t.cell_shape)
+        a = st.StructuredKernel.attributes(P, plan, "increment", True)
+        log(f"[{tag}] structured3d_kernel<{P}>: {a['registers']} registers, "
+            f"{a['local_bytes']} B local memory (spills), "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
+            f"shared memory per block (plan {tuple(plan)} at cells "
+            f"{t.cell_shape}, increment with history)")
+
+
 class GeneralSweepCount:
     """Counts the calls of the general gather sweep by operator dtype
     while it is installed, and keeps the f32 operators that made them."""
@@ -1165,11 +1188,15 @@ def main() -> int:
         log(f"[9] channel 3D driver set up in {setup_c3:.2f} s")
         errs = {}
         sheared = [(f"sheared {dim}D", sheared_tables(dim, degree, "cuda"),
-                    SC_SHEAR) for dim in (2, 3) for degree in (1, 2)]
+                    SC_SHEAR) for dim, degrees in ((2, (1, 2)),
+                                                   (3, (1, 2, 3, 4)))
+                   for degree in degrees]
         levels3 = [(f"channel 3D level {l}", op._fast.tables, SC_CH)
                    for l, op in enumerate(drv_c3.mg_ops)]
         phase_structured_vs_plain(9, sheared + levels3, errs)
         fine3 = drv_c3.mg_ops[-1]._fast.tables
+        log_structured3d_build(9, [t for _, t, _ in sheared + levels3
+                                   if t.d == 3])
         t_s3 = time_structured(9, fine3, SC_CH, False)
         time_structured(9, fine3, SC_CH, True)      # logged only
         del sheared, levels3, fine3
@@ -1255,6 +1282,7 @@ def main() -> int:
                 launches=launches,
                 max_abs_err=errs[name],
                 ms=t["ms"],
+                kernel_ms=t["kernel_ms"],
                 plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"],

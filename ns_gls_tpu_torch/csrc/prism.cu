@@ -93,20 +93,7 @@
 
 #include "gls_qpoint.cuh"
 
-#ifndef PRISM_HOST_REHEARSAL
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-#endif
+#include "sweep_common.cuh"
 
 namespace {
 
@@ -144,41 +131,6 @@ __host__ __device__ inline PrismSmem prism_smem(int P, int NQ, int m,
                    max2(max2((NF + NG) * NR * LZ, 16 * QS), 8 * NR * LZ),
                    max2((NF + 2 * NG) * XS, 12 * XS), QS};
 }
-
-// The items of a block-strided loop (item = threadIdx.x, then + blockDim.x)
-// as digits of a mixed radix, digit 0 fastest, advanced without a division
-// per item (the divisions of a runtime radix cost more than a light item's
-// work).  The last digit is not reduced: the loop ends when it reaches its
-// radix.
-template <int N>
-struct StridedDigits {
-  int d[N], s[N], r[N];
-  __device__ explicit StridedDigits(const int (&radix)[N]) {
-    int v = threadIdx.x, st = blockDim.x;
-#pragma unroll
-    for (int k = 0; k < N - 1; ++k) {
-      r[k] = radix[k];
-      d[k] = v % r[k];
-      v /= r[k];
-      s[k] = st % r[k];
-      st /= r[k];
-    }
-    r[N - 1] = radix[N - 1];
-    d[N - 1] = v;
-    s[N - 1] = st;
-  }
-  __device__ bool valid() const { return d[N - 1] < r[N - 1]; }
-  __device__ void next() {
-    int c = 0;
-#pragma unroll
-    for (int k = 0; k < N - 1; ++k) {
-      d[k] += s[k] + c;
-      c = d[k] >= r[k];
-      if (c) d[k] -= r[k];
-    }
-    d[N - 1] += s[N - 1] + c;
-  }
-};
 
 template <int P, int NQ>
 __global__ void __launch_bounds__(kThreads, 2)

@@ -28,9 +28,13 @@
 //                            cells at one (ey) or (ez, ey), R = (P+1)^(d-1)
 //                            its node rows (k, j); row (row, r) holds node
 //                            row r integrated over that cell row only
+//                            (2D and batched 3D; the 3D kernel's output is
+//                            described at its code below)
 // with Nx = P*nx + 1, Yr = P*ny + 1, Zr = P*nz + 1.
 //
-// Design.  One thread block per (x segment, cell row).  The block walks
+// Design of the 2D and the batched 3D kernels (structured_body; the 3D
+// kernel has a body of its own, structured3d_kernel below).  One thread
+// block per (x segment, cell row).  The block walks
 // along x in chunks of XS cells.  Per chunk it stages the R node rows x
 // (P*XS+1) nodes of every field in shared memory and sum-factorizes:
 //   1. x contraction: per (field, node row, cell, qx) the S1- and D1-
@@ -52,9 +56,9 @@
 // fold_classes), in a fixed order.  No atomics anywhere: two launches on
 // the same inputs give the same bits.
 //
-// The 3D and 2D kernels take one component at a time through steps 1-4
-// (tables re-read per component); the batched kernel takes all components
-// of a work item together, one read of a table row serving all of them.
+// The 2D kernel takes one component at a time through steps 1-4 (tables
+// re-read per component); the batched kernel takes all components of a
+// work item together, one read of a table row serving all of them.
 //
 // What bounds the function on an H100, at the channel's finest 3D level
 // (P = 2, NQ = 3, 128 x 32 x 32 cells, 257 x 65 x 65 nodes), increment
@@ -66,15 +70,16 @@
 //          q-point of geometry, delta and physics: 24 kFLOP per cell
 //          x 131,072 = 3.15 GFLOP -> 47 us at 67 TFLOP/s f32.
 // So the function is bound by operations (in 2D, at 1024 x 256 cells of
-// Q2, by bytes: 62 MB -> 18.5 us against 0.94 GFLOP -> 14 us).  This
-// design factorizes along x only: step 2 sums over (P+1)^2 node rows per
-// q-point and step 3 over NQ^2 q-rows per node row, about 37 kFLOP per
-// cell, and every operand of those sums is a shared-memory read.
-// Factorizing y and z as well, and keeping a q-column in registers, is
-// later work.
+// Q2, by bytes: 62 MB -> 18.5 us against 0.94 GFLOP -> 14 us).  The design
+// of structured_body factorizes along x only: step 2 sums over (P+1)^2
+// node rows per q-point and step 3 over NQ^2 q-rows per node row, about
+// 37 kFLOP per cell, and every operand of those sums is a shared-memory
+// read.  The 3D kernel factorizes along all three axes.
 #include <cuda_runtime.h>
 
 #include "gls_qpoint.cuh"
+
+#include "sweep_common.cuh"
 
 namespace {
 
@@ -591,13 +596,632 @@ structured2d_kernel(STRUCTURED_ARGS) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-structured3d_kernel(STRUCTURED_ARGS) {
-  structured_body<3, false>(STRUCTURED_PASS);
-}
-
-__global__ void __launch_bounds__(kThreads)
 structured3d_batched_kernel(STRUCTURED_ARGS) {
   structured_body<3, true>(STRUCTURED_PASS);
+}
+
+// ===========================================================================
+// structured3d_kernel: the 3D sweep, sum-factorized along z, x and y
+// ===========================================================================
+//
+// Output (in place of the cell-row tiles above; ops/structured.py
+// fold_bricks sums it into the lattice):
+//   tiles  (C, Zr, ny, P+1, Nx)  node plane (class-grouped z), cell row
+//                                ey, its node row j, node x: the integrals
+//                                over cell row ey only, x seams excepted
+//   seams  (C, Zr, ny, P+1, nbx) the first node column of brick b > 0 (the
+//                                x seam it shares with brick b - 1, whose
+//                                part is in the tile)
+// z has no seam: a block walks its whole z column and carries the plane
+// shared by two cell layers in a register.
+//
+// Design.  The lattice is the prism kernel's case (csrc/prism.cu) with one
+// patch and a per-cell J: one thread block per (x brick of XB cells, cell
+// row ey, z chunk), which walks its z chunk in slabs of ZS cell layers.
+//  - Sum factorization along every axis: a slab is evaluated along z
+//    (E1), then x (E2), then y (E3, one thread per q-point, which then
+//    runs the physics in registers); the test-function weights are
+//    integrated back along y (I3), x (I2) and z (I1).  About 24 kFLOP per
+//    cell, the function's count.  P is a template parameter (NQ = P + 1),
+//    so the 1D tables and the short contractions live in registers.
+//  - All components together: the E1 and E2 items take every component
+//    of one field (u, u_lin, vec_old) through the contraction, the I3 and
+//    I2 items all four test-function components; the items are split over
+//    cell layers and node rows so that a slab still gives every thread
+//    work.  I1 keeps one (component, node row, node) column per thread, for
+//    its z carry.
+//  - z in registers: in I1 a thread keeps the node plane shared by two cell
+//    layers in a register, across slabs too, and writes finished planes to
+//    the tile.  A z chunk that does not start the column first evaluates
+//    the cell layer below it, for the carry only, and writes only its own
+//    planes: the plane on a chunk seam gets both layers' parts in the order
+//    of one walk, so the output does not depend on the chunking.
+//  - Overlapped loads: the next slab's node planes and its cells'
+//    geometry (the full J^-1, h, JxW: read once per cell) are copied to
+//    shared memory with cp.async (double buffer) while this slab computes.
+//  - The loops over a stage's items advance their indices as mixed-radix
+//    digits (StridedDigits), with no runtime division per item; the
+//    class-grouped y rows and the field pointers come from per-block
+//    tables.
+//  - The cell-wise delta needs the maximum of |u*|^2 over the cell's NQ^3
+//    q-points before the physics: E3a gives each cell one warp, which
+//    evaluates u* at the cell's q-points and reduces with shuffles.
+//  - Exact f32 FMAs, no tensor cores, no atomics: two launches on the same
+//    inputs give the same bits; the x seams are added by the caller in a
+//    fixed order.
+// The brick, slab and chunk sizes come from the caller (ops/structured.py
+// brick_plan: the brick shape and z chunking of least estimated waves x
+// slabs x slab time); the launcher refuses what does not fit.  Launch: 256
+// threads, at most 128 registers (two blocks per SM), no spills; at the
+// channel's finest level bricks of 8 cells, slabs of 2 layers (432
+// q-points), 512 blocks of ~100 KB of shared memory.
+//
+// Measured (tools/structured_levels.py, device time by torch.profiler,
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): 370.1 us at 128 x
+// 32 x 32 cells of Q2 (the x-only design 1,328.4 us and the batched kernel
+// 667.6 us in the same process), 7.9x the 47.0 us bound.  The kernel is bound by
+// latency, not by its arithmetic: tools/structured_ablation.py times it
+// with the slab copies or the physics taken out, and
+// tools/structured_stage_clocks.py counts the cycles of each stage.  Tried
+// and dropped (PERF.md): per-component items (no faster), 16-byte copies
+// of aligned windows around the rows (slower: more index work per copy),
+// the x and y contractions fused into one stage with float4 q-point values
+// (slower: longer chains per item), 224 threads (slower).
+
+// I1 columns (4 components x node rows x brick nodes) a thread may own
+constexpr int kMaxCols3 = 2;
+
+struct S3Dims {
+  int nx, ny, nz;
+  int XB;    // cells per brick along x (the last brick may hold fewer)
+  int nbx;   // bricks per cell row
+  int ZS;    // cell layers per slab
+  int ZC;    // cell layers per z chunk
+  int nzb;   // z chunks per column
+};
+
+// shared-memory regions of one block, in floats: the staged node planes
+// and the cells' geometry (two buffers each), region 1 (A, Az -> W -> V),
+// region 2 (X, XD, XZ -> Y) and the cells' max |u*|^2
+struct S3Smem {
+  size_t in, geo, r1, r2, cells;
+  __host__ __device__ size_t total() const {
+    return in + geo + r1 + r2 + cells;
+  }
+};
+
+__host__ __device__ inline size_t s3_max(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+__host__ __device__ inline S3Smem s3_smem(int P, int XB, int ZS, int NF,
+                                          int NG) {
+  const size_t n1 = P + 1, NQ = P + 1;
+  const size_t XN = (size_t)P * XB + 1, LX = NQ * XB;
+  const size_t ZN = (size_t)P * ZS + 1, LZ = NQ * ZS;
+  const size_t PL = n1 * XN;          // one node plane of the brick: (j, x)
+  const size_t QS = LZ * NQ * LX;     // q-points per slab
+  const size_t XF = LZ * n1 * LX;     // one field's X
+  const size_t cells = (size_t)ZS * XB;
+  return S3Smem{2 * NF * ZN * PL, 2 * cells * (11 + NQ * NQ * NQ),
+                s3_max(s3_max((NF + NG) * LZ * PL, 16 * QS), 8 * LZ * PL),
+                s3_max((NF + 2 * NG) * XF, 12 * XF), cells};
+}
+
+// row q of a 1D table held in registers, q not a compile-time index
+template <int NQ, int N1>
+__device__ __forceinline__ void table_row(const float (&t)[NQ][N1], int q,
+                                          float (&row)[N1]) {
+#pragma unroll
+  for (int j = 0; j < N1; ++j) {
+    float v = t[0][j];
+#pragma unroll
+    for (int a = 1; a < NQ; ++a) v = q == a ? t[a][j] : v;
+    row[j] = v;
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
+structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
+                    const float* __restrict__ vo,
+                    const float* __restrict__ jinv,
+                    const float* __restrict__ jxw,
+                    const float* __restrict__ hcell,
+                    const float* __restrict__ S1g,
+                    const float* __restrict__ D1g, float* __restrict__ tiles,
+                    float* __restrict__ seams, S3Dims dm, int flavor,
+                    int consider_dt, int cell_wise, GlsScalars sc) {
+  extern __shared__ float smem[];
+  constexpr int n1 = P + 1, NQ = P + 1, NQ3 = NQ * NQ * NQ;
+  const int nx = dm.nx, ny = dm.ny, nz = dm.nz, XB = dm.XB, ZS = dm.ZS;
+  int blk = blockIdx.x;
+  const int kz = blk % dm.nzb;
+  blk /= dm.nzb;
+  const int bx = blk % dm.nbx;
+  const int ey = blk / dm.nbx;
+  const int x0 = bx * XB;
+  const int xb = min(XB, nx - x0);   // cells in this brick
+  const int xn = P * xb + 1;         // its nodes along x
+  const int Nx = P * nx + 1, Yr = P * ny + 1, Zr = P * nz + 1;
+  const int XN = P * XB + 1, LX = NQ * XB, ZN = P * ZS + 1, LZ = NQ * ZS;
+  const int PL = n1 * XN;
+  const int QS = LZ * NQ * LX;
+  const int XF = LZ * n1 * LX;
+  const bool incr = flavor == GLS_INCREMENT;
+  const int lead_ul = incr ? 4 : 3;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + lead_ul + (need_dt_old ? 3 : 0);   // staged fields
+  const int NG = incr ? 8 : 4;                         // fields with grads
+  const int NK = need_dt_old ? 3 : 2;   // field kinds: u, u_lin, vec_old
+
+  // the z chunk: owned layers [zb, ze), walked from lo (one layer below
+  // zb when the chunk does not start the column)
+  const int zb = kz * dm.ZC;
+  const int ze = min(zb + dm.ZC, nz);
+  const int lo = zb > 0 ? zb - 1 : 0;
+
+  // 1D tables in registers
+  float S1[NQ][n1], D1[NQ][n1];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      S1[q][i] = __ldg(S1g + q * n1 + i);
+      D1[q][i] = __ldg(D1g + q * n1 + i);
+    }
+
+  const S3Smem sm = s3_smem(P, XB, ZS, NF, NG);
+  const int GB = ZS * XB * (11 + NQ3);   // one geometry buffer
+  float* sIn = smem;                     // (2, NF, ZN, n1, XN)
+  float* sGeo = sIn + sm.in;             // (2, [ZS, XB, 9 | ZS, XB, 2 |
+                                         //      ZS, XB, NQ^3])
+  float* sA = sGeo + sm.geo;             // (NF, LZ, n1, XN)
+  float* sAz = sA + NF * LZ * PL;        // (NG, LZ, n1, XN)
+  float* sW = sA;                        // (4 kinds, 4 c, QS)
+  float* sV = sA;                        // (4 c, 2, LZ, n1, XN)
+  float* sX = sA + sm.r1;                // (NF, LZ, n1, LX)
+  float* sXD = sX + NF * XF;             // (NG, LZ, n1, LX)
+  float* sXZ = sXD + NG * XF;            // (NG, LZ, n1, LX)
+  float* sY = sX;                        // (4 c, 3, LZ, n1, LX)
+  float* scell = sX + sm.r2;             // (ZS, XB) max |u*|^2 per cell
+
+  // the brick's first node of every staged field, and the class-grouped
+  // offset of each node row j of cell row ey
+  __shared__ const float* sField[11];
+  __shared__ int sRow[n1];
+  const size_t nn = (size_t)Nx * Yr * Zr;
+  if (threadIdx.x < NF) {
+    const int f = threadIdx.x;
+    sField[f] = (f < 4 ? u + f * nn
+                       : (f < 4 + lead_ul ? ul + (f - 4) * nn
+                                          : vo + (f - 4 - lead_ul) * nn)) +
+                P * x0;
+  }
+  if (threadIdx.x < n1)
+    sRow[threadIdx.x] = cg_index(P, ny, ey, threadIdx.x) * Nx;
+  __syncthreads();
+
+  // the node copies of a slab: thread group tg (of n_grp) keeps one node
+  // (row j, x) of the brick's planes and walks its share of the (plane,
+  // field) pairs
+  const int nrx = n1 * xn;
+  const int n_grp = blockDim.x / nrx;
+  const int tg = threadIdx.x / nrx;
+  const int t_j = (threadIdx.x - tg * nrx) / xn;
+  const int t_x = threadIdx.x - tg * nrx - t_j * xn;
+  const int t_src = sRow[t_j] + t_x;
+  const int YN = Yr * Nx;
+
+  // copy the node planes and cell geometry of the slab starting at cell
+  // layer zl0 into buffer buf (cp.async; the caller commits)
+  auto stage = [&](int zl0, int zs, int buf) {
+    const int zn = P * zs + 1;
+    if (tg < n_grp) {
+      float* dst0 = sIn + buf * NF * ZN * PL + t_j * XN + t_x;
+      for (StridedDigits<2> e({zn, NF}, tg, n_grp); e.valid(); e.next()) {
+        const int zl = e.d[0], f = e.d[1];
+        cp_async4(dst0 + (f * ZN + zl) * PL,
+                  sField[f] +
+                      (cg_index(P, nz, zl0 + zl / P, zl % P) * YN + t_src));
+      }
+    }
+    float* gJ = sGeo + buf * GB;
+    float* gH = gJ + ZS * XB * 9;
+    float* gQ = gH + ZS * XB * 2;
+    const size_t c0 = ((size_t)zl0 * ny + ey) * nx + x0;
+    const size_t lay = (size_t)ny * nx;   // cells per layer
+    for (StridedDigits<2> e({xb * 9, zs}); e.valid(); e.next())
+      cp_async4(gJ + e.d[1] * XB * 9 + e.d[0],
+                jinv + (c0 + e.d[1] * lay) * 9 + e.d[0]);
+    for (StridedDigits<2> e({xb * 2, zs}); e.valid(); e.next())
+      cp_async4(gH + e.d[1] * XB * 2 + e.d[0],
+                hcell + (c0 + e.d[1] * lay) * 2 + e.d[0]);
+    for (StridedDigits<2> e({xb * NQ3, zs}); e.valid(); e.next())
+      cp_async4(gQ + e.d[1] * XB * NQ3 + e.d[0],
+                jxw + (c0 + e.d[1] * lay) * NQ3 + e.d[0]);
+  };
+
+  // the z carries of the I1 columns this thread owns, (c, j, x) =
+  // threadIdx.x + k * blockDim.x, fixed for the whole walk
+  const int n_cols = 4 * n1 * xn;
+  float carry[kMaxCols3];
+#pragma unroll
+  for (int k = 0; k < kMaxCols3; ++k) carry[k] = 0.f;
+
+  const int n_slabs = (ze - lo + ZS - 1) / ZS;
+  stage(lo, min(ZS, ze - lo), 0);
+  cp_async_commit();
+  for (int s = 0; s < n_slabs; ++s) {
+    const int zl0 = lo + s * ZS;
+    const int zs = min(ZS, ze - zl0);   // cell layers in this slab
+    const int lz = NQ * zs;             // q-point layers in this slab
+    const int lx = NQ * xb;             // q-point columns of the brick
+    if (s + 1 < n_slabs) {
+      const int z1 = zl0 + ZS;
+      stage(z1, min(ZS, ze - z1), (s + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sbuf = sIn + (s & 1) * NF * ZN * PL;
+    const float* gJ = sGeo + (s & 1) * GB;
+    const float* gH = gJ + ZS * XB * 9;
+    const float* gQ = gH + ZS * XB * 2;
+
+    // ---- E1: along z; items (node x, node row j, cell layer, field) ----
+    for (StridedDigits<4> it({xn, n1, zs, NK}); it.valid(); it.next()) {
+      const int xl = it.d[0], j = it.d[1], ezl = it.d[2], g = it.d[3];
+      const int f0 = g == 0 ? 0 : (g == 1 ? 4 : 4 + lead_ul);
+      const int nc = g == 0 ? 4 : (g == 1 ? lead_ul : 3);
+      const bool grads = f0 < NG;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= nc) break;
+        const int f = f0 + c;
+        const float* col = sbuf + ((f * ZN + P * ezl) * n1 + j) * XN + xl;
+        float nd[n1];
+#pragma unroll
+        for (int k = 0; k < n1; ++k) nd[k] = col[k * PL];
+#pragma unroll
+        for (int qz = 0; qz < NQ; ++qz) {
+          float v = 0.f, d = 0.f;
+#pragma unroll
+          for (int k = 0; k < n1; ++k) {
+            v = fmaf(S1[qz][k], nd[k], v);
+            d = fmaf(D1[qz][k], nd[k], d);
+          }
+          const int o = ((f * LZ + ezl * NQ + qz) * n1 + j) * XN + xl;
+          sA[o] = v;
+          if (grads) sAz[o] = d;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- E2: along x; items (cell ex, node row j, q layer iz, field) ---
+    for (StridedDigits<4> it({xb, n1, lz, NK}); it.valid(); it.next()) {
+      const int ex = it.d[0], j = it.d[1], iz = it.d[2], g = it.d[3];
+      const int f0 = g == 0 ? 0 : (g == 1 ? 4 : 4 + lead_ul);
+      const int nc = g == 0 ? 4 : (g == 1 ? lead_ul : 3);
+      const bool grads = f0 < NG;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c >= nc) break;
+        const int f = f0 + c;
+        const int a0 = ((f * LZ + iz) * n1 + j) * XN + P * ex;
+        const int o = ((f * LZ + iz) * n1 + j) * LX + ex * NQ;
+        float av[n1];
+#pragma unroll
+        for (int i = 0; i < n1; ++i) av[i] = sA[a0 + i];
+#pragma unroll
+        for (int qx = 0; qx < NQ; ++qx) {
+          float v = 0.f;
+#pragma unroll
+          for (int i = 0; i < n1; ++i) v = fmaf(S1[qx][i], av[i], v);
+          sX[o + qx] = v;
+        }
+        if (grads) {
+          float zv[n1];
+#pragma unroll
+          for (int i = 0; i < n1; ++i) zv[i] = sAz[a0 + i];
+#pragma unroll
+          for (int qx = 0; qx < NQ; ++qx) {
+            float dx = 0.f, dz = 0.f;
+#pragma unroll
+            for (int i = 0; i < n1; ++i) {
+              dx = fmaf(D1[qx][i], av[i], dx);
+              dz = fmaf(S1[qx][i], zv[i], dz);
+            }
+            sXD[o + qx] = dx;
+            sXZ[o + qx] = dz;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- E3a (cell-wise delta): max |u*|^2 over each cell's NQ^3
+    // q-points, one warp per cell and a shuffle reduction -> scell
+    if (cell_wise) {
+      const int lane = threadIdx.x & 31;
+      for (int w = threadIdx.x >> 5; w < zs * xb; w += blockDim.x >> 5) {
+        const int ezl = w / xb, ex = w - ezl * xb;
+        float m = 0.f;
+        for (int t = lane; t < NQ3; t += 32) {
+          const int qz = t / (NQ * NQ), qy = (t / NQ) % NQ, qx = t % NQ;
+          const float* xr = sX + ((4 * LZ + ezl * NQ + qz) * n1) * LX +
+                            ex * NQ + qx;
+          float Sy[n1];
+          table_row(S1, qy, Sy);
+          float us = 0.f;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float v = 0.f;
+#pragma unroll
+            for (int j = 0; j < n1; ++j)
+              v = fmaf(Sy[j], xr[c * XF + j * LX], v);
+            us = fmaf(v, v, us);
+          }
+          m = fmaxf(m, us);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if (lane == 0) scell[ezl * XB + ex] = m;
+      }
+      __syncthreads();
+    }
+
+    // q-point q of the slab: q = (iz * NQ + qy) * LX + ix
+    // ---- E3b: along y, delta, physics, test-function weights ----------
+    for (StridedDigits<3> it({lx, NQ, lz}); it.valid(); it.next()) {
+      const int ix = it.d[0], qy = it.d[1], iz = it.d[2];
+      const int q = (iz * NQ + qy) * LX + ix;
+      const int ex = ix / NQ, qx = ix - ex * NQ;
+      const int ezl = iz / NQ, qz = iz - ezl * NQ;
+      // this q-point's row of the 1D tables
+      float Sy[n1], Dy[n1];
+      table_row(S1, qy, Sy);
+      table_row(D1, qy, Dy);
+
+      // value and reference gradients (x, y, z) of field f at this q-point
+      auto eval = [&](int f, float& v, float (&gr)[3], bool grads) {
+        const int o = (f * LZ + iz) * n1 * LX + ix;
+        v = gr[0] = gr[1] = gr[2] = 0.f;
+#pragma unroll
+        for (int j = 0; j < n1; ++j) {
+          const float xv = sX[o + j * LX];
+          v = fmaf(Sy[j], xv, v);
+          if (grads) {
+            gr[0] = fmaf(Sy[j], sXD[o + j * LX], gr[0]);
+            gr[1] = fmaf(Dy[j], xv, gr[1]);
+            gr[2] = fmaf(Sy[j], sXZ[o + j * LX], gr[2]);
+          }
+        }
+      };
+      float uv[4], ud[4][3];
+      float lv[4] = {0.f, 0.f, 0.f, 0.f};
+      float ld[4][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f},
+                        {0.f, 0.f, 0.f}};
+      float dto[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) eval(c, uv[c], ud[c], true);
+      if (incr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) eval(4 + c, lv[c], ld[c], true);
+      } else {
+        float g3[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) eval(4 + c, lv[c], g3, false);
+      }
+      if (need_dt_old) {
+        float g3[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) eval(4 + lead_ul + c, dto[c], g3, false);
+      }
+
+      // the cell's geometry, staged with the slab
+      const int cl = ezl * XB + ex;
+      float ji[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) ji[e] = gJ[cl * 9 + e];
+
+      // stabilization parameters
+      float d1, d2;
+      if (cell_wise) {
+        gls_delta_cell(sc, gH[cl * 2], scell[cl], d1, d2);
+      } else {
+        gls_delta_q(sc, gH[cl * 2 + 1],
+                    lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], d1, d2);
+      }
+
+      // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*3 + x]
+      float ug[3][3], pg[3];
+      float gus[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+      float gps[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          float g = 0.f, gl = 0.f;
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            g += ud[a][r] * ji[r * 3 + x];
+            gl += ld[a][r] * ji[r * 3 + x];
+          }
+          ug[a][x] = g;
+          gus[a][x] = gl;
+        }
+        float g = 0.f, gl = 0.f;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          g += ud[3][r] * ji[r * 3 + x];
+          gl += ld[3][r] * ji[r * 3 + x];
+        }
+        pg[x] = g;
+        gps[x] = gl;
+      }
+
+      float vr[4], gr[4][3];
+      const float uvel[3] = {uv[0], uv[1], uv[2]};
+      const float us[3] = {lv[0], lv[1], lv[2]};
+      gls_physics<3>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
+                     uv[3], pg, us, gus, gps, dto, d1, d2, vr, gr);
+
+      const float w = gQ[cl * NQ3 + qx + NQ * (qy + NQ * qz)];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sW[c * QS + q] = vr[c] * w;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          float g = 0.f;
+#pragma unroll
+          for (int x = 0; x < 3; ++x) g += gr[c][x] * ji[r * 3 + x];
+          sW[((1 + r) * 4 + c) * QS + q] = g * w;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- I3: along y; items (q column ix, q layer iz) -> node rows j ---
+    const int YS = LZ * n1 * LX;   // Y kinds: value -> x -> z
+    for (StridedDigits<2> it({lx, lz}); it.valid(); it.next()) {
+      const int ix = it.d[0], iz = it.d[1];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float wv[NQ], wx[NQ], wy[NQ], wz[NQ];
+#pragma unroll
+        for (int qy = 0; qy < NQ; ++qy) {
+          const int q = (iz * NQ + qy) * LX + ix;
+          wv[qy] = sW[c * QS + q];
+          wx[qy] = sW[(4 + c) * QS + q];
+          wy[qy] = sW[(8 + c) * QS + q];
+          wz[qy] = sW[(12 + c) * QS + q];
+        }
+#pragma unroll
+        for (int j = 0; j < n1; ++j) {
+          float yv = 0.f, yx = 0.f, yz = 0.f;
+#pragma unroll
+          for (int qy = 0; qy < NQ; ++qy) {
+            yv = fmaf(S1[qy][j], wv[qy], yv);
+            yv = fmaf(D1[qy][j], wy[qy], yv);
+            yx = fmaf(S1[qy][j], wx[qy], yx);
+            yz = fmaf(S1[qy][j], wz[qy], yz);
+          }
+          const int o = ((c * 3 * LZ + iz) * n1 + j) * LX + ix;
+          sY[o] = yv;
+          sY[o + YS] = yx;
+          sY[o + 2 * YS] = yz;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- I2: along x; items (cell ex, node row j, q layer iz) -> nodes
+    // P*ex .. P*ex+P-1 (and P*xb for the brick's last cell); the left node
+    // also takes cell ex-1's part
+    const int VS = LZ * PL;        // V kinds: value -> z
+    for (StridedDigits<3> it({xb, n1, lz}); it.valid(); it.next()) {
+      const int ex = it.d[0], j = it.d[1], iz = it.d[2];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int o = ((c * 3 * LZ + iz) * n1 + j) * LX + ex * NQ;
+        float yv[NQ], yx[NQ], yz[NQ];
+#pragma unroll
+        for (int qx = 0; qx < NQ; ++qx) {
+          yv[qx] = sY[o + qx];
+          yx[qx] = sY[o + qx + YS];
+          yz[qx] = sY[o + qx + 2 * YS];
+        }
+        float lv = 0.f, lzv = 0.f;   // cell ex-1 at its local node P
+        if (ex > 0) {
+#pragma unroll
+          for (int qx = 0; qx < NQ; ++qx) {
+            const int ol = o - NQ + qx;
+            lv = fmaf(S1[qx][P], sY[ol], lv);
+            lv = fmaf(D1[qx][P], sY[ol + YS], lv);
+            lzv = fmaf(S1[qx][P], sY[ol + 2 * YS], lzv);
+          }
+        }
+        float* vvp = sV + ((c * 2 * LZ + iz) * n1 + j) * XN + P * ex;
+#pragma unroll
+        for (int i = 0; i < n1; ++i) {
+          if (i == P && ex != xb - 1) break;
+          float vv = 0.f, vz = 0.f;
+#pragma unroll
+          for (int qx = 0; qx < NQ; ++qx) {
+            vv = fmaf(S1[qx][i], yv[qx], vv);
+            vv = fmaf(D1[qx][i], yx[qx], vv);
+            vz = fmaf(S1[qx][i], yz[qx], vz);
+          }
+          if (i == 0) {
+            vv = lv + vv;
+            vz = lzv + vz;
+          }
+          vvp[i] = vv;
+          vvp[i + VS] = vz;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- I1: along z, one column (c, j, x) per thread, carry in registers
+#pragma unroll
+    for (int k = 0; k < kMaxCols3; ++k) {
+      const int it = threadIdx.x + k * blockDim.x;
+      if (it < n_cols) {
+        const int c = it / (n1 * xn);
+        const int r = it - c * (n1 * xn);
+        const int j = r / xn, xl = r - j * xn;
+        const float* vvp = sV + ((c * 2 * LZ) * n1 + j) * XN + xl;
+        // where plane `plane` goes: the tile, or the seam entry of the
+        // brick's first node column
+        auto put = [&](int plane, float v) {
+          const size_t o =
+              (((size_t)c * Zr + cg_index(P, nz, plane / P, plane % P)) * ny +
+               ey) * n1 + j;
+          if (xl == 0 && bx > 0) {
+            seams[o * dm.nbx + bx] = v;
+          } else {
+            tiles[o * Nx + P * x0 + xl] = v;
+          }
+        };
+        for (int ezl = 0; ezl < zs; ++ezl) {
+          const int zg = zl0 + ezl;            // global cell layer
+          float vv[NQ], vz[NQ];
+#pragma unroll
+          for (int qz = 0; qz < NQ; ++qz) {
+            vv[qz] = vvp[(ezl * NQ + qz) * PL];
+            vz[qz] = vvp[(ezl * NQ + qz) * PL + VS];
+          }
+#pragma unroll
+          for (int kk = 0; kk <= P; ++kk) {
+            float acc = 0.f;
+#pragma unroll
+            for (int qz = 0; qz < NQ; ++qz) {
+              acc = fmaf(S1[qz][kk], vv[qz], acc);
+              acc = fmaf(D1[qz][kk], vz[qz], acc);
+            }
+            if (kk == 0) {
+              acc += carry[k];
+              if (zg >= zb) put(P * zg, acc);
+            } else if (kk < P) {
+              if (zg >= zb) put(P * zg + kk, acc);
+            } else {
+              carry[k] = acc;
+            }
+          }
+        }
+        if (s == n_slabs - 1 && ze == nz) put(P * nz, carry[k]);
+      }
+    }
+    // the next iteration's barrier orders I1's reads of sV before E1
+    // rewrites that region
+  }
 }
 
 int ipow_host(int b, int e) {
@@ -608,7 +1232,70 @@ int ipow_host(int b, int e) {
 
 }  // namespace
 
-// ---- host launcher (plain C interface, bound with ctypes) -------------
+// ---- host side: the launchers (the host C++ rehearsal of the kernel
+// bodies runs its own) ----------------------------------------------------
+#ifndef SWEEP_HOST_REHEARSAL
+namespace {
+
+// The launcher of structured3d_kernel<P>: validates the plan, sets the
+// kernel's dynamic shared-memory limit once, launches.
+template <int P>
+int launch3d(const float* u, const float* ul, const float* vo,
+             const float* jinv, const float* jxw, const float* h,
+             const float* S1, const float* D1, float* tiles, float* seams,
+             int nx, int ny, int nz, int flavor, int consider_dt,
+             int cell_wise, GlsScalars sc, int XB, int ZS, int nzb,
+             cudaStream_t stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || XB < 1 || ZS < 1 || nzb < 1 ||
+      nzb > nz)
+    return (int)cudaErrorInvalidValue;
+  if (4 * (P + 1) * (P * XB + 1) > kMaxCols3 * kThreads)
+    return (int)cudaErrorInvalidValue;
+  // node offsets inside one field are 32-bit
+  const size_t nn = (size_t)(P * nx + 1) * (P * ny + 1) * (P * nz + 1);
+  if (nn > (size_t)0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int ZC = (nz + nzb - 1) / nzb;
+  if ((nzb - 1) * ZC >= nz) return (int)cudaErrorInvalidValue;
+  const int nbx = (nx + XB - 1) / XB;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
+  const int NG = incr ? 8 : 4;
+  const size_t bytes = s3_smem(P, XB, ZS, NF, NG).total() * sizeof(float);
+  static int max_optin = 0;
+  static size_t attr_bytes = 0;
+  cudaError_t err;
+  if (max_optin == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(
+        &max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // (the field pointer and row tables are static shared memory beside it)
+  if (bytes + 11 * sizeof(float*) + (P + 1) * sizeof(int) > (size_t)max_optin)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > attr_bytes) {
+    err = cudaFuncSetAttribute(structured3d_kernel<P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_bytes = bytes;
+  }
+  S3Dims dm{nx, ny, nz, XB, nbx, ZS, ZC, nzb};
+  structured3d_kernel<P><<<nbx * ny * nzb, kThreads, bytes, stream>>>(
+      u, ul, vo, jinv, jxw, h, S1, D1, tiles, seams, dm, flavor, consider_dt,
+      cell_wise, sc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+
+// ---- host launchers (plain C interface, bound with ctypes) ------------
+// The 2D and the batched 3D kernel (the 3D kernel: structured3d_launch).
 // Returns 0, a CUDA error code, or 1 (cudaErrorInvalidValue) when the
 // chunk's tiles exceed the card's shared memory per block.
 extern "C" int structured_sweep_launch(
@@ -617,7 +1304,7 @@ extern "C" int structured_sweep_launch(
     float* out, int dim, int P, int NQ, int nx, int ny, int nz, int flavor,
     int consider_dt, int cell_wise, int batched, float weight, float stau,
     float nu, float c1, float c2, void* stream) {
-  if (dim != 2 && dim != 3) return (int)cudaErrorInvalidValue;
+  if (dim != 2 && !(dim == 3 && batched)) return (int)cudaErrorInvalidValue;
   if (dim == 2) nz = 1;
   const int C = dim + 1, T = dim + 1;
   const int n1 = P + 1;
@@ -643,9 +1330,8 @@ extern "C" int structured_sweep_launch(
                         (size_t)T * C * QS + 2 * (size_t)C * R + R;
   const size_t bytes = floats * sizeof(float);
 
-  const void* fn = (const void*)structured3d_kernel;
-  if (dim == 2) fn = (const void*)structured2d_kernel;
-  else if (batched) fn = (const void*)structured3d_batched_kernel;
+  const void* fn = dim == 2 ? (const void*)structured2d_kernel
+                            : (const void*)structured3d_batched_kernel;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -668,14 +1354,64 @@ extern "C" int structured_sweep_launch(
     structured2d_kernel<<<grid, block, bytes, st>>>(
         u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
         cell_wise, sc);
-  } else if (batched) {
-    structured3d_batched_kernel<<<grid, block, bytes, st>>>(
-        u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
-        cell_wise, sc);
   } else {
-    structured3d_kernel<<<grid, block, bytes, st>>>(
+    structured3d_batched_kernel<<<grid, block, bytes, st>>>(
         u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
         cell_wise, sc);
   }
   return (int)cudaGetLastError();
 }
+
+// The 3D kernel, degrees 1-4 with NQ = P + 1 Gauss points: xb cells per
+// brick, zs cell layers per slab, nzb z chunks per column (ops/
+// structured.py brick_plan).  Returns 0, a CUDA error code, or 1
+// (cudaErrorInvalidValue) for a degree, plan or shape it does not take.
+extern "C" int structured3d_launch(
+    const float* u, const float* ul, const float* vo, const float* jinv,
+    const float* jxw, const float* h, const float* S1, const float* D1,
+    float* tiles, float* seams, int P, int NQ, int nx, int ny, int nz,
+    int flavor, int consider_dt, int cell_wise, float weight, float stau,
+    float nu, float c1, float c2, int xb, int zs, int nzb, void* stream) {
+  GlsScalars sc{weight, stau, nu, c1, c2};
+  cudaStream_t st = (cudaStream_t)stream;
+#define S3_CASE(PP)                                                        \
+  if (P == PP && NQ == PP + 1)                                             \
+    return launch3d<PP>(u, ul, vo, jinv, jxw, h, S1, D1, tiles, seams, nx, \
+                        ny, nz, flavor, consider_dt, cell_wise, sc, xb, zs, \
+                        nzb, st);
+  S3_CASE(1)
+  S3_CASE(2)
+  S3_CASE(3)
+  S3_CASE(4)
+#undef S3_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the compiler gave structured3d_kernel<P>: registers per thread,
+// local memory (spills) and static shared memory per thread block in
+// bytes; and the dynamic shared memory of one block in bytes for a brick
+// of xb cells, slabs of zs layers and the flavor's fields.  Returns 0 or a
+// CUDA error code.
+extern "C" int structured3d_attributes(int P, int xb, int zs, int flavor,
+                                       int consider_dt, int* regs,
+                                       int* local_bytes, int* static_smem,
+                                       long long* dynamic_smem) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (P == 1) err = cudaFuncGetAttributes(&a, structured3d_kernel<1>);
+  if (P == 2) err = cudaFuncGetAttributes(&a, structured3d_kernel<2>);
+  if (P == 3) err = cudaFuncGetAttributes(&a, structured3d_kernel<3>);
+  if (P == 4) err = cudaFuncGetAttributes(&a, structured3d_kernel<4>);
+  if (err != cudaSuccess) return (int)err;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *static_smem = (int)a.sharedSizeBytes;
+  const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
+  *dynamic_smem =
+      (long long)(s3_smem(P, xb, zs, NF, incr ? 8 : 4).total() * sizeof(float));
+  return 0;
+}
+#endif  // SWEEP_HOST_REHEARSAL

@@ -28,10 +28,11 @@ What this module holds:
   integrate, ``index_add_``), for tensors on the CPU and as the
   reference the kernels are held to on the card.
 - :class:`StructuredKernel`: the ctypes binding of ``csrc/structured.cu``
-  (three kernels: 2D, 3D, and the 3D variant that takes all components
-  through each contraction together), and :func:`fold_classes`, which
-  sums the kernels' cell-row tiles into the class-grouped lattice in a
-  fixed order.
+  (three kernels: 2D, 3D, and the batched 3D variant of the x-only
+  design); :func:`fold_classes`, which sums cell-row tiles into the
+  class-grouped lattice in a fixed order; :func:`brick_plan`, the 3D
+  kernel's split into thread blocks, and :func:`fold_bricks`, which sums
+  its output.
 - :class:`StructuredSweep`: the host wrapper one operator holds.
 
 The TPU layout machinery of the JAX module is not carried over: banded
@@ -370,13 +371,78 @@ def fold_classes(t, cell_dim: int, loc_dim: int, P: int):
 
 
 def fold_tiles(tables: StructuredTables, tiles):
-    """Cell-row tiles of the kernels -> ``(C,) + lattice_shape``.
-    3D: (C, nz, ny, P+1, P+1, Nx); 2D: (C, ny, P+1, Nx)."""
+    """Cell-row tiles of the 2D and the batched 3D kernel -> ``(C,) +
+    lattice_shape``.  3D: (C, nz, ny, P+1, P+1, Nx); 2D: (C, ny, P+1, Nx)."""
     P = tables.P
     if tables.d == 3:
         t = fold_classes(tiles, 1, 3, P)       # (C, Zr, ny, P+1, Nx)
         return fold_classes(t, 2, 3, P)        # (C, Zr, Yr, Nx)
     return fold_classes(tiles, 1, 2, P).unsqueeze(2)
+
+
+class BrickPlan(NamedTuple):
+    """How the 3D kernel splits a lattice into thread blocks: one block per
+    (x brick of ``xb`` cells, cell row, z chunk of ``zc`` cell layers),
+    walking its chunk in slabs of ``zs`` layers."""
+
+    xb: int     # cells per brick along x (the last brick may hold fewer)
+    nbx: int    # bricks per cell row
+    zs: int     # cell layers per slab
+    zc: int     # cell layers per z chunk
+    nzb: int    # z chunks per column
+
+
+# per degree: brick shapes (cells along x, cell layers per slab) of about
+# 250 to 512 q-points per slab of 256 threads, within ~113 KB of shared
+# memory (two blocks per SM)
+BRICKS = {1: ((8, 8), (16, 4)), 2: ((8, 2), (4, 4)), 3: ((4, 1), (2, 2)),
+          4: ((2, 1), (1, 2))}
+# blocks of the 3D kernel resident at once on an H100: two per SM
+WAVE = 2 * 132
+
+
+@functools.lru_cache(maxsize=64)
+def brick_plan(P: int, cell_shape: tuple) -> BrickPlan:
+    """The 3D kernel's blocks for a lattice of ``cell_shape`` (nx, ny, nz)
+    cells of degree P: of the brick shapes of ``BRICKS`` and the z
+    chunkings (a chunk recomputes the layer below it for its carry), the
+    one of least estimated time, waves of resident blocks x slabs per
+    block x a slab's time (a fixed part as long as 256 q-points, plus its
+    q-points); ties go to fewer blocks, then longer bricks.  A slab is no
+    deeper than the chunk's walk."""
+    nx, ny, nz = cell_shape
+    nq3 = (P + 1) ** 3
+    best = None
+    for xb0, zs0 in BRICKS.get(P, ((1, 1),)):
+        xb = min(xb0, nx)
+        nbx = -(-nx // xb)
+        nzb = 1
+        while nzb <= nz:
+            zc = -(-nz // nzb)
+            n_chunks = -(-nz // zc)
+            walk = zc + (1 if n_chunks > 1 else 0)
+            zs = min(zs0, walk)
+            blocks = nbx * ny * n_chunks
+            cost = (-(-blocks // WAVE) * -(-walk // zs)
+                    * (256 + xb * zs * nq3), blocks, -xb)
+            if best is None or cost < best[0]:
+                best = (cost, BrickPlan(xb, nbx, zs, zc, n_chunks))
+            nzb *= 2
+    return best[1]
+
+
+def fold_bricks(tables: StructuredTables, tiles, seams, xb: int):
+    """The 3D kernel's output -> ``(C,) + lattice_shape``: ``tiles`` (C, Zr,
+    ny, P+1, Nx) hold each cell row's integrals but the first node column
+    of bricks 1.., which ``seams`` (C, Zr, ny, P+1, nbx) hold at their
+    brick's index; those are added at the x seams (in place), then the
+    node rows shared by two cell rows are summed (:func:`fold_classes`)."""
+    P = tables.P
+    nbx = seams.shape[-1]
+    if nbx > 1:
+        step = P * xb
+        tiles[..., step:step * (nbx - 1) + 1:step] += seams[..., 1:]
+    return fold_classes(tiles, 2, 3, P)
 
 
 class StructuredKernel:
@@ -387,20 +453,27 @@ class StructuredKernel:
     # ``launch``, nowhere else
     launches = {"structured2d": 0, "structured3d": 0,
                 "structured3d_batched": 0}
-    _fn = None
+    _lib = None
 
     @classmethod
     def _load(cls):
-        if cls._fn is None:
+        if cls._lib is None:
             from ns_gls_tpu_torch.utils.cuda_build import load_library
 
             lib = load_library("structured")
-            fn = lib.structured_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fn = lib.structured_sweep_launch
             fn.argtypes = [vp] * 9 + [ci] * 10 + [cf] * 5 + [vp]
             fn.restype = ci
-            cls._fn = fn
-        return cls._fn
+            fn = lib.structured3d_launch
+            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
+            fn.restype = ci
+            fn = lib.structured3d_attributes
+            fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3 + [
+                ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ci
+            cls._lib = lib
+        return cls._lib
 
     @staticmethod
     def kernel_name(d: int, batched: bool) -> str:
@@ -409,11 +482,28 @@ class StructuredKernel:
         return "structured3d_batched" if batched else "structured3d"
 
     @classmethod
+    def attributes(cls, P: int, plan: BrickPlan, flavor: str,
+                   consider_dt: bool) -> dict:
+        """Registers per thread, local memory (spills) and static shared
+        memory of ``structured3d_kernel<P>`` as built, and the dynamic
+        shared memory of one block under ``plan`` in that flavor."""
+        vals = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()]
+        err = cls._load().structured3d_attributes(
+            P, plan.xb, plan.zs, FLAVORS.index(flavor), int(consider_dt),
+            *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"structured3d_attributes: CUDA error {err}")
+        return dict(registers=vals[0].value, local_bytes=vals[1].value,
+                    static_smem=vals[2].value, dynamic_smem=vals[3].value)
+
+    @classmethod
     def launch(cls, tables: StructuredTables, sc: dict, uT, ulT, voT,
                flavor: str, consider_dt: bool, cell_wise: bool,
-               batched: bool = False):
-        """Launch the kernel of the tables' dimension; returns the
-        cell-row tiles (see :func:`fold_tiles`)."""
+               batched: bool = False, plan: BrickPlan = None):
+        """Launch the kernel of the tables' dimension: the 2D and batched
+        3D kernels return their cell-row tiles (:func:`fold_tiles`), the 3D
+        kernel (tiles, seams) under ``plan`` (default :func:`brick_plan`;
+        see :func:`fold_bricks`)."""
         d, P, NQ = tables.d, tables.P, tables.NQ
         C = d + 1
         shp = lattice_shape(P, tables.cell_shape)
@@ -431,26 +521,38 @@ class StructuredKernel:
                 raise ValueError("tables must be contiguous on u's device")
         nx, ny = tables.cell_shape[0], tables.cell_shape[1]
         nz = tables.cell_shape[2] if d == 3 else 1
-        rows = (nz, ny) if d == 3 else (ny,)
-        out = torch.empty((C,) + rows + (P + 1,) * (d - 1) + (P * nx + 1,),
-                          dtype=torch.float32, device=uT.device)
-        fn = cls._load()
-        err = fn(
-            uT.data_ptr(), ulT.data_ptr(), voT.data_ptr(),
-            tables.jinv.data_ptr(), tables.jxw.data_ptr(),
-            tables.h.data_ptr(), tables.S1.data_ptr(), tables.D1.data_ptr(),
-            out.data_ptr(),
-            d, P, NQ, nx, ny, nz, FLAVORS.index(flavor), int(consider_dt),
-            int(cell_wise), int(batched),
-            sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
-            torch.cuda.current_stream(uT.device).cuda_stream,
-        )
-        if err != 0:
+        lib = cls._load()
+        scal = [sc[k] for k in ("weight", "stau", "nu", "c1", "c2")]
+        ptrs = [t.data_ptr() for t in (uT, ulT, voT, tables.jinv, tables.jxw,
+                                       tables.h, tables.S1, tables.D1)]
+        stream = torch.cuda.current_stream(uT.device).cuda_stream
+        if d == 3 and not batched:
+            plan = plan or brick_plan(P, tables.cell_shape)
+            tiles = torch.empty((C, shp[0], ny, P + 1, shp[2]),
+                                dtype=torch.float32, device=uT.device)
+            seams = torch.empty((C, shp[0], ny, P + 1, plan.nbx),
+                                dtype=torch.float32, device=uT.device)
+            out = (tiles, seams)
+            err = lib.structured3d_launch(
+                *ptrs, tiles.data_ptr(), seams.data_ptr(), P, NQ, nx, ny, nz,
+                FLAVORS.index(flavor), int(consider_dt), int(cell_wise),
+                *scal, plan.xb, plan.zs, plan.nzb, stream)
+            hint = (f" (degree {P} with {NQ} Gauss points, or the plan "
+                    f"{tuple(plan)}, is not one the kernel takes)")
+        else:
+            rows = (nz, ny) if d == 3 else (ny,)
+            out = torch.empty((C,) + rows + (P + 1,) * (d - 1)
+                              + (P * nx + 1,), dtype=torch.float32,
+                              device=uT.device)
+            err = lib.structured_sweep_launch(
+                *ptrs, out.data_ptr(), d, P, NQ, nx, ny, nz,
+                FLAVORS.index(flavor), int(consider_dt), int(cell_wise),
+                int(batched), *scal, stream)
             hint = (" (the chunk's shared-memory tiles exceed the card's "
-                    "per-block limit)" if err == 1 else "")
-            raise RuntimeError(
-                f"structured kernel launch failed: CUDA error {err}{hint}"
-            )
+                    "per-block limit)")
+        if err != 0:
+            raise RuntimeError(f"structured kernel launch failed: CUDA error "
+                               f"{err}{hint if err == 1 else ''}")
         cls.launches[cls.kernel_name(d, batched)] += 1
         return out
 
@@ -461,9 +563,12 @@ def structured_sweep(tables: StructuredTables, sc: dict, uT, ulT, voT,
     """The structured sweep: a CUDA kernel for tensors on the card, the
     plain version for tensors on the CPU."""
     if uT.is_cuda:
-        tiles = StructuredKernel.launch(tables, sc, uT, ulT, voT, flavor,
-                                        consider_dt, cell_wise, batched)
-        return fold_tiles(tables, tiles)
+        out = StructuredKernel.launch(tables, sc, uT, ulT, voT, flavor,
+                                      consider_dt, cell_wise, batched)
+        if tables.d == 3 and not batched:
+            return fold_bricks(tables, *out,
+                               brick_plan(tables.P, tables.cell_shape).xb)
+        return fold_tiles(tables, out)
     if uT.device.type != "cpu":
         raise TypeError(f"structured sweep: unsupported device {uT.device}")
     return structured_sweep_plain(tables, sc, uT, ulT, voT, flavor,

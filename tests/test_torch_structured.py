@@ -272,3 +272,84 @@ def test_lattice_index_and_fold(dim, degree):
     assert tuple(out.shape) == (C,) + shp
     np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
                                atol=1e-12)
+
+
+# the channel 3D level shapes (input/channel.json, dim 3, refinement 3),
+# the gls-vmult lane's 32^3 and the ragged sheared lattice of chip_smoke
+BRICK_SHAPES = [(4, 1, 1), (8, 2, 2), (16, 4, 4), (32, 8, 8), (64, 16, 16),
+                (128, 32, 32), (32, 32, 32), (19, 3, 2)]
+
+
+def plan_blocks(plan, cell_shape):
+    """The cells each block of the 3D kernel owns under ``plan``, as
+    ``csrc/structured.cu`` splits the lattice (block = (brick bx, cell row
+    ey, z chunk kz)): [(x0, x1, ey, z0, z1)]."""
+    nx, ny, nz = cell_shape
+    return [(bx * plan.xb, min(nx, (bx + 1) * plan.xb), ey,
+             kz * plan.zc, min(nz, (kz + 1) * plan.zc))
+            for ey in range(ny) for bx in range(plan.nbx)
+            for kz in range(plan.nzb)]
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_brick_plan_covers_every_cell_once(degree):
+    """The 3D kernel's blocks under ``brick_plan`` own every cell of the
+    lattice exactly once."""
+    for cs in BRICK_SHAPES:
+        plan = ts.brick_plan(degree, cs)
+        nx, ny, nz = cs
+        assert plan.nbx == -(-nx // plan.xb) and 1 <= plan.zs <= nz
+        assert (plan.nzb - 1) * plan.zc < nz <= plan.nzb * plan.zc
+        owned = np.zeros((nz, ny, nx), int)
+        blocks = plan_blocks(plan, cs)
+        assert len(blocks) == plan.nbx * ny * plan.nzb
+        for x0, x1, ey, z0, z1 in blocks:
+            assert x0 < x1 and z0 < z1
+            owned[z0:z1, ey, x0:x1] += 1
+        assert (owned == 1).all(), (cs, plan)
+
+
+@pytest.mark.parametrize("degree,plan", [
+    (1, None), (2, None), (3, None),
+    (1, ts.BrickPlan(2, 2, 1, 1, 2)), (2, ts.BrickPlan(2, 2, 1, 2, 1)),
+    (3, ts.BrickPlan(1, 3, 1, 1, 2)),
+])
+def test_brick_tiles_fold(degree, plan):
+    """The 3D kernel's output, folded (``fold_bricks``), equals the
+    scatter-add: tiles and seams are built here from per-cell values as
+    the kernel lays them out (each cell row's integrals, z summed, the
+    first node column of every brick but the first in the seams)."""
+    st = TSpace(lattice_mesh(tgen, 3), degree)
+    P = degree
+    cs = tuple(st.cell_shape)
+    nx, ny, nz = cs
+    plan = plan or ts.brick_plan(P, cs)
+    idx = ts.lattice_cell_nodes(P, cs)
+    shp = ts.lattice_shape(P, cs)
+    rng = np.random.default_rng(4)
+    n1 = P + 1
+    C = 4
+    r_loc = rng.standard_normal((C, idx.shape[0], n1 ** 3))
+    ref = np.zeros((C, st.n_nodes))
+    for c in range(C):
+        np.add.at(ref[c], idx.reshape(-1), r_loc[c].reshape(-1))
+
+    tiles = np.zeros((C, shp[0], ny, n1, shp[2]))
+    seams = np.full((C, shp[0], ny, n1, plan.nbx), np.nan)
+    seams[..., 1:] = 0.0
+    cz = ts.class_index(P, nz)                       # (nz, P+1)
+    rl = r_loc.reshape(C, nz, ny, nx, n1, n1, n1)    # local (k, j, i)
+    for ez, ey, ex, k, j, i in np.ndindex(nz, ny, nx, n1, n1, n1):
+        v = rl[:, ez, ey, ex, k, j, i]
+        b = ex // plan.xb
+        if i == 0 and b > 0 and ex == b * plan.xb:
+            seams[:, cz[ez, k], ey, j, b] += v
+        else:
+            tiles[:, cz[ez, k], ey, j, P * ex + i] += v
+    tab = ts.StructuredTables(d=3, P=P, NQ=n1, cell_shape=cs, S1=None,
+                              D1=None, jinv=None, jxw=None, h=None)
+    out = ts.fold_bricks(tab, torch.as_tensor(tiles), torch.as_tensor(seams),
+                         plan.xb)
+    assert tuple(out.shape) == (C,) + shp
+    np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
+                               atol=1e-12)
