@@ -200,8 +200,11 @@ def kernel_of(op):
 
     sw = op._fast
     if isinstance(sw, Patch3DSweep):
+        from ns_gls_tpu_torch.utils.segment import SeamSumKernel
+
         return (Patch3DKernel.launch, patch3d_cost,
-                lambda: {"patch3d_gls_sweep": Patch3DKernel.launches})
+                lambda: {"patch3d_gls_sweep": Patch3DKernel.launches,
+                         "seam_sum": SeamSumKernel.launches})
     if isinstance(sw, PrismSweep):
         return (PrismKernel.launch, prism_cost,
                 lambda: {"prism_gls_sweep": PrismKernel.launches})

@@ -8,7 +8,7 @@ Phases (any failure exits non-zero and prints no result line):
 1. device: require CUDA; print the card's name and power limit,
 2. build: compile the CUDA kernels from ``ns_gls_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together: patch2d, prism, structured,
-   patch3d),
+   patch3d, seam_sum),
 3. patch-2D kernel vs plain: the patch-2D kernel against its plain
    PyTorch version on the card, on the Turek 2D ref-3 space (m = 8) and
    every GMG level space (m = 1, 2, 4), in every flavor x delta mode x
@@ -59,9 +59,14 @@ Phases (any failure exits non-zero and prints no result line):
     up as given (its level spaces are reused by phase 14) and the
     ``input/sphere.json`` one too (phase 15); the patch-3D kernel against
     its plain version on every patch-3D level space of the first (m = 2,
-    4, 8) and on the single-cell-patch Q1 space of the second (m = 1), in
-    every flavor x delta mode x consider_dt, two launches bit-identical,
-    timed at the m = 8 shape in the path's own flavor,
+    4, 8), on the single-cell-patch Q1 space of the second (m = 1) and on
+    the sphere at refinements 0 and 1 in degrees 3 and 4, in every flavor
+    x delta mode x consider_dt, two launches bit-identical; the kernel's
+    registers, spills and shared memory per block; the whole sweep (the
+    kernel reading node-major vectors, then one seam-sum launch) against
+    the plain sweep at the finest level, the seam sums bit-identical to
+    their plain version; kernel, seam sums and sweep timed at the m = 8
+    shape in the path's own flavor,
 14. sphere main path: ``input/sphere_amg.json`` as given (refinement 3,
     Q2, 811,272 DoFs, stationary exact Newton, f64 outer, f32 levels on
     the patch-3D kernel over an iso-Q1 coarsest level with AMG) through
@@ -88,7 +93,7 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the kernels' sources, ``ns_gls_tpu_torch/csrc/<name>.cu``
-KERNEL_SOURCES = ["patch2d", "prism", "structured", "patch3d"]
+KERNEL_SOURCES = ["patch2d", "prism", "structured", "patch3d", "seam_sum"]
 
 # phases 3, 6, 9 and 13: kernel vs plain version, relative to the plain
 # max-abs (f32 with another summation order)
@@ -153,11 +158,13 @@ def kernel_counts() -> dict:
     from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
     from ns_gls_tpu_torch.ops.structured import StructuredKernel
+    from ns_gls_tpu_torch.utils.segment import SeamSumKernel
 
     return {"patch2d_gls_sweep": Patch2DKernel.launches,
             "prism_gls_sweep": PrismKernel.launches,
             **StructuredKernel.launches,
-            "patch3d_gls_sweep": Patch3DKernel.launches}
+            "patch3d_gls_sweep": Patch3DKernel.launches,
+            "seam_sum": SeamSumKernel.launches}
 
 
 def reset_kernel_counts():
@@ -165,10 +172,12 @@ def reset_kernel_counts():
     from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
     from ns_gls_tpu_torch.ops.prism import PrismKernel
     from ns_gls_tpu_torch.ops.structured import StructuredKernel
+    from ns_gls_tpu_torch.utils.segment import SeamSumKernel
 
     Patch2DKernel.launches = 0
     PrismKernel.launches = 0
     Patch3DKernel.launches = 0
+    SeamSumKernel.launches = 0
     for name in StructuredKernel.launches:
         StructuredKernel.launches[name] = 0
 
@@ -883,10 +892,20 @@ def phase_vmult_lane(t_start):
 # ---------------------------------------------------------------------------
 # phases 13-15: the patch-3D kernel and the sphere
 # ---------------------------------------------------------------------------
+# the patch-3D path: the kernel, and the seam sums after it
+PATCH3D_KERNELS = ("patch3d_gls_sweep", "seam_sum")
+
+
 def patch3d_inputs(tables, seed=0):
-    Xn = tables.P * tables.m + 1
-    return tile_inputs((tables.jinv.shape[0], Xn, Xn, Xn),
-                       tables.jinv.device, seed)
+    """Random node-major u, u_lin and vec_old (n_nodes, 4) on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal((tables.n_nodes, 4)),
+                                 dtype=torch.float32,
+                                 device=tables.jinv.device)
+                 for _ in range(3))
 
 
 def sweep_scalars(op):
@@ -894,6 +913,34 @@ def sweep_scalars(op):
     sw = op._fast
     return dict(weight=op._weight_host, stau=op._stau_host, nu=sw.nu,
                 c1=sw.c1, c2=sw.c2)
+
+
+def sphere_tables(ref, degree, device):
+    """Patch-3D tables of the Gmsh sphere (spherical manifold on the
+    sphere) refined ``ref`` times, degree ``degree``, f32, BDF-2."""
+    import numpy as np
+    import torch
+
+    from ns_gls_tpu_torch.fem.constraints import AffineConstraints
+    from ns_gls_tpu_torch.fem.space import FESpace
+    from ns_gls_tpu_torch.mesh.core import SphericalManifold
+    from ns_gls_tpu_torch.mesh.gmsh import read_msh
+    from ns_gls_tpu_torch.models.sphere import MESH_FILE
+    from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+    from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
+
+    mesh = read_msh(MESH_FILE)
+    mesh.manifolds[0] = SphericalManifold(np.zeros(3))
+    mesh.attach_manifold_to_boundary_id(0, 0)
+    space = FESpace(mesh.refine_global(ref), degree)
+    ca = AffineConstraints(space.n_nodes, 4).close(torch.float32, device)
+    ti = BDFIntegrator(2)
+    ti.update_dt(0.1)
+    ti.update_dt(0.08)
+    op = NavierStokesOperator(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0,
+                              time_integrator=ti, dtype=torch.float32,
+                              device=device)
+    return op._fast.tables
 
 
 def phase_patch3d_vs_plain(level_sets):
@@ -910,51 +957,111 @@ def phase_patch3d_vs_plain(level_sets):
     n_cases = 0
     for label, tables, sc in level_sets:
         u, ul, vo = patch3d_inputs(tables)
-        cases = []
-        for flavor in p3.FLAVORS:
-            ulf = ul if flavor == "increment" else ul[:3].contiguous()
-            for cell_wise in (True, False):
-                for cdt in (True, False):
-                    cases.append((tables, sc, u, ulf, vo, flavor, cdt,
-                                  cell_wise))
+        cases = [(tables, sc, u, ul, vo, flavor, cdt, cell_wise)
+                 for flavor in p3.FLAVORS for cell_wise in (True, False)
+                 for cdt in (True, False)]
         a, r = compare_cases("patch-3D", p3.Patch3DKernel.launch,
                              p3.patch3d_sweep_plain, cases)
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
         n_cases += len(cases)
-        x = p3.Patch3DKernel.launch(*cases[4])
-        y = p3.Patch3DKernel.launch(*cases[4])
-        torch.cuda.synchronize()
-        if not torch.equal(x, y):
-            raise AssertionError(f"two patch-3D launches on the same inputs "
-                                 f"differ ({label})")
+        for case in (cases[4], cases[1]):
+            x = p3.Patch3DKernel.launch(*case)
+            y = p3.Patch3DKernel.launch(*case)
+            torch.cuda.synchronize()
+            if not torch.equal(x, y):
+                raise AssertionError(f"two patch-3D launches on the same "
+                                     f"inputs differ ({label})")
         log(f"[13] {label}: P={tables.P} m={tables.m} "
-            f"patches={tables.jinv.shape[0]}: {len(cases)} cases ok")
+            f"patches={tables.jinv.shape[0]}: {len(cases)} cases ok, max "
+            f"rel err {r:.3e}")
     log(f"[13] kernel vs plain: {n_cases} cases, max abs err "
         f"{worst_abs:.3e}, max rel err {worst_rel:.3e} (tol "
         f"{KERNEL_REL_TOL}); relaunches bit-identical")
     return worst_abs, worst_rel
 
 
-def time_patch3d(tables, sc, flavor, consider_dt, cell_wise):
-    """Kernel, plain version and bound of one patch-3D sweep at the
-    tables' shape."""
+def log_patch3d_build(level_sets, flavor, consider_dt):
+    """Registers, spills and shared memory per block of the patch-3D
+    kernel as built, at each degree and patch size of ``level_sets``
+    under its plan in the flavor given."""
     from ns_gls_tpu_torch.ops import patch3d as p3
+
+    seen = set()
+    for _, t, _ in level_sets:
+        if (t.P, t.m) in seen:
+            continue
+        seen.add((t.P, t.m))
+        plan = p3.patch3d_plan(t.P, t.m, t.jinv.shape[0], flavor,
+                               consider_dt)
+        a = p3.Patch3DKernel.attributes(t.P, t.m, plan, flavor, consider_dt)
+        log(f"[13] patch3d_kernel<{t.P}> at m={t.m}: {a['registers']} "
+            f"registers, {a['spill_bytes']} B local memory (spills), "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
+            f"shared memory per block (plan {tuple(plan)}, {flavor}, "
+            f"consider_dt {consider_dt})")
+
+
+def phase_patch3d_sweep(tables, sc, flavor, consider_dt, cell_wise):
+    """The whole sweep at ``tables``' shape: kernel then one seam-sum
+    launch against the plain kernel then the plain seam sums; the seam
+    sums against their plain version on the kernel's own tiles (the same
+    order, so the same bits), twice.  Returns (max abs err of the seam
+    sums, max rel err of the sweep)."""
+    import torch
+
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.utils import segment as sg
+
+    u, ul, vo = patch3d_inputs(tables, seed=2)
+    args = (tables, sc, u, ul, vo, flavor, consider_dt, cell_wise)
+    tiles = p3.Patch3DKernel.launch(*args)
+    got = sg.SeamSumKernel.launch(tables.seams, tiles.reshape(-1, 4))
+    again = sg.SeamSumKernel.launch(tables.seams, tiles.reshape(-1, 4))
+    plain_seams = sg.seam_sum_plain(tables.seams, tiles.reshape(-1, 4))
+    ref = sg.seam_sum_plain(tables.seams,
+                            p3.patch3d_sweep_plain(*args).reshape(-1, 4))
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("two seam-sum launches on the same tiles "
+                             "differ")
+    seam_abs = float((got - plain_seams).abs().max())
+    if seam_abs > KERNEL_REL_TOL * float(plain_seams.abs().max()):
+        raise AssertionError(f"seam sums vs plain: max abs err {seam_abs}")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not rel <= KERNEL_REL_TOL:
+        raise AssertionError(f"patch-3D sweep vs plain sweep: rel err "
+                             f"{rel:.3e} > {KERNEL_REL_TOL}")
+    log(f"[13] sweep (kernel, seam sums) vs plain sweep at m={tables.m}: "
+        f"max rel err {rel:.3e}; seam sums vs plain on the kernel's tiles: "
+        f"max abs err {seam_abs:.3e}, relaunch bit-identical")
+    return seam_abs, rel
+
+
+def time_patch3d(tables, sc, flavor, consider_dt, cell_wise):
+    """Kernel, seam sums, the whole sweep, the plain version and the
+    bound of one patch-3D sweep at the tables' shape."""
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.utils import segment as sg
     from ns_gls_tpu_torch.utils.roofline import bound, patch3d_cost
 
     u, ul, vo = patch3d_inputs(tables, seed=1)
-    if flavor != "increment":
-        ul = ul[:3].contiguous()
     args = (tables, sc, u, ul, vo, flavor, consider_dt, cell_wise)
+    tiles = p3.Patch3DKernel.launch(*args).reshape(-1, 4)
     ms = time_sweep(lambda: p3.Patch3DKernel.launch(*args))
+    seam_ms = time_sweep(lambda: sg.SeamSumKernel.launch(tables.seams,
+                                                         tiles))
+    sweep_ms = time_sweep(lambda: sg.seam_sum(
+        tables.seams, p3.patch3d_sweep(*args).reshape(-1, 4)))
     plain_ms = time_sweep(lambda: p3.patch3d_sweep_plain(*args), n=20)
     nbytes, flops = patch3d_cost(tables, flavor, consider_dt, cell_wise)
     bound_ms, bound_by = bound(nbytes, flops)
     log(f"[13] m={tables.m} P={tables.P} {flavor} sweep (consider_dt "
-        f"{consider_dt}, cell-wise {cell_wise}): kernel {ms:.4f} ms, plain "
+        f"{consider_dt}, cell-wise {cell_wise}): kernel {ms:.4f} ms, seam "
+        f"sums {seam_ms:.4f} ms, sweep {sweep_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
         f"({nbytes} B, {flops} flop)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(ms=ms, seam_ms=seam_ms, sweep_ms=sweep_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_sphere_solution(tag, drv):
@@ -1008,10 +1115,10 @@ def phase_sphere(tag, drv, params, setup_s, steps):
     flux, no_slip = check_sphere_solution(tag, drv)
     launches = counts["patch3d_gls_sweep"]
     others = {k: v for k, v in counts.items()
-              if k != "patch3d_gls_sweep" and v}
-    if launches <= 0 or others:
+              if k not in PATCH3D_KERNELS and v}
+    if launches <= 0 or counts["seam_sum"] != launches or others:
         raise AssertionError(f"kernel launches {counts}: want "
-                             "patch3d_gls_sweep only")
+                             "patch3d_gls_sweep and one seam_sum each only")
     if any(not any(op is o for o in iso) for op in general.f32_ops):
         raise AssertionError("an f32 level other than the iso-Q1 coarsest "
                              "ran the general sweep")
@@ -1026,13 +1133,15 @@ def phase_sphere(tag, drv, params, setup_s, steps):
         f"{ {str(k): v for k, v in general.calls.items()} } (f32 on "
         f"{len(general.f32_ops)} iso-Q1 level(s)); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return dict(launches=launches, stats=stats, n_dofs=n_dofs)
+    return dict(launches=launches, seam_launches=counts["seam_sum"],
+                stats=stats, n_dofs=n_dofs)
 
 
 def phases_sphere():
     """Phases 13-15; returns the patch-3D kernel's entry of the kernel
     line: its error over phase 13, its time at the finest sphere level in
-    the main path's flavor, its launches from phase 14."""
+    the main path's flavor, its launches from phase 14; and the same of
+    the seam sums after it."""
     import torch
 
     # 13. sphere drivers set up, patch-3D kernel against plain version
@@ -1054,11 +1163,18 @@ def phases_sphere():
                   for l, op in enumerate(drv_s.mg_ops)
                   if op._fast is not None]
     level_sets.append(("sphere level 0", drv_t.mg_ops[0]._fast.tables, SC3))
+    # the degrees the configs do not use, on small spaces
+    level_sets += [(f"sphere ref {ref} Q{degree}",
+                    sphere_tables(ref, degree, "cuda"), SC_SHEAR)
+                   for degree in (3, 4) for ref in (0, 1)]
     max_abs, _ = phase_patch3d_vs_plain(level_sets)
     fine = drv_s.mg_ops[-1]
-    t = time_patch3d(fine._fast.tables, sweep_scalars(fine), "increment",
-                     fine.consider_time_derivative,
-                     fine.cell_wise_stabilization)
+    path = ("increment", fine.consider_time_derivative,
+            fine.cell_wise_stabilization)
+    log_patch3d_build(level_sets, *path[:2])
+    seam_abs, _ = phase_patch3d_sweep(fine._fast.tables, sweep_scalars(fine),
+                                      *path)
+    t = time_patch3d(fine._fast.tables, sweep_scalars(fine), *path)
     del level_sets, fine
 
     # 14. sphere main path
@@ -1080,6 +1196,12 @@ def phases_sphere():
         bound_ms=t["bound_ms"],
         bound_by=t["bound_by"],
         library_ms=None,
+        # the sweep's seam sums: one launch after each kernel launch
+        seam_sum_source="ns_gls_tpu_torch/csrc/seam_sum.cu",
+        seam_sum_launches=sph["seam_launches"],
+        seam_sum_max_abs_err=seam_abs,
+        seam_sum_ms=t["seam_ms"],
+        sweep_ms=t["sweep_ms"],
     )
 
 

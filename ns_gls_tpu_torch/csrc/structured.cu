@@ -708,19 +708,6 @@ __host__ __device__ inline S3Smem s3_smem(int P, int XB, int ZS, int NF,
                 s3_max((NF + 2 * NG) * XF, 12 * XF), cells};
 }
 
-// row q of a 1D table held in registers, q not a compile-time index
-template <int NQ, int N1>
-__device__ __forceinline__ void table_row(const float (&t)[NQ][N1], int q,
-                                          float (&row)[N1]) {
-#pragma unroll
-  for (int j = 0; j < N1; ++j) {
-    float v = t[0][j];
-#pragma unroll
-    for (int a = 1; a < NQ; ++a) v = q == a ? t[a][j] : v;
-    row[j] = v;
-  }
-}
-
 template <int P>
 __global__ void __launch_bounds__(kThreads, 2)
 structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,

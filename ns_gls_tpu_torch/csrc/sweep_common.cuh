@@ -1,12 +1,19 @@
 // Helpers shared by the fused sweeps that walk slabs (prism.cu,
-// structured.cu): cp.async copies from device to shared memory, and
-// block-strided loops whose items advance as mixed-radix digits.
+// structured.cu, patch3d.cu): cp.async copies from device to shared
+// memory, block-strided loops whose items advance as mixed-radix digits,
+// and rows of the 1D tables held in registers.
 #pragma once
 
 #ifndef SWEEP_HOST_REHEARSAL
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+// 16 bytes; both addresses 16-byte aligned (cached in L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -55,5 +62,18 @@ struct StridedDigits {
     d[N - 1] += s[N - 1] + c;
   }
 };
+
+// row q of a 1D table held in registers, q not a compile-time index
+template <int NQ, int N1>
+__device__ __forceinline__ void table_row(const float (&t)[NQ][N1], int q,
+                                          float (&row)[N1]) {
+#pragma unroll
+  for (int j = 0; j < N1; ++j) {
+    float v = t[0][j];
+#pragma unroll
+    for (int a = 1; a < NQ; ++a) v = q == a ? t[a][j] : v;
+    row[j] = v;
+  }
+}
 
 }  // namespace

@@ -72,8 +72,9 @@ class NSState(NamedTuple):
     - fused: only the *vectors* (u_lin, vec_old, u_old) are stored and the
       q-point tables are recomputed inside the sweep; the table fields
       have q-extent 0.  The fused sweeps also keep the lattice views
-      (structured) or patch-gathered views (patch-2D, prism, patch-3D)
-      ``u_linT`` / ``vec_oldT``.
+      (structured), patch-gathered views (patch-2D, prism) or contiguous
+      node-major vectors (patch-3D, whose kernel reads them through the
+      patch lattices) ``u_linT`` / ``vec_oldT``.
     """
 
     weight: torch.Tensor        # () primary BDF/theta weight
@@ -92,8 +93,8 @@ class NSState(NamedTuple):
     u_linT: torch.Tensor        # structured: (C,) + lattice_shape;
     #                             patch-2D: (C, n_patches, Yn, Xn); prism:
     #                             (C, n_patches, Yn, Xn, Nzn); patch-3D:
-    #                             (C, n_patches, Yn, Xn, Zn); else (0,)
-    vec_oldT: torch.Tensor      # the same with lead d
+    #                             (n_nodes, C); else (0,)
+    vec_oldT: torch.Tensor      # the same with lead d (patch-3D: C)
 
 
 # --------------------------------------------------------------------------

@@ -13,37 +13,41 @@ Geometry is fully general per cell AND per q-point (sphere cells are
 curved): the sweep reads the nine entries of J^-1 and |det J| * weight at
 every q-point of every cell.
 
-Layout (per patch, no TPU grouping or padding; the same axis order as the
-prism sweep, ``ops/prism.py``, with the patch's z axis in the place of the
-extrusion):
+Layout (per patch, no TPU grouping or padding):
 
-- node tiles ``(lead, n_patches, Yn, Xn, Zn)`` with Xn = Yn = Zn =
-  P*m + 1, z fastest,
+- the node vectors u, u_lin and vec_old stay node-major ``(n_nodes, 4)``:
+  the kernel reads them through the patch lattices ``patch_nodes
+  (n_patches, Yn, Xn, Zn)`` (int32 node ids, Xn = Yn = Zn = P*m + 1, z
+  fastest), one 16-byte word a node, so no tile is gathered per apply,
 - geometry per patch cell row ey: ``jinv (n_patches, m, 9, QB)`` (entry
   r*3 + x of J^-1 = dxi_r/dx_x), ``jxw (n_patches, m, QB)``, with the QB =
   m*NQ^3*m q-points of the row in the order
   ``(((ez*NQ + qz)*NQ + qy)*m + ex)*NQ + qx``, and ``h (n_patches, m, 2,
   m*m)`` (h_min_vertex, measure-based h) per cell ez*m + ex of the row,
-- output CELL-ROW tiles ``(C, n_patches, m, P+1, Xn, Zn)``: row (ey, j)
-  holds the integrals of the test functions of patch node row P*ey + j
-  over the cells of cell row ey only.  Node rows shared by two cell rows
-  appear in both; the seam compress sums them together with the patch
-  seams in a fixed order (``utils/segment.py``, deterministic on the
-  card), so the sweep itself needs no cross-row reduction.
+- output CELL-ROW tiles ``(n_patches, m, Zn, P+1, Xn, 4)``: cell row ey,
+  node plane z, its node row j (patch node row P*ey + j), node x, the
+  four components: the integrals over the cells of cell row ey only.
+  Node rows shared by two cell rows appear in both; one seam-sum launch
+  (``utils/segment.py`` ``seam_sum``, a fixed order per node) adds them
+  together with the patch seams, so the sweep needs no cross-row
+  reduction.
 
 The sweep is the CUDA kernel ``csrc/patch3d.cu`` for tensors on the card
 and :func:`patch3d_sweep_plain` (its plain PyTorch version, the same
-arithmetic with dense 1D band matrices) for tensors on the CPU.
+arithmetic with dense 1D band matrices) for tensors on the CPU;
+:func:`patch3d_plan` splits the work into the kernel's thread blocks.
 
-Supported: dim 3, any degree, curved cells, BDF/stationary (theta = 1),
-cell- or q-wise stabilization, fixed/increment/residual flavors, f32.
-The operator uses the general sweep for anything else (f64, the theta
-method, iso-Q1 spaces, which have no patch numbering).
+Supported: dim 3, any degree (the kernel: 1-4), curved cells,
+BDF/stationary (theta = 1), cell- or q-wise stabilization,
+fixed/increment/residual flavors, f32.  The operator uses the general
+sweep for anything else (f64, the theta method, iso-Q1 spaces, which
+have no patch numbering).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -58,7 +62,7 @@ from ns_gls_tpu_torch.ops.prism import (
     integrate_tiles,
 )
 from ns_gls_tpu_torch.ops.structured import _delta, _physics
-from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
+from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
 
 
 class Patch3DTables(NamedTuple):
@@ -67,6 +71,7 @@ class Patch3DTables(NamedTuple):
     P: int
     NQ: int
     m: int
+    n_nodes: int
     S1: torch.Tensor        # (NQ, P+1) 1D values at the Gauss points
     D1: torch.Tensor        # (NQ, P+1) 1D derivatives
     bS: torch.Tensor        # (Lq, Xn) patch band: bS[e*NQ+q, P*e+l] = S1[q, l]
@@ -74,8 +79,8 @@ class Patch3DTables(NamedTuple):
     jinv: torch.Tensor      # (n_patches, m, 9, QB)
     jxw: torch.Tensor       # (n_patches, m, QB)
     h: torch.Tensor         # (n_patches, m, 2, m*m)  (h_min_vertex, hq)
-    patch_nodes: torch.Tensor   # (n_patches, Yn, Xn, Zn) int64 node ids
-    compress: ClassGather   # cell-row tile nodes -> nodes (seam sums)
+    patch_nodes: torch.Tensor   # (n_patches, Yn, Xn, Zn) int32 node ids
+    seams: SeamSums         # cell-row tile rows -> nodes
 
 
 def build_patch3d_tables(op):
@@ -112,8 +117,8 @@ def build_patch3d_tables(op):
     h_t[patch, ey, 0, ez, ex] = space.cell_h_min_vertex
     h_t[patch, ey, 1, ez, ex] = np.cbrt(6.0 * space.cell_measure / np.pi) / P
 
-    rows = pn[:, cell_row_index(P, m)]                # (n_p, m, P+1, Xn, Zn)
-    compress = class_gather(rows.reshape(-1), space.n_nodes, dev)
+    # tile row (p, ey, z, j, x) holds node pn[p, P*ey + j, x, z]
+    rows = pn[:, cell_row_index(P, m)].transpose(0, 1, 4, 2, 3)
 
     def f32(a, shape=None):
         a = np.asarray(a, np.float32)
@@ -122,45 +127,128 @@ def build_patch3d_tables(op):
 
     QB = m * NQ ** 3 * m
     return Patch3DTables(
-        P=P, NQ=NQ, m=m,
+        P=P, NQ=NQ, m=m, n_nodes=space.n_nodes,
         S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD),
         jinv=f32(jinv_t, (n_p, m, 9, QB)), jxw=f32(jxw_t, (n_p, m, QB)),
         h=f32(h_t, (n_p, m, 2, m * m)),
-        patch_nodes=torch.as_tensor(pn, device=dev),
-        compress=compress,
+        patch_nodes=torch.as_tensor(pn.astype(np.int32), device=dev),
+        seams=seam_sums(rows, space.n_nodes, dev),
     )
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split into thread blocks
+# ---------------------------------------------------------------------------
+class Patch3DPlan(NamedTuple):
+    """One block per (patch, cell row, z chunk of ``zc`` cell layers),
+    walking its chunk in slabs of ``zs`` layers."""
+
+    zs: int     # cell layers per slab
+    zc: int     # cell layers per z chunk
+    nzb: int    # z chunks per column
+
+
+# SMs of an H100 SXM; the kernel's blocks of 256 threads (at most 128
+# registers) fit two to an SM when their shared memory does
+N_SM = 132
+SMEM_PER_SM = 233472           # bytes; each block also reserves 1 KB
+SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
+
+
+def smem_bytes(P: int, m: int, zs: int, walk: int, flavor: str,
+               consider_dt: bool) -> int:
+    """Dynamic shared memory of one block (``csrc/patch3d.cu`` p3_smem):
+    slabs of ``zs`` layers, walks of at most ``walk`` layers."""
+    incr = flavor == "increment"
+    dt_old = consider_dt and flavor in ("increment", "residual")
+    nk = 3 if dt_old else 2
+    nf = 4 + _lead_ul(flavor) + (3 if dt_old else 0)
+    ng = 8 if incr else 4
+    n1 = nq = P + 1
+    xn, lx = P * m + 1, nq * m
+    zn, lz = P * zs + 1, nq * zs
+    pl = n1 * xn
+    qs, xf = lz * nq * lx, lz * n1 * lx
+
+    def r4(a):
+        return -(-a // 4) * 4
+
+    words = (2 * nk * 4 * zn * pl + r4(10 * qs)
+             + r4(max((nf + ng) * lz * pl, 16 * qs, 8 * lz * pl))
+             + r4(max((nf + 2 * ng) * xf, 12 * xf)) + r4(zs * m)
+             + (P * walk + 1) * pl)
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=64)
+def patch3d_plan(P: int, m: int, n_patches: int, flavor: str,
+                 consider_dt: bool) -> Patch3DPlan:
+    """The kernel's blocks for ``n_patches`` patches of m^3 cells of degree
+    P: of the slab depths and z chunkings (a chunk recomputes the layer
+    below it for its carry), the one of least estimated time, waves of
+    resident blocks (two per SM where the shared memory allows, else one)
+    x slabs per block x a slab's time (a fixed part as long as 256
+    q-points, plus its q-points); ties go to fewer blocks, then deeper
+    slabs.  A slab is no deeper than the chunk's walk."""
+    if 4 * (P + 1) * (P * m + 1) > 2 * 256:
+        raise ValueError(f"patch-3D kernel: P={P}, m={m} has more I1 "
+                         "columns than two per thread")
+    nq3 = (P + 1) ** 3
+    best = None
+    for zs0 in range(1, m + 1):
+        nzb = 1
+        while nzb <= m:
+            zc = -(-m // nzb)
+            n_chunks = -(-m // zc)
+            walk = zc + (1 if n_chunks > 1 else 0)
+            zs = min(zs0, walk)
+            smem = smem_bytes(P, m, zs, walk, flavor, consider_dt)
+            if smem <= SMEM_PER_BLOCK:
+                per_sm = 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1
+                blocks = n_patches * m * n_chunks
+                cost = (-(-blocks // (N_SM * per_sm)) * -(-walk // zs)
+                        * (256 + zs * m * nq3), blocks, -zs)
+                if best is None or cost < best[0]:
+                    best = (cost, Patch3DPlan(zs, zc, n_chunks))
+            nzb *= 2
+    if best is None:
+        raise ValueError(f"no patch-3D plan fits: P={P}, m={m}")
+    return best[1]
 
 
 # ---------------------------------------------------------------------------
 # the sweep: plain version and kernel
 # ---------------------------------------------------------------------------
-def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, uP, ulP, voP,
+def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
                         flavor: str, consider_dt: bool, cell_wise: bool):
-    """Plain PyTorch version of the patch-3D sweep (the CUDA kernel's
-    reference).  ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).
-    uP (4, n_p, Yn, Xn, Zn), ulP (4 or 3, ...), voP (3, ...) -> cell-row
-    tiles (4, n_p, m, P+1, Xn, Zn)."""
+    """Plain PyTorch version of the patch-3D kernel (its reference).
+    ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).  u, ul, vo:
+    node-major (n_nodes, 4) (ul: the first 4 components read in
+    increment, 3 otherwise; vo: 3) -> cell-row tiles (n_p, m, Zn, P+1,
+    Xn, 4)."""
     d, C = 3, 4
-    dev = uP.device
+    dev = u.device
     sc = {k: torch.tensor(v, dtype=torch.float32, device=dev)
           for k, v in sc.items()}
     bS, bD = tables.bS, tables.bD
     NQ, m = tables.NQ, tables.m
-    n_p = uP.shape[1]
+    pn = tables.patch_nodes.long()
+    n_p = pn.shape[0]
     Lq = NQ * m
     need_lin_grads = flavor == "increment"
     need_dt_old = consider_dt and flavor in ("increment", "residual")
 
-    def fwd(t, grads):
-        # (n_p, Yn, Xn, Zn) -> (n_p, Lq_y, Lq_x, Lq_z); z has x's band
-        return evaluate_tiles(t, bS, bD, bS, bD, grads)
+    def fwd(v, c, grads):
+        # component c of a node vector on the patch lattices (n_p, Yn, Xn,
+        # Zn) -> (n_p, Lq_y, Lq_x, Lq_z); z has x's band
+        return evaluate_tiles(v[:, c][pn], bS, bD, bS, bD, grads)
 
-    u = [fwd(uP[c], True) for c in range(C)]
-    ul = [fwd(ulP[c], need_lin_grads) for c in range(_lead_ul(flavor))]
-    dt_old = ([fwd(voP[c], False)[0] for c in range(d)]
+    uq = [fwd(u, c, True) for c in range(C)]
+    ulq = [fwd(ul, c, need_lin_grads) for c in range(_lead_ul(flavor))]
+    dt_old = ([fwd(vo, c, False)[0] for c in range(d)]
               if need_dt_old else None)
 
-    ustar = [ul[a][0] for a in range(d)]
+    ustar = [ulq[a][0] for a in range(d)]
     usq = ustar[0] * ustar[0] + ustar[1] * ustar[1] + ustar[2] * ustar[2]
 
     def per_q(t):
@@ -190,16 +278,16 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, uP, ulP, voP,
         return [rx * ji[x] + ry * ji[3 + x] + rz * ji[6 + x]
                 for x in range(3)]
 
-    u_grad = [to_phys(*u[a][1:]) for a in range(d)]
-    p_grad = to_phys(*u[d][1:])
+    u_grad = [to_phys(*uq[a][1:]) for a in range(d)]
+    p_grad = to_phys(*uq[d][1:])
     gus = gps = None
     if need_lin_grads:
-        gus = [to_phys(*ul[a][1:]) for a in range(d)]
-        gps = to_phys(*ul[d][1:])
+        gus = [to_phys(*ulq[a][1:]) for a in range(d)]
+        gps = to_phys(*ulq[d][1:])
 
     val_res, grad_res = _physics(
-        d, flavor, sc, [u[a][0] for a in range(d)], u_grad, u[d][0], p_grad,
-        ustar, gus, gps, dt_old, d1_q, d2_q, consider_dt,
+        d, flavor, sc, [uq[a][0] for a in range(d)], u_grad, uq[d][0],
+        p_grad, ustar, gus, gps, dt_old, d1_q, d2_q, consider_dt,
     )
 
     out = []
@@ -210,7 +298,8 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, uP, ulP, voP,
                        + g2 * ji[3 * r + 2]) * jxw for r in range(3))
         out.append(integrate_tiles(val_res[c] * jxw, gx, gy, gz, bS, bD,
                                    bS, bD, tables.S1, tables.D1, m))
-    return torch.stack(out)
+    # (n_p, m, P+1, Xn, Zn, C) -> (n_p, m, Zn, P+1, Xn, C)
+    return torch.stack(out, dim=-1).permute(0, 1, 4, 2, 3, 5).contiguous()
 
 
 class Patch3DKernel:
@@ -220,76 +309,100 @@ class Patch3DKernel:
     # launches of the CUDA kernel in this process: one per successful
     # ``launch``, nowhere else
     launches = 0
-    _fn = None
+    _lib = None
 
     @classmethod
     def _load(cls):
-        if cls._fn is None:
+        if cls._lib is None:
             from ns_gls_tpu_torch.utils.cuda_build import load_library
 
             lib = load_library("patch3d")
-            fn = lib.patch3d_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 5 + [vp]
+            fn = lib.patch3d_sweep_launch
+            fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci, ci, vp]
             fn.restype = ci
-            cls._fn = fn
-        return cls._fn
+            at = lib.patch3d_attributes
+            ip = ctypes.POINTER(ci)
+            at.argtypes = [ci] * 6 + [ip, ip, ip,
+                                      ctypes.POINTER(ctypes.c_longlong)]
+            at.restype = ci
+            cls._lib = lib
+        return cls._lib
 
     @classmethod
-    def launch(cls, tables: Patch3DTables, sc: dict, uP, ulP, voP,
-               flavor: str, consider_dt: bool, cell_wise: bool):
+    def launch(cls, tables: Patch3DTables, sc: dict, u, ul, vo,
+               flavor: str, consider_dt: bool, cell_wise: bool,
+               plan: Patch3DPlan | None = None):
+        """The kernel on node-major u, ul, vo (n_nodes, 4); ``plan``
+        (the tools' override) defaults to :func:`patch3d_plan`'s."""
         n_p = tables.jinv.shape[0]
         P, NQ, m = tables.P, tables.NQ, tables.m
         Xn = P * m + 1
-        C = 4
-        lead_ul = _lead_ul(flavor)
-        for name, t, lead in (("u", uP, C), ("u_lin", ulP, lead_ul),
-                              ("vec_old", voP, 3)):
+        for name, t in (("u", u), ("u_lin", ul), ("vec_old", vo)):
             if not t.is_cuda or t.dtype != torch.float32:
                 raise TypeError(f"{name}: need a float32 CUDA tensor")
-            if tuple(t.shape) != (lead, n_p, Xn, Xn, Xn):
-                raise ValueError(
-                    f"{name}: shape {tuple(t.shape)}, need "
-                    f"({lead}, {n_p}, {Xn}, {Xn}, {Xn})"
-                )
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: need a contiguous tensor")
-        for t in (tables.jinv, tables.jxw, tables.h, tables.S1, tables.D1):
-            if t.device != uP.device or not t.is_contiguous():
+            if tuple(t.shape) != (tables.n_nodes, 4):
+                raise ValueError(f"{name}: shape {tuple(t.shape)}, need "
+                                 f"({tables.n_nodes}, 4)")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{name}: need a contiguous tensor on a "
+                                 "16-byte boundary")
+        for t in (tables.jinv, tables.jxw, tables.h, tables.S1, tables.D1,
+                  tables.patch_nodes):
+            if t.device != u.device or not t.is_contiguous():
                 raise ValueError("tables must be contiguous on u's device")
-        out = torch.empty((C, n_p, m, P + 1, Xn, Xn), dtype=torch.float32,
-                          device=uP.device)
-        fn = cls._load()
-        err = fn(
-            uP.data_ptr(), ulP.data_ptr(), voP.data_ptr(),
-            tables.jinv.data_ptr(), tables.jxw.data_ptr(),
-            tables.h.data_ptr(), tables.S1.data_ptr(), tables.D1.data_ptr(),
-            out.data_ptr(),
+        if plan is None:
+            plan = patch3d_plan(P, m, n_p, flavor, bool(consider_dt))
+        out = torch.empty((n_p, m, Xn, P + 1, Xn, 4), dtype=torch.float32,
+                          device=u.device)
+        err = cls._load().patch3d_sweep_launch(
+            u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
+            tables.patch_nodes.data_ptr(), tables.jinv.data_ptr(),
+            tables.jxw.data_ptr(), tables.h.data_ptr(),
+            tables.S1.data_ptr(), tables.D1.data_ptr(), out.data_ptr(),
             n_p, P, NQ, m, FLAVORS.index(flavor), int(consider_dt),
             int(cell_wise),
             sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
-            torch.cuda.current_stream(uP.device).cuda_stream,
+            plan.zs, plan.nzb,
+            torch.cuda.current_stream(u.device).cuda_stream,
         )
         if err != 0:
-            hint = (" (the slab's shared-memory tiles exceed the card's "
-                    "per-block limit)" if err == 1 else "")
+            hint = (" (a degree, plan or input the kernel does not take)"
+                    if err == 1 else "")
             raise RuntimeError(
                 f"patch-3D kernel launch failed: CUDA error {err}{hint}"
             )
         cls.launches += 1
         return out
 
+    @classmethod
+    def attributes(cls, P: int, m: int, plan: Patch3DPlan, flavor: str,
+                   consider_dt: bool) -> dict:
+        """Registers per thread, spills (local memory) and static shared
+        memory per block of the built kernel for degree P, and its dynamic
+        shared memory per block under ``plan``, in bytes."""
+        regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        dyn = ctypes.c_longlong()
+        err = cls._load().patch3d_attributes(
+            P, m, plan.zs, plan.nzb, FLAVORS.index(flavor), int(consider_dt),
+            ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static),
+            ctypes.byref(dyn))
+        if err != 0:
+            raise RuntimeError(f"patch3d_attributes: CUDA error {err}")
+        return dict(registers=regs.value, spill_bytes=local.value,
+                    static_smem=static.value, dynamic_smem=dyn.value)
 
-def patch3d_sweep(tables: Patch3DTables, sc: dict, uP, ulP, voP,
-                  flavor: str, consider_dt: bool, cell_wise: bool):
-    """The patch-3D sweep: the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
-    if uP.is_cuda:
-        return Patch3DKernel.launch(tables, sc, uP, ulP, voP, flavor,
+
+def patch3d_sweep(tables: Patch3DTables, sc: dict, u, ul, vo, flavor: str,
+                  consider_dt: bool, cell_wise: bool):
+    """The patch-3D kernel for tensors on the card, its plain version for
+    tensors on the CPU: node-major vectors -> cell-row tiles."""
+    if u.is_cuda:
+        return Patch3DKernel.launch(tables, sc, u, ul, vo, flavor,
                                     consider_dt, cell_wise)
-    if uP.device.type != "cpu":
-        raise TypeError(f"patch-3D sweep: unsupported device {uP.device}")
-    return patch3d_sweep_plain(tables, sc, uP, ulP, voP, flavor, consider_dt,
+    if u.device.type != "cpu":
+        raise TypeError(f"patch-3D sweep: unsupported device {u.device}")
+    return patch3d_sweep_plain(tables, sc, u, ul, vo, flavor, consider_dt,
                                cell_wise)
 
 
@@ -298,10 +411,11 @@ def patch3d_sweep(tables: Patch3DTables, sc: dict, uP, ulP, voP,
 # ---------------------------------------------------------------------------
 class Patch3DSweep:
     """Applies the fused patch-3D sweep for one operator, with the
-    interface of ``ops/prism.py`` ``PrismSweep``: ``gather_nodes(v,
-    lead)`` maps the first ``lead`` components of a node-major vector
-    (n_nodes, C) to the patch tiles, and ``apply(...)`` runs the sweep and
-    seam-compresses the cell-row tiles back to (n_nodes, C)."""
+    interface of ``ops/prism.py`` ``PrismSweep``.  The kernel reads the
+    node-major vectors through the patch lattices itself, so
+    ``gather_nodes(v, lead)`` only makes v a contiguous (n_nodes, 4)
+    array, and ``apply(...)`` runs the sweep and the seam sums back to
+    (n_nodes, C)."""
 
     def __init__(self, op, tables: Patch3DTables):
         self.tables = tables
@@ -314,25 +428,23 @@ class Patch3DSweep:
         self.c2 = op.c_2
 
     def view_shape(self, lead: int):
-        return (lead,) + tuple(self.tables.patch_nodes.shape)
+        return (self.tables.n_nodes, 4)
 
     def gather_nodes(self, v, lead: int):
-        """(n_nodes, C) -> (lead, n_patches, Yn, Xn, Zn)."""
-        return v[:, :lead].T[:, self.tables.patch_nodes]
+        """(n_nodes, 4) -> the same, contiguous (every component is kept:
+        the kernel reads a node's four as one word and uses ``lead``)."""
+        return v.contiguous()
 
-    def compress(self, rows):
-        """Cell-row tiles (C, n_p, m, P+1, Xn, Zn) -> (C, n_nodes)."""
-        return class_sum(self.tables.compress,
-                         rows.reshape(rows.shape[0], -1), dim=1)
+    def compress(self, tiles):
+        """Cell-row tiles (n_p, m, Zn, P+1, Xn, 4) -> (n_nodes, 4)."""
+        return seam_sum(self.tables.seams, tiles.reshape(-1, 4))
 
-    def apply(self, weight: float, stau: float, uP, ulP, voP, flavor: str):
-        """uP/ulP/voP: (lead, n_patches, Yn, Xn, Zn) patch tiles (from
-        ``gather_nodes``).  Returns (n_nodes, C)."""
+    def apply(self, weight: float, stau: float, u, ul, vo, flavor: str):
+        """u, ul, vo: node-major (n_nodes, 4) (from ``gather_nodes``).
+        Returns (n_nodes, C)."""
         sc = dict(weight=weight, stau=stau, nu=self.nu, c1=self.c1,
                   c2=self.c2)
-        if flavor != "increment":
-            ulP = ulP[: self.d]
-        rows = patch3d_sweep(self.tables, sc, uP.contiguous(),
-                             ulP.contiguous(), voP.contiguous(), flavor,
-                             self.consider_dt, self.cell_wise)
-        return self.compress(rows).T
+        tiles = patch3d_sweep(self.tables, sc, u.contiguous(),
+                              ul.contiguous(), vo.contiguous(), flavor,
+                              self.consider_dt, self.cell_wise)
+        return self.compress(tiles)

@@ -1,41 +1,85 @@
 """ctypes bindings for the native meshkit library (native/meshkit.cc).
 
-Loads (and, if needed, builds) ``libmeshkit.so``; every entry point has a
-pure-numpy fallback so the framework runs without a compiler.  The native
-layer covers the host-runtime hot loops the reference gets from
-deal.II/p4est C++: unique-row topology extraction, transpose gather-map
-construction, constraint chain resolution, point location.
+The port builds its own copy of the library, ``libmeshkit-<hash>.so`` in
+``build/torch_kernels/`` (git-ignored; the hash covers the source, the
+flags and the compiler), at first use.  The build holds an exclusive
+``fcntl`` lock on a lock file in that directory and links to a temporary
+name that is renamed into place, so processes that start together wait
+for one build and never load a partial file; the JAX package's own
+``native/libmeshkit.so`` is never written here.  Every entry point has a
+pure-numpy fallback, taken only where no C++ compiler is found; a build
+or load that fails where one is found raises.  The native layer covers
+the host-runtime hot loops the reference gets from deal.II/p4est C++:
+unique-row topology extraction, transpose gather-map construction,
+constraint chain resolution, point location.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
 
 import numpy as np
 
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+SOURCE = os.path.join(_REPO, "native", "meshkit.cc")
+BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
+# the flags of native/Makefile
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared"]
+
 _LIB = None
-_TRIED = False
 
 
-def _lib():
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    root = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-    so = os.path.join(root, "libmeshkit.so")
-    if not os.path.exists(so):
-        try:
-            subprocess.run(["make", "-C", root], capture_output=True,
-                           timeout=120, check=True)
-        except Exception:
-            return None
-    try:
-        lib = ctypes.CDLL(so)
-    except OSError:
+def _compiler():
+    for name in ("c++", "g++", "clang++"):
+        path = shutil.which(name)
+        if path is not None:
+            return path
+    return None
+
+
+def build_library(build_dir: str = BUILD_DIR):
+    """Path of the port's meshkit library in ``build_dir``, compiled first
+    if it is not there; None where no C++ compiler is found.  Raises with
+    the compiler's output when the build fails."""
+    cxx = _compiler()
+    if cxx is None:
         return None
+    h = hashlib.sha1(" ".join([cxx, *CXX_FLAGS]).encode())
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    so = os.path.join(build_dir, f"libmeshkit-{h.hexdigest()[:12]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "libmeshkit.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when closed
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+                                 capture_output=True, text=True,
+                                 timeout=600)
+            if res.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"building {so} failed:\n{res.stdout}"
+                                   f"{res.stderr}")
+            os.replace(tmp, so)
+    return so
+
+
+def load_library(build_dir: str = BUILD_DIR):
+    """The ctypes handle of the library :func:`build_library` gives, its
+    entry points typed; None where no C++ compiler is found."""
+    so = build_library(build_dir)
+    if so is None:
+        return None
+    lib = ctypes.CDLL(so)
 
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -58,8 +102,16 @@ def _lib():
         f64p, c64, i64p, c64, ctypes.c_int, f64p, c64, ctypes.c_double,
         i64p, f64p,
     ]
-    _LIB = lib
     return lib
+
+
+def _lib():
+    """The loaded library, or None where no C++ compiler is found (the
+    numpy fallbacks); only a loaded library is kept."""
+    global _LIB
+    if _LIB is None:
+        _LIB = load_library()
+    return _LIB
 
 
 def available() -> bool:

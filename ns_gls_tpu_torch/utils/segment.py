@@ -7,6 +7,10 @@ fixed, the port instead groups the targets by how many sources they have
 transpose gathers do): each class is one dense (n_k, K) gather whose rows
 are summed in a fixed order, and a permutation puts the class results
 back in target order.  Two runs give the same bits.
+
+:class:`SeamSums` is the same sum as one launch of a CUDA kernel
+(``csrc/seam_sum.cu``) over a CSR table, with a plain version beside it:
+the patch-3D sweep's seam sums.
 """
 
 from __future__ import annotations
@@ -85,3 +89,99 @@ def target_sums(target: np.ndarray, device) -> TargetSums:
                           return_inverse=True)
     return TargetSums(class_gather(inv, len(uniq), device),
                       torch.as_tensor(uniq, device=device))
+
+
+# ---------------------------------------------------------------------------
+# seam sums: one launch over a CSR table (csrc/seam_sum.cu)
+# ---------------------------------------------------------------------------
+class SeamSums(NamedTuple):
+    """For each node n, the rows ``sources[offsets[n]:offsets[n + 1]]`` of
+    a sweep's output tiles that hold a part of it, ascending (int32)."""
+
+    offsets: torch.Tensor   # (n_out + 1,)
+    sources: torch.Tensor   # (n_rows,) every row belongs to one node
+
+
+def seam_sums(target: np.ndarray, n_out: int, device) -> SeamSums:
+    """The table that sums, for every node 0..n_out-1, the rows p with
+    ``target[p]`` equal to it.  Every node needs a row."""
+    target = np.asarray(target, np.int64).reshape(-1)
+    counts = np.bincount(target, minlength=n_out)
+    if len(counts) != n_out or (counts == 0).any():
+        raise ValueError("every node needs at least one row")
+    if len(target) >= 2**31:
+        raise ValueError("the rows need 64-bit positions")
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    order = np.argsort(target, kind="stable")
+    return SeamSums(torch.as_tensor(offsets.astype(np.int32), device=device),
+                    torch.as_tensor(order.astype(np.int32), device=device))
+
+
+def seam_sum_plain(ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the seam-sum kernel: src (n_rows, C) ->
+    (n_out, C), each node's rows added one after the other in table order,
+    starting from zero (the kernel's order, so the same sums)."""
+    off = ss.offsets.long()
+    start, counts = off[:-1], off[1:] - off[:-1]
+    out = src.new_zeros((len(counts), src.shape[1]))
+    for k in range(int(counts.max()) if len(counts) else 0):
+        sel = torch.nonzero(counts > k).squeeze(1)
+        out[sel] = out[sel] + src[ss.sources[start[sel] + k].long()]
+    return out
+
+
+class SeamSumKernel:
+    """ctypes binding of ``csrc/seam_sum.cu``; the library is built at
+    first use (``utils/cuda_build.py``)."""
+
+    # launches of the CUDA kernel in this process: one per successful
+    # ``launch``, nowhere else
+    launches = 0
+    _fn = None
+
+    @classmethod
+    def _load(cls):
+        if cls._fn is None:
+            import ctypes
+
+            from ns_gls_tpu_torch.utils.cuda_build import load_library
+
+            fn = load_library("seam_sum").seam_sum_launch
+            vp = ctypes.c_void_p
+            fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp]
+            fn.restype = ctypes.c_int
+            cls._fn = fn
+        return cls._fn
+
+    @classmethod
+    def launch(cls, ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
+        n_rows = ss.sources.shape[0]
+        if not src.is_cuda or src.dtype != torch.float32:
+            raise TypeError("seam sums: need a float32 CUDA tensor")
+        if tuple(src.shape) != (n_rows, 4) or not src.is_contiguous():
+            raise ValueError(f"seam sums: need a contiguous ({n_rows}, 4) "
+                             f"tensor, got {tuple(src.shape)}")
+        for t in ss:
+            if t.device != src.device or t.dtype != torch.int32:
+                raise ValueError("seam-sum tables: int32 on src's device")
+        n_out = ss.offsets.shape[0] - 1
+        out = torch.empty((n_out, 4), dtype=torch.float32, device=src.device)
+        err = cls._load()(
+            src.data_ptr(), ss.offsets.data_ptr(), ss.sources.data_ptr(),
+            out.data_ptr(), n_out,
+            torch.cuda.current_stream(src.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"seam-sum kernel launch failed: CUDA error "
+                               f"{err}")
+        cls.launches += 1
+        return out
+
+
+def seam_sum(ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
+    """The seam sums: the CUDA kernel for tensors on the card, the plain
+    version for tensors on the CPU."""
+    if src.is_cuda:
+        return SeamSumKernel.launch(ss, src)
+    if src.device.type != "cpu":
+        raise TypeError(f"seam sums: unsupported device {src.device}")
+    return seam_sum_plain(ss, src)

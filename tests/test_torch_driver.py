@@ -29,6 +29,7 @@ from ns_gls_tpu_torch.config import Parameters as TParams
 from ns_gls_tpu_torch.driver import Driver as TDriver
 import ns_gls_tpu_torch.utils.logging as tlog
 from ns_gls_tpu_torch.utils.device import torch_threads
+from tests.test_torch_fem import pin_point_locators
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,8 +91,18 @@ def _counting(drv, gmres_its, newton_its, states, jax_side):
     drv.sim.postprocess = recorded_post
 
 
+@pytest.fixture(scope="module", params=["native", "numpy"])
+def locator(request):
+    """Both packages on the same point locator for the pressure probes
+    (``tests/test_torch_fem.py`` ``pin_point_locators``), for every test
+    that compares p_diff."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_point_locators(mp, request.param)
+        yield request.param
+
+
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(locator):
     drv = JDriver(JParams.from_dict(_raw()))
     drv.setup()
     drv._setup_done = True

@@ -8,6 +8,8 @@ whose order may differ, so they hold to 1e-14 relative; BDF weights are
 the same float formulas and hold to 1e-14.
 """
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +38,39 @@ def _one_torch_thread():
 
 
 TOL = 1e-14
+
+
+def pin_point_locators(mp, locator):
+    """Make both packages locate probe points alike, through ``mp`` (a
+    pytest ``MonkeyPatch``): "native" tries the meshkit Q1 hit first,
+    "numpy" the nearest cell centres only.  On a point that lies on a face
+    the two can pick different cells (ROADMAP queue 3).  The JAX package
+    builds ``native/libmeshkit.so`` with its own ``make`` at first use,
+    unlocked, and caches a failed load: a process that found the file
+    half-written is reset here and retried, for at most 120 s, until the
+    complete library loads."""
+    import ns_gls_tpu.utils.native as jn
+    import ns_gls_tpu_torch.utils.native as tn
+
+    if locator == "numpy":
+        mp.setattr(jn, "_TRIED", True)
+        mp.setattr(jn, "_LIB", None)
+        mp.setattr(tn, "_lib", lambda: None)
+        return
+    assert tn._lib() is not None
+    deadline = time.monotonic() + 120.0
+    while True:
+        try:
+            if jn._lib() is not None:
+                return
+        except AttributeError:      # a partial file without the symbols
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError("the JAX package's native/libmeshkit.so "
+                                 "did not load in 120 s")
+        time.sleep(0.5)
+        mp.setattr(jn, "_TRIED", False)
+        mp.setattr(jn, "_LIB", None)
 
 
 def _meshes(which):
@@ -206,12 +241,17 @@ def test_prism_space_arrays_equal(which):
                               np.asarray(getattr(sj, name))), name
 
 
-def test_cylinder_3d_functionals():
+@pytest.mark.parametrize("locator", ["native", "numpy"])
+def test_cylinder_3d_functionals(locator, monkeypatch):
     """Drag and lift (the 3D normalization 2 / (D u_bar^2 H)) and the
-    pressure-drop probes of the Turek 3D model on one random solution."""
+    pressure-drop probes of the Turek 3D model on one random solution,
+    with both packages on the same point locator: on different ones the
+    probes land in different cells and p_diff differs by 1.8e-10
+    relative (``test_port_locators_on_turek3d_probes``)."""
     from ns_gls_tpu.models.cylinder import SimulationCylinder as JC
     from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TC
 
+    pin_point_locators(monkeypatch, locator)
     sj, st = _spaces("turek3d0")
     simj, simt = JC(3), TC(3)
     simj.setup_postprocess(sj, 0.001)
@@ -222,6 +262,56 @@ def test_cylinder_3d_functionals():
     rt = simt.postprocess(0.1, torch.as_tensor(u))
     for k in ("drag", "lift", "p_diff"):
         assert rt[k] == pytest.approx(rj[k], rel=1e-12, abs=1e-12), k
+
+
+def test_port_locators_on_turek3d_probes(monkeypatch):
+    """The port's native and numpy point locators on the Turek 3D ref-0
+    pressure probes (-D/2, 0, 0) and (D/2, 0, 0), Q2.  Each locator maps
+    its reference point to within the Newton tolerance (1e-8) of the
+    probe; where the two pick the same cell, the reference points are
+    equal.  Both probes lie on faces between cells, and there the two
+    pick different cells (103 and 204 for the first, 100 and 107 for the
+    second): the images lie 2.4e-11 from the probe, and the pressure
+    difference of a unit random Q2 field differs by 3.9e-10 (1.8e-10
+    relative), a gap the field's continuity bounds by its gradient times
+    the distance between the images."""
+    from ns_gls_tpu_torch.fem.element import tabulate_at
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder as TC
+    from ns_gls_tpu_torch.utils import native, point_eval
+
+    sim = TC(3)
+    space = TSpace(sim.create_mesh(0), 2)
+    probes = np.zeros((2, 3))
+    probes[:, 0] = [-0.5, 0.5]
+    probes *= sim.geometry_cylinder_diameter
+    assert native._lib() is not None
+    located = {"native": point_eval.locate_points(space, probes)}
+    monkeypatch.setattr(native, "_lib", lambda: None)
+    located["numpy"] = point_eval.locate_points(space, probes)
+    u = np.random.default_rng(4).standard_normal((space.n_nodes, 4))
+
+    def at(cells, refs):
+        """Images of the reference points, and u there."""
+        x, v = [], []
+        for c, r in zip(cells, refs):
+            x.append(tabulate_at(space.mapping_degree, 3, r[None])[0][0]
+                     @ space.map_points[c])
+            v.append(tabulate_at(space.degree, 3, r[None])[0][0]
+                     @ u[space.cell_nodes[c]])
+        return np.array(x), np.array(v)
+
+    (cn, rn), (cp, rp) = located["native"], located["numpy"]
+    xn, vn = at(cn, rn)
+    xp, vp = at(cp, rp)
+    assert np.abs(xn - probes).max() < 1e-8
+    assert np.abs(xp - probes).max() < 1e-8
+    same = cn == cp
+    assert np.array_equal(rn[same], rp[same])
+    assert cn.tolist() == [103, 100] and cp.tolist() == [204, 107]
+    assert np.abs(xn - xp).max() < 1e-10
+    p_diff = (vn[0, 3] - vn[1, 3], vp[0, 3] - vp[1, 3])
+    gap = abs(p_diff[0] - p_diff[1])
+    assert 0.0 < gap < 1e-9, gap
 
 
 def _vtu_arrays(path):

@@ -209,3 +209,32 @@ def test_patch3d_gates_and_dispatch():
     opc = TOp(ch, cac, cac, time_integrator=ti, dtype=F32, device="cpu",
               **kw)
     assert isinstance(opc._fast, tst.StructuredSweep)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_patch3d_plan_covers_every_layer_once(P):
+    """The CUDA kernel's split (``ops/patch3d.py`` ``patch3d_plan``: one
+    block per patch, cell row and z chunk; a chunk that does not start
+    the column also walks the layer below it) at every patch size the
+    kernel takes at this degree, in every flavor: the chunks own each
+    cell layer once, a slab is no deeper than a walk, and a block's
+    shared memory fits the card.  Sizes with more I1 columns than two
+    per thread are refused."""
+    for m in (1, 2, 4, 8, 16):
+        if 4 * (P + 1) * (P * m + 1) > 2 * 256:
+            with pytest.raises(ValueError):
+                tp3.patch3d_plan(P, m, 48, "increment", True)
+            continue
+        for flavor in tp3.FLAVORS:
+            for cdt in (True, False):
+                plan = tp3.patch3d_plan(P, m, 48, flavor, cdt)
+                owned = []
+                for kz in range(plan.nzb):
+                    zb, ze = kz * plan.zc, min((kz + 1) * plan.zc, m)
+                    assert ze > zb
+                    owned += range(zb, ze)
+                assert owned == list(range(m))
+                walk = plan.zc + (1 if plan.nzb > 1 else 0)
+                assert 1 <= plan.zs <= walk
+                assert tp3.smem_bytes(P, m, plan.zs, walk, flavor,
+                                      cdt) <= tp3.SMEM_PER_BLOCK

@@ -69,6 +69,23 @@ def test_plain_patch3d_vs_general_sweep_sphere(degree, increment, cell_wise):
     _check(opj, opt, u, v)
 
 
+def _sphere_sweep(degree):
+    """The port's patch-3D sweep of a sphere ref-1 f32 operator."""
+    st = TSpace(sphere_mesh(tread), degree)
+    ti = TBDF(1)
+    ti.update_dt(0.1)
+    ca = TAff(st.n_nodes, 4).close(F32, "cpu")
+    op = TOp(st, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
+             dtype=F32, device="cpu")
+    return st, op._fast
+
+
+def _tile_rows(tab):
+    """Node id of every row of the cell-row tiles (n_p, m, Zn, P+1, Xn)."""
+    pn = tab.patch_nodes.numpy().astype(np.int64)     # (n_p, y, x, z)
+    return pn[:, tpr.cell_row_index(tab.P, tab.m)].transpose(0, 1, 4, 2, 3)
+
+
 @pytest.mark.parametrize("degree", [1, 2])
 def test_seam_compress_is_multiplicity(degree):
     """Table parity on the sphere: the patch gather, spread to cell rows
@@ -78,31 +95,23 @@ def test_seam_compress_is_multiplicity(degree):
     the same multiplicity as the port's space."""
     from ns_gls_tpu.ops.patch3d import build_patch3d_tables as jbuild
 
-    st = TSpace(sphere_mesh(tread), degree)
+    st, sw = _sphere_sweep(degree)
     sj = JSpace(sphere_mesh(jread), degree)
-    ti = TBDF(1)
-    ti.update_dt(0.1)
-    ca = TAff(st.n_nodes, 4).close(F32, "cpu")
-    op = TOp(st, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
-             dtype=F32, device="cpu")
-    sw = op._fast
     tab = sw.tables
-    P, m = tab.P, tab.m
     rng = np.random.default_rng(5)
     vn = torch.as_tensor(rng.standard_normal((st.n_nodes, 4)), dtype=F32)
-    tiles = sw.gather_nodes(vn, 4)
-    rows = tiles[:, :, tpr.cell_row_index(P, m)]   # (4, n_p, m, P+1, X, Z)
-    out = sw.compress(rows)
-    pn = tab.patch_nodes.numpy()
-    count = np.bincount(pn[:, tpr.cell_row_index(P, m)].reshape(-1),
-                        minlength=st.n_nodes)
-    np.testing.assert_allclose(out.numpy(), vn.numpy().T * count[None],
+    rows = _tile_rows(tab)
+    assert sw.gather_nodes(vn, 4) is vn
+    tiles = vn[torch.as_tensor(rows)]          # (n_p, m, Zn, P+1, Xn, 4)
+    out = sw.compress(tiles)
+    count = np.bincount(rows.reshape(-1), minlength=st.n_nodes)
+    np.testing.assert_allclose(out.numpy(), vn.numpy() * count[:, None],
                                rtol=1e-6, atol=1e-6)
     assert (count >= st.node_mult3).all()
-    ones = sw.compress(torch.ones_like(rows))
-    assert (ones.numpy() == count[None]).all()
-    # the tiles are the space's lattices in (y, x, z) order
-    assert np.array_equal(pn,
+    ones = sw.compress(torch.ones_like(tiles))
+    assert (ones.numpy() == count[:, None]).all()
+    # the lattices are the space's in (y, x, z) order
+    assert np.array_equal(tab.patch_nodes.numpy(),
                           np.asarray(st.patch_nodes3).transpose(0, 2, 3, 1))
 
     class _Op:
@@ -116,3 +125,28 @@ def test_seam_compress_is_multiplicity(degree):
     jmult = np.concatenate([np.full(len(idx), idx.shape[1])
                             for idx in jt.compress])
     assert np.array_equal(jmult, st.node_mult3)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_seam_sum_plain_vs_class_sum(degree):
+    """The seam-sum kernel's plain version on the sphere ref-1 tables
+    against the class sums it replaces (``utils/segment.py``): the same
+    bits as the class sums taken in source order, and within f32
+    rounding (1e-6 of the max-abs) of the class sums' own order."""
+    from ns_gls_tpu_torch.utils.segment import (
+        class_gather,
+        class_sum,
+        seam_sum_plain,
+    )
+
+    st, sw = _sphere_sweep(degree)
+    tab = sw.tables
+    rows = _tile_rows(tab).reshape(-1)
+    src = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (len(rows), 4)), dtype=F32)
+    got = seam_sum_plain(tab.seams, src)
+    cg = class_gather(rows, st.n_nodes, "cpu")
+    assert torch.equal(got, class_sum(cg, src, in_order=True))
+    ref = class_sum(cg, src)
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    assert tab.seams.offsets.dtype == tab.seams.sources.dtype == torch.int32
