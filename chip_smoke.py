@@ -36,20 +36,24 @@ Phases (any failure exits non-zero and prints no result line):
 9. structured kernels vs plain: the channel 3D driver is set up
    (``input/channel.json`` with dim 3, degree 2, refinement 3); the 2D,
    3D and batched-3D structured kernels against the plain version on
-   sheared lattices (P = 1, 2 in 2D; P = 1-4, every degree the 3D
-   kernel has a specialization for, in 3D) and on the channel's level
-   spaces, in every flavor x delta mode x consider_dt, two launches
-   bit-identical, each timed at the finest level's shape (the batched
-   kernel's time there is logged only: no driver path gives it that
-   shape); the 3D kernel's registers, spills and shared memory per block,
+   sheared lattices (P = 1-4, every degree the 2D and 3D kernels have a
+   specialization for; the 2D kernel also under forced slab plans with
+   ragged bricks, multi-row slabs and several y chunks) and on the
+   channel's level spaces, in every flavor x delta mode x consider_dt,
+   two launches bit-identical, each timed at the finest level's shape
+   (the batched kernel's time there is logged only: no driver path gives
+   it that shape); the 2D and 3D kernels' registers, spills and shared
+   memory per block,
 10. channel 3D main path: 128 x 32 x 32 cells of Q2 (4,343,300 DoFs, six
     GMG levels, f64 outer, f32 levels on the 3D structured kernel, direct
     coarse) for 3 steps through ``Driver.run``; every Newton solve
     converges, the solution is finite, every f32 level launched the
     kernel and none ran the general sweep,
-11. channel 2D main path: degree 2, refinement 6 (1024 x 256 cells,
-    3,153,411 DoFs, nine GMG levels on the 2D structured kernel), 3 steps,
-    the same checks,
+11. channel 2D: the 2D kernel against the plain version on all nine
+    level spaces (4 x 1 to 1024 x 256 cells of Q2) in every flavor x
+    delta mode x consider_dt, timed at the finest; then the main path:
+    degree 2, refinement 6 (3,153,411 DoFs, nine GMG levels on the 2D
+    structured kernel), 3 steps, the same checks as phase 10,
 12. gls-vmult lane: what ``bench_gpu.py 3 5 2`` runs, fixed-point and
     increment flavor, each with the 3D and the batched 3D kernel, and
     refinement 6 where the script's time allows; each lane's kernel is
@@ -714,25 +718,62 @@ def time_structured_args(tag, args, batched):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def log_structured3d_build(tag, table_sets):
-    """Registers, spills and shared memory per block of the 3D kernel
-    as built, at each degree among ``table_sets`` (under the plan of the
-    largest lattice of that degree, in the main path's flavor)."""
+def log_structured_build(tag, table_sets):
+    """Registers, spills and shared memory per block of the 2D and 3D
+    kernels as built, at each dimension and degree among ``table_sets``
+    (under the plan of the largest lattice of that degree, in the main
+    path's flavor); the 2D kernel's dynamic shared memory must be the
+    host's formula (``slab_smem_2d``), which its plans are chosen by."""
     from ns_gls_tpu_torch.ops import structured as st
 
     largest = {}
     for t in table_sets:
         n = t.jinv.shape[0]
-        if n > largest.get(t.P, (0, None))[0]:
-            largest[t.P] = (n, t)
-    for P, (_, t) in sorted(largest.items()):
-        plan = st.brick_plan(P, t.cell_shape)
+        if n > largest.get((t.d, t.P), (0, None))[0]:
+            largest[(t.d, t.P)] = (n, t)
+    for (d, P), (_, t) in sorted(largest.items()):
+        if d == 2:
+            plan = st.slab_plan_2d(P, t.cell_shape)
+            host = st.slab_smem_2d(P, plan.xb, plan.ys, "increment", True)
+        else:
+            plan = st.brick_plan(P, t.cell_shape)
+            host = None
         a = st.StructuredKernel.attributes(P, plan, "increment", True)
-        log(f"[{tag}] structured3d_kernel<{P}>: {a['registers']} registers, "
-            f"{a['local_bytes']} B local memory (spills), "
+        log(f"[{tag}] structured{d}d_kernel<{P}>: {a['registers']} "
+            f"registers, {a['local_bytes']} B local memory (spills), "
             f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
             f"shared memory per block (plan {tuple(plan)} at cells "
             f"{t.cell_shape}, increment with history)")
+        if host is not None and a["dynamic_smem"] != host:
+            raise AssertionError(f"structured2d_kernel<{P}>: the launcher's "
+                                 f"{a['dynamic_smem']} B of shared memory, "
+                                 f"the host's formula {host} B")
+
+
+def phase_structured2d_plans(tag, table_sets, errs):
+    """The 2D kernel under forced slab plans (ragged last bricks, slabs of
+    2 and 3 rows, several y chunks each recomputing the row below it) on
+    each of ``table_sets`` (label, tables, scalars), against the plain
+    version in every flavor x delta mode x consider_dt.  Updates
+    ``errs``."""
+    from ns_gls_tpu_torch.ops import structured as st
+
+    for label, tables, sc in table_sets:
+        nx, ny = tables.cell_shape
+        cpw = 32 // (tables.P + 1) ** 2
+        xb = max(1, min(nx - 1, 2 * cpw if nx % (2 * cpw) else cpw + 1))
+        plans = [st.SlabPlan2D(xb, -(-nx // xb), ys, -(-ny // nyb), nyb)
+                 for ys, nyb in ((2, 2), (3, ny))]
+        for plan in plans:
+            cases = structured_cases(tables, sc, seed=2)
+            a, _ = compare_cases(
+                f"structured2d {label} plan {tuple(plan)}",
+                lambda *c, p=plan: st.fold_seams_2d(
+                    c[0], *st.StructuredKernel.launch(*c, plan=p), p.xb),
+                st.structured_sweep_plain, cases)
+            errs["structured2d"] = max(errs.get("structured2d", 0.0), a)
+        log(f"[{tag}] {label}: structured2d under plans "
+            f"{[tuple(p) for p in plans]}: ok")
 
 
 class GeneralSweepCount:
@@ -1309,16 +1350,16 @@ def main() -> int:
         drv_c3, setup_c3 = setup_driver(params_c3)
         log(f"[9] channel 3D driver set up in {setup_c3:.2f} s")
         errs = {}
-        sheared = [(f"sheared {dim}D", sheared_tables(dim, degree, "cuda"),
-                    SC_SHEAR) for dim, degrees in ((2, (1, 2)),
-                                                   (3, (1, 2, 3, 4)))
-                   for degree in degrees]
+        sheared = [(f"sheared {dim}D P={degree}",
+                    sheared_tables(dim, degree, "cuda"), SC_SHEAR)
+                   for dim in (2, 3) for degree in (1, 2, 3, 4)]
         levels3 = [(f"channel 3D level {l}", op._fast.tables, SC_CH)
                    for l, op in enumerate(drv_c3.mg_ops)]
         phase_structured_vs_plain(9, sheared + levels3, errs)
+        phase_structured2d_plans(9, [c for c in sheared if c[1].d == 2],
+                                 errs)
         fine3 = drv_c3.mg_ops[-1]._fast.tables
-        log_structured3d_build(9, [t for _, t, _ in sheared + levels3
-                                   if t.d == 3])
+        log_structured_build(9, [t for _, t, _ in sheared + levels3])
         t_s3 = time_structured(9, fine3, SC_CH, False)
         time_structured(9, fine3, SC_CH, True)      # logged only
         del sheared, levels3, fine3

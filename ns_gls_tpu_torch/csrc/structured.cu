@@ -2,8 +2,8 @@
 // 3D variant that contracts all components together.
 //
 // Replaces the TPU kernels of ns_gls_tpu/ops/structured.py:
-//   structured2d_kernel          <- _make_kernel_2d
-//   structured3d_kernel          <- _make_kernel_3d
+//   structured2d_kernel<P>       <- _make_kernel_2d
+//   structured3d_kernel<P>       <- _make_kernel_3d
 //   structured3d_batched_kernel  <- _make_kernel_3d_batched
 // (the Pallas bodies of StructuredSweep).  Each computes the whole operator
 // apply on an affine lattice of cells: unfold the node lattice into cells,
@@ -14,7 +14,7 @@
 // gls_qpoint.cuh (fixed / increment / residual flavor) and integrate the
 // test-function weights back onto the nodes.
 //
-// Layout (the TPU's banded MXU matrices, lane-tiled cell tables, bf16
+// Inputs (the TPU's banded MXU matrices, lane-tiled cell tables, bf16
 // splits and z-slab grid are not carried over):
 //   u, ul  (C, Zr, Yr, Nx)   node lattices, C = d + 1, x fastest; y and z
 //                            class-grouped (cg_index below);
@@ -24,57 +24,15 @@
 //                            order (x fastest, then y, then z)
 //   jxw    (n_c, NQ^d)       q = qx + NQ*qy (+ NQ^2*qz)
 //   h      (n_c, 2)          h_min_vertex, measure-based h / P
-//   out    (C, n_rows, R, Nx)  cell-row tiles: a cell row is the line of nx
-//                            cells at one (ey) or (ez, ey), R = (P+1)^(d-1)
-//                            its node rows (k, j); row (row, r) holds node
-//                            row r integrated over that cell row only
-//                            (2D and batched 3D; the 3D kernel's output is
-//                            described at its code below)
 // with Nx = P*nx + 1, Yr = P*ny + 1, Zr = P*nz + 1.
 //
-// Design of the 2D and the batched 3D kernels (structured_body; the 3D
-// kernel has a body of its own, structured3d_kernel below).  One thread
-// block per (x segment, cell row).  The block walks
-// along x in chunks of XS cells.  Per chunk it stages the R node rows x
-// (P*XS+1) nodes of every field in shared memory and sum-factorizes:
-//   1. x contraction: per (field, node row, cell, qx) the S1- and D1-
-//      weighted sums over the cell's P+1 nodes in x;
-//   2. one thread per q-point contracts the R node rows with products of
-//      the 1D tables (tabulated once per block), maps to physical
-//      gradients, runs the physics in registers and writes its (1+d)*C
-//      test-function weights to shared memory;
-//   3. the adjoint of 2 over the NQ^(d-1) q-rows, per (component, node
-//      row, cell, qx);
-//   4. the adjoint of 1, one thread per node: the node shared by two
-//      chunks is carried to the next chunk in shared memory and added
-//      there; the result goes to the block's cell-row tile.
-// Segments give coarse levels and 2D lattices enough blocks: a segment
-// that does not start at x = 0 first recomputes the one cell to its left,
-// only for the carry into its first node column, and leaves its last node
-// column to the next segment.  Node rows shared by two cell rows appear in
-// both tiles; the caller sums them by slicing (ops/structured.py
-// fold_classes), in a fixed order.  No atomics anywhere: two launches on
-// the same inputs give the same bits.
-//
-// The 2D kernel takes one component at a time through steps 1-4 (tables
-// re-read per component); the batched kernel takes all components of a
-// work item together, one read of a table row serving all of them.
-//
-// What bounds the function on an H100, at the channel's finest 3D level
-// (P = 2, NQ = 3, 128 x 32 x 32 cells, 257 x 65 x 65 nodes), increment
-// flavor with the history term (utils/roofline.py structured_cost):
-//   bytes: u 4 + u_lin 4 + vec_old 3 + out 4 lattices of 1,085,825 floats
-//          = 65.1 MB, cell tables 131,072 x 38 floats = 19.9 MB: 85 MB
-//          -> 25 us at 3.35 TB/s;
-//   flops: a sum-factorized evaluation and integration plus ~400 per
-//          q-point of geometry, delta and physics: 24 kFLOP per cell
-//          x 131,072 = 3.15 GFLOP -> 47 us at 67 TFLOP/s f32.
-// So the function is bound by operations (in 2D, at 1024 x 256 cells of
-// Q2, by bytes: 62 MB -> 18.5 us against 0.94 GFLOP -> 14 us).  The design
-// of structured_body factorizes along x only: step 2 sums over (P+1)^2
-// node rows per q-point and step 3 over NQ^2 q-rows per node row, about
-// 37 kFLOP per cell, and every operand of those sums is a shared-memory
-// read.  The 3D kernel factorizes along all three axes.
+// Each kernel's output and design are described at its code: the batched
+// 3D kernel (structured_body: sum-factorized along x only, cell-row tiles),
+// the 3D kernel and the 2D kernel (sum-factorized along every axis, the
+// node plane or row shared along the walk axis carried in a register, the
+// next slab copied while this one computes).  No atomics anywhere: two
+// launches on the same inputs give the same bits; what two thread blocks
+// share is summed by the caller (ops/structured.py) in a fixed order.
 #include <cuda_runtime.h>
 
 #include "gls_qpoint.cuh"
@@ -84,9 +42,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-// q-points per chunk the launcher aims for (one per thread)
+// q-points per chunk the batched launcher aims for (one per thread)
 constexpr int kChunkQ = 256;
-// blocks the launcher aims for when it splits cell rows into x segments
+// blocks the batched launcher aims for when it splits cell rows into x
+// segments
 constexpr int kTargetBlocks = 528;
 
 struct SDims {
@@ -108,9 +67,38 @@ GLS_HD int ipow(int b) {
   return r;
 }
 
-// The sweep of one block.  BATCHED: all components of a work item go
-// through each contraction together.
-template <int D, bool BATCHED>
+// ===========================================================================
+// structured3d_batched_kernel: the 3D sweep factorized along x only, all
+// components of a work item through each contraction together
+// ===========================================================================
+//
+// Output: cell-row tiles out (C, nz, ny, R, Nx), R = (P+1)^2: a cell row is
+// the line of nx cells at one (ez, ey), (k, j) its node rows; row (row, r)
+// holds node row r integrated over that cell row only.  ops/structured.py
+// fold_tiles sums the node rows shared by two cell rows (fold_classes).
+//
+// Design.  One thread block per (x segment, cell row).  The block walks
+// along x in chunks of XS cells.  Per chunk it stages the R node rows x
+// (P*XS+1) nodes of every field in shared memory and sum-factorizes:
+//   1. x contraction: per (node row, cell, qx) the S1- and D1-weighted
+//      sums over the cell's P+1 nodes in x, every component of every field;
+//   2. one thread per q-point contracts the R node rows with products of
+//      the 1D tables (tabulated once per block), maps to physical
+//      gradients, runs the physics in registers and writes its 4*C
+//      test-function weights to shared memory;
+//   3. the adjoint of 2 over the NQ^2 q-rows, per (node row, cell, qx);
+//   4. the adjoint of 1, one thread per node: the node shared by two
+//      chunks is carried to the next chunk in shared memory and added
+//      there; the result goes to the block's cell-row tile.
+// Segments give coarse levels enough blocks: a segment that does not start
+// at x = 0 first recomputes the one cell to its left, only for the carry
+// into its first node column, and leaves its last node column to the next
+// segment.  It sums over (P+1)^2 node rows per q-point in step 2 and over
+// NQ^2 q-rows per node row in step 3, about 37 kFLOP per cell at P = 2,
+// every operand a shared-memory read.  Any degree.  No driver path selects
+// it (as in the JAX package); the gls-vmult lane `--batched` does.
+
+// The sweep of one block of the batched 3D kernel.
 __device__ __forceinline__ void structured_body(
     const float* __restrict__ u, const float* __restrict__ ul,
     const float* __restrict__ vo, const float* __restrict__ jinv,
@@ -119,6 +107,7 @@ __device__ __forceinline__ void structured_body(
     float* __restrict__ out, const SDims dm, const int flavor,
     const int consider_dt, const int cell_wise, const GlsScalars sc) {
   extern __shared__ float smem[];
+  constexpr int D = 3;
   constexpr int C = D + 1;
   constexpr int T = D + 1;  // weight kinds per component: value, d/dxi_r
   const int P = dm.P, NQ = dm.NQ, nx = dm.nx, ny = dm.ny, XS = dm.XS;
@@ -139,11 +128,11 @@ __device__ __forceinline__ void structured_body(
       consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
 
   const int seg = blockIdx.x % dm.nseg;
-  const int row = blockIdx.x / dm.nseg;   // cell row: ey, or ez*ny + ey
+  const int row = blockIdx.x / dm.nseg;   // cell row: ez*ny + ey
   const int ey = row % ny;
   const int ez = row / ny;
   const int n_rows = ny * dm.nz;
-  const size_t nn = (size_t)Nx * Yr * (D == 3 ? (size_t)(P * dm.nz + 1) : 1);
+  const size_t nn = (size_t)Nx * Yr * (size_t)(P * dm.nz + 1);
 
   float* sS1 = smem;                  // (NQ, n1)
   float* sD1 = sS1 + NQ * n1;         // (NQ, n1)
@@ -165,29 +154,20 @@ __device__ __forceinline__ void structured_body(
     sS1[i] = S1g[i];
     sD1[i] = D1g[i];
   }
-  // node row r = j (2D) or k*n1 + j (3D); q-row qr = qy or qz*NQ + qy
+  // node row r = k*n1 + j; q-row qr = qz*NQ + qy
   for (int i = threadIdx.x; i < QR * R; i += blockDim.x) {
     const int qr = i / R, r = i - qr * R;
-    if (D == 2) {
-      sW[i] = S1g[qr * n1 + r];
-      sW[QR * R + i] = D1g[qr * n1 + r];
-    } else {
-      const int qz = qr / NQ, qy = qr - qz * NQ;
-      const int k = r / n1, j = r - k * n1;
-      const float sy = S1g[qy * n1 + j], dy = D1g[qy * n1 + j];
-      const float sz = S1g[qz * n1 + k], dz = D1g[qz * n1 + k];
-      sW[i] = sz * sy;
-      sW[QR * R + i] = sz * dy;
-      sW[2 * QR * R + i] = dz * sy;
-    }
+    const int qz = qr / NQ, qy = qr - qz * NQ;
+    const int k = r / n1, j = r - k * n1;
+    const float sy = S1g[qy * n1 + j], dy = D1g[qy * n1 + j];
+    const float sz = S1g[qz * n1 + k], dz = D1g[qz * n1 + k];
+    sW[i] = sz * sy;
+    sW[QR * R + i] = sz * dy;
+    sW[2 * QR * R + i] = dz * sy;
   }
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    if (D == 2) {
-      sRow[r] = cg_index(P, ny, ey, r) * Nx;
-    } else {
-      const int k = r / n1, j = r - k * n1;
-      sRow[r] = (cg_index(P, dm.nz, ez, k) * Yr + cg_index(P, ny, ey, j)) * Nx;
-    }
+    const int k = r / n1, j = r - k * n1;
+    sRow[r] = (cg_index(P, dm.nz, ez, k) * Yr + cg_index(P, ny, ey, j)) * Nx;
   }
   __syncthreads();
 
@@ -223,83 +203,46 @@ __device__ __forceinline__ void structured_body(
     __syncthreads();
 
     // ---- phase 1: x contraction ----------------------------------------
-    if (BATCHED) {
-      for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
-        const int r = i / lxn, lx = i - r * lxn;
-        const int ex = lx / NQ, qx = lx - ex * NQ;
-        const int s0 = r * XN + P * ex;
-        const int a = r * LX + lx;
-        float vS[C], vD[C], lS[C], lD[C], oS[D];
+    for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
+      const int r = i / lxn, lx = i - r * lxn;
+      const int ex = lx / NQ, qx = lx - ex * NQ;
+      const int s0 = r * XN + P * ex;
+      const int a = r * LX + lx;
+      float vS[C], vD[C], lS[C], lD[C], oS[D];
 #pragma unroll
-        for (int c = 0; c < C; ++c) vS[c] = vD[c] = lS[c] = lD[c] = 0.f;
+      for (int c = 0; c < C; ++c) vS[c] = vD[c] = lS[c] = lD[c] = 0.f;
 #pragma unroll
-        for (int c = 0; c < D; ++c) oS[c] = 0.f;
-        for (int ii = 0; ii < n1; ++ii) {
-          const float s = sS1[qx * n1 + ii], dd = sD1[qx * n1 + ii];
+      for (int c = 0; c < D; ++c) oS[c] = 0.f;
+      for (int ii = 0; ii < n1; ++ii) {
+        const float s = sS1[qx * n1 + ii], dd = sD1[qx * n1 + ii];
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float t = su[c * RX + s0 + ii];
-            vS[c] += s * t;
-            vD[c] += dd * t;
-          }
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (c < lead_ul) {
-              const float t = sul[c * RX + s0 + ii];
-              lS[c] += s * t;
-              lD[c] += dd * t;
-            }
-          }
-          if (need_dt_old) {
-#pragma unroll
-            for (int c = 0; c < D; ++c) oS[c] += s * svo[c * RX + s0 + ii];
-          }
+        for (int c = 0; c < C; ++c) {
+          const float t = su[c * RX + s0 + ii];
+          vS[c] += s * t;
+          vD[c] += dd * t;
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          sAu[c * RL + a] = vS[c];
-          sAu[(C + c) * RL + a] = vD[c];
-          sAl[c * RL + a] = lS[c];
-          sAl[(C + c) * RL + a] = lD[c];
+          if (c < lead_ul) {
+            const float t = sul[c * RX + s0 + ii];
+            lS[c] += s * t;
+            lD[c] += dd * t;
+          }
         }
+        if (need_dt_old) {
 #pragma unroll
-        for (int c = 0; c < D; ++c) sAv[c * RL + a] = oS[c];
-      }
-    } else {
-      // one (field, component) at a time: u, then u_lin, then vec_old
-      const int per = R * lxn;
-      const int nf = C + lead_ul + (need_dt_old ? D : 0);
-      for (int i = threadIdx.x; i < nf * per; i += blockDim.x) {
-        const int f = i / per;
-        const int rem = i - f * per;
-        const int r = rem / lxn, lx = rem - r * lxn;
-        const int ex = lx / NQ, qx = lx - ex * NQ;
-        const float* src;
-        float* dS;
-        float* dD;
-        if (f < C) {
-          src = su + f * RX;
-          dS = sAu + f * RL;
-          dD = sAu + (C + f) * RL;
-        } else if (f < C + lead_ul) {
-          src = sul + (f - C) * RX;
-          dS = sAl + (f - C) * RL;
-          dD = sAl + f * RL;   // (C + (f - C)): the D half
-        } else {
-          src = svo + (f - C - lead_ul) * RX;
-          dS = sAv + (f - C - lead_ul) * RL;
-          dD = nullptr;
+          for (int c = 0; c < D; ++c) oS[c] += s * svo[c * RX + s0 + ii];
         }
-        src += r * XN + P * ex;
-        float aS = 0.f, aD = 0.f;
-        for (int ii = 0; ii < n1; ++ii) {
-          const float t = src[ii];
-          aS += sS1[qx * n1 + ii] * t;
-          aD += sD1[qx * n1 + ii] * t;
-        }
-        dS[r * LX + lx] = aS;
-        if (dD != nullptr) dD[r * LX + lx] = aD;
       }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        sAu[c * RL + a] = vS[c];
+        sAu[(C + c) * RL + a] = vD[c];
+        sAl[c * RL + a] = lS[c];
+        sAl[(C + c) * RL + a] = lD[c];
+      }
+#pragma unroll
+      for (int c = 0; c < D; ++c) sAv[c * RL + a] = oS[c];
     }
     __syncthreads();
 
@@ -339,74 +282,35 @@ __device__ __forceinline__ void structured_body(
 #pragma unroll
       for (int a = 0; a < D; ++a) dto[a] = 0.f;
 
-      if (BATCHED) {
-        for (int r = 0; r < R; ++r) {
-          float w[D];
+      for (int r = 0; r < R; ++r) {
+        float w[D];
 #pragma unroll
-          for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
-          const int a0 = r * LX + lx;
+        for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
+        const int a0 = r * LX + lx;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float aS = sAu[c * RL + a0], aD = sAu[(C + c) * RL + a0];
+          uv[c] += w[0] * aS;
+          ud[c][0] += w[0] * aD;
+#pragma unroll
+          for (int a = 1; a < D; ++a) ud[c][a] += w[a] * aS;
+        }
+        if (incr) {
 #pragma unroll
           for (int c = 0; c < C; ++c) {
-            const float aS = sAu[c * RL + a0], aD = sAu[(C + c) * RL + a0];
-            uv[c] += w[0] * aS;
-            ud[c][0] += w[0] * aD;
+            const float aS = sAl[c * RL + a0], aD = sAl[(C + c) * RL + a0];
+            lv[c] += w[0] * aS;
+            ld[c][0] += w[0] * aD;
 #pragma unroll
-            for (int a = 1; a < D; ++a) ud[c][a] += w[a] * aS;
+            for (int a = 1; a < D; ++a) ld[c][a] += w[a] * aS;
           }
-          if (incr) {
+        } else {
 #pragma unroll
-            for (int c = 0; c < C; ++c) {
-              const float aS = sAl[c * RL + a0], aD = sAl[(C + c) * RL + a0];
-              lv[c] += w[0] * aS;
-              ld[c][0] += w[0] * aD;
-#pragma unroll
-              for (int a = 1; a < D; ++a) ld[c][a] += w[a] * aS;
-            }
-          } else {
-#pragma unroll
-            for (int c = 0; c < D; ++c) lv[c] += w[0] * sAl[c * RL + a0];
-          }
-          if (need_dt_old) {
-#pragma unroll
-            for (int c = 0; c < D; ++c) dto[c] += w[0] * sAv[c * RL + a0];
-          }
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          for (int r = 0; r < R; ++r) {
-            const int a0 = c * RL + r * LX + lx;
-            const float w0 = sW[qr * R + r];
-            const float aS = sAu[a0], aD = sAu[C * RL + a0];
-            uv[c] += w0 * aS;
-            ud[c][0] += w0 * aD;
-#pragma unroll
-            for (int a = 1; a < D; ++a)
-              ud[c][a] += sW[(a * QR + qr) * R + r] * aS;
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c < lead_ul) {
-            for (int r = 0; r < R; ++r) {
-              const int a0 = c * RL + r * LX + lx;
-              const float w0 = sW[qr * R + r];
-              const float aS = sAl[a0];
-              lv[c] += w0 * aS;
-              if (incr) {
-                ld[c][0] += w0 * sAl[C * RL + a0];
-#pragma unroll
-                for (int a = 1; a < D; ++a)
-                  ld[c][a] += sW[(a * QR + qr) * R + r] * aS;
-              }
-            }
-          }
+          for (int c = 0; c < D; ++c) lv[c] += w[0] * sAl[c * RL + a0];
         }
         if (need_dt_old) {
 #pragma unroll
-          for (int c = 0; c < D; ++c)
-            for (int r = 0; r < R; ++r)
-              dto[c] += sW[qr * R + r] * sAv[c * RL + r * LX + lx];
+          for (int c = 0; c < D; ++c) dto[c] += w[0] * sAv[c * RL + a0];
         }
       }
 
@@ -479,52 +383,30 @@ __device__ __forceinline__ void structured_body(
 
     // ---- phase 3: adjoint over the q-rows ------------------------------
     // GS (values along x) -> sAu[c], GD (x-derivatives) -> sAu[C + c]
-    if (BATCHED) {
-      for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
-        const int r = i / lxn, lx = i - r * lxn;
-        float gS[C], gD[C];
+    for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
+      const int r = i / lxn, lx = i - r * lxn;
+      float gS[C], gD[C];
 #pragma unroll
-        for (int c = 0; c < C; ++c) gS[c] = gD[c] = 0.f;
-        for (int qr = 0; qr < QR; ++qr) {
-          float w[D];
+      for (int c = 0; c < C; ++c) gS[c] = gD[c] = 0.f;
+      for (int qr = 0; qr < QR; ++qr) {
+        float w[D];
 #pragma unroll
-          for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
-          const int q = qr * lxn + lx;
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            float t = w[0] * sw[c * QS + q];
-#pragma unroll
-            for (int a = 1; a < D; ++a)
-              t += w[a] * sw[((1 + a) * C + c) * QS + q];
-            gS[c] += t;
-            gD[c] += w[0] * sw[(C + c) * QS + q];
-          }
-        }
+        for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
+        const int q = qr * lxn + lx;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          sAu[c * RL + r * LX + lx] = gS[c];
-          sAu[(C + c) * RL + r * LX + lx] = gD[c];
-        }
-      }
-    } else {
-      const int per = R * lxn;
-      for (int i = threadIdx.x; i < C * per; i += blockDim.x) {
-        const int c = i / per;
-        const int rem = i - c * per;
-        const int r = rem / lxn, lx = rem - r * lxn;
-        float gS = 0.f, gD = 0.f;
-        for (int qr = 0; qr < QR; ++qr) {
-          const int q = qr * lxn + lx;
-          const float w0 = sW[qr * R + r];
-          float t = w0 * sw[c * QS + q];
+          float t = w[0] * sw[c * QS + q];
 #pragma unroll
           for (int a = 1; a < D; ++a)
-            t += sW[(a * QR + qr) * R + r] * sw[((1 + a) * C + c) * QS + q];
-          gS += t;
-          gD += w0 * sw[(C + c) * QS + q];
+            t += w[a] * sw[((1 + a) * C + c) * QS + q];
+          gS[c] += t;
+          gD[c] += w[0] * sw[(C + c) * QS + q];
         }
-        sAu[c * RL + r * LX + lx] = gS;
-        sAu[(C + c) * RL + r * LX + lx] = gD;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        sAu[c * RL + r * LX + lx] = gS[c];
+        sAu[(C + c) * RL + r * LX + lx] = gD[c];
       }
     }
     __syncthreads();
@@ -534,12 +416,8 @@ __device__ __forceinline__ void structured_body(
     float* cout = scarry + ((chunk + 1) & 1) * C * R;
     const bool have_carry = cx > cx_first;
     const bool row_end = cx + xs >= nx;   // the cell row's last chunk
-    const int n_items = BATCHED ? R * xn : C * R * xn;
-    for (int i = threadIdx.x; i < n_items; i += blockDim.x) {
-      const int c_lo = BATCHED ? 0 : i / (R * xn);
-      const int c_hi = BATCHED ? C : c_lo + 1;
-      const int rem = BATCHED ? i : i - c_lo * (R * xn);
-      const int r = rem / xn, xl = rem - r * xn;
+    for (int i = threadIdx.x; i < R * xn; i += blockDim.x) {
+      const int r = i / xn, xl = i - r * xn;
       const int ex_lo = xl > 0 ? (xl - 1) / P : 0;
       const int ex_hi = min(xl / P, xs - 1);
       float acc[C];
@@ -551,23 +429,19 @@ __device__ __forceinline__ void structured_body(
           const float s = sS1[qx * n1 + ii], dd = sD1[qx * n1 + ii];
           const int a0 = r * LX + ex * NQ + qx;
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            if (c >= c_lo && c < c_hi)
-              acc[c] += s * sAu[c * RL + a0] + dd * sAu[(C + c) * RL + a0];
-          }
+          for (int c = 0; c < C; ++c)
+            acc[c] += s * sAu[c * RL + a0] + dd * sAu[(C + c) * RL + a0];
         }
       }
       const bool seam_out = xl == xn - 1 && !row_end;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if (c >= c_lo && c < c_hi) {
-          float v = acc[c];
-          if (xl == 0 && have_carry) v += cin[c * R + r];
-          if (seam_out) {
-            cout[c * R + r] = v;
-          } else if (!halo) {
-            out[(((size_t)c * n_rows + row) * R + r) * Nx + P * cx + xl] = v;
-          }
+        float v = acc[c];
+        if (xl == 0 && have_carry) v += cin[c * R + r];
+        if (seam_out) {
+          cout[c * R + r] = v;
+        } else if (!halo) {
+          out[(((size_t)c * n_rows + row) * R + r) * Nx + P * cx + xl] = v;
         }
       }
     }
@@ -579,25 +453,16 @@ __device__ __forceinline__ void structured_body(
   }
 }
 
-#define STRUCTURED_ARGS                                                      \
-  const float *__restrict__ u, const float *__restrict__ ul,                 \
-      const float *__restrict__ vo, const float *__restrict__ jinv,          \
-      const float *__restrict__ jxw, const float *__restrict__ hcell,        \
-      const float *__restrict__ S1g, const float *__restrict__ D1g,          \
-      float *__restrict__ out, SDims dm, int flavor, int consider_dt,        \
-      int cell_wise, GlsScalars sc
-#define STRUCTURED_PASS                                                      \
-  u, ul, vo, jinv, jxw, hcell, S1g, D1g, out, dm, flavor, consider_dt,       \
-      cell_wise, sc
-
 __global__ void __launch_bounds__(kThreads)
-structured2d_kernel(STRUCTURED_ARGS) {
-  structured_body<2, false>(STRUCTURED_PASS);
-}
-
-__global__ void __launch_bounds__(kThreads)
-structured3d_batched_kernel(STRUCTURED_ARGS) {
-  structured_body<3, true>(STRUCTURED_PASS);
+structured3d_batched_kernel(
+    const float* __restrict__ u, const float* __restrict__ ul,
+    const float* __restrict__ vo, const float* __restrict__ jinv,
+    const float* __restrict__ jxw, const float* __restrict__ hcell,
+    const float* __restrict__ S1g, const float* __restrict__ D1g,
+    float* __restrict__ out, SDims dm, int flavor, int consider_dt,
+    int cell_wise, GlsScalars sc) {
+  structured_body(u, ul, vo, jinv, jxw, hcell, S1g, D1g, out, dm, flavor,
+                  consider_dt, cell_wise, sc);
 }
 
 // ===========================================================================
@@ -1211,6 +1076,495 @@ structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
   }
 }
 
+// ===========================================================================
+// structured2d_kernel<P>: the 2D sweep, sum-factorized along y and x
+// ===========================================================================
+//
+// Output (ops/structured.py fold_seams_2d adds the seams in place):
+//   out    (C, Yr, 1, Nx)  the lattice itself (class-grouped y): every node
+//                          complete but the x seams between bricks
+//   seams  (C, Yr, nbx)    the first node column of brick b > 0 (the x
+//                          seam it shares with brick b - 1, whose part is
+//                          in out)
+// y has no seam and there are no cell-row tiles: a block walks its y chunk
+// and carries the node row shared by two cell rows in a register.
+//
+// Design.  The 3D kernel's design with one axis fewer: one thread block per
+// (x brick of XB cells, y chunk of YC cell rows), which walks its chunk in
+// slabs of YS cell rows.
+//  - Sum factorization along both axes: a slab is evaluated along y (E1:
+//    an item takes every component of one field, u, u_lin or vec_old,
+//    through the (P+1) -> NQ contraction of one node column), then along x
+//    by one thread per q-point, which goes on to the physics in registers
+//    (E2); the test-function weights are integrated back along x (I2, an
+//    item per cell, q-row and component: the three test-function kinds
+//    together) and along y (I1).  P is a template parameter (NQ = P + 1),
+//    so the 1D tables and the (P+1)-term sums live in registers.
+//  - y in registers: in I1 a thread keeps one (component, node column) for
+//    the whole walk, and the node row shared by two cell rows in a register
+//    across slabs; finished rows go straight into the lattice at their
+//    class-grouped y.  A y chunk that does not start at row 0 first
+//    evaluates the cell row below it, for the carry only, and writes only
+//    its own rows: the row on a chunk seam gets both cell rows' parts in
+//    the order of one walk, so the output does not depend on the chunking.
+//  - Overlapped loads: the next slab's node rows of every field and its
+//    cells' geometry (J^-1 4, h 2 and JxW NQ^2 floats, read once per cell)
+//    are copied to shared memory with cp.async (double buffer) while this
+//    slab computes.  Four barriers per slab.
+//  - E2 gives a warp whole cells (32 / NQ^2 of them, each cell's q-points on
+//    consecutive lanes; up to four passes a slab), so the cell-wise delta's
+//    max of |u*|^2 over the cell's q-points is a shuffle among those lanes:
+//    no barrier, no second evaluation.
+//  - Loop indices advance as mixed-radix digits (StridedDigits); a
+//    thread's q-point, I1 columns and copy column are fixed for the walk.
+//  - Exact f32 FMAs, no tensor cores, no atomics.
+// What bounds the function on an H100 at the channel's finest 2D level
+// (1024 x 256 cells of Q2, increment flavor with the history;
+// utils/roofline.py structured_cost): bytes, 62 MB -> 18.5 us at 3.35 TB/s,
+// against 0.94 GFLOP -> 14 us at 67 TFLOP/s f32.  The kernel reads each
+// node row once per slab that holds it (the row shared by two slabs twice),
+// each cell's geometry once, and writes every node once, close to that
+// count; like the 3D kernel it is bound by latency, so the plan
+// (ops/structured.py slab_plan_2d: brick, slab and y chunking of least
+// estimated waves x slabs x slab time) keeps every block's walk short
+// while the blocks fill the card.  The launcher refuses what does not fit.
+// Launch: 256 threads, at most 128 registers (two blocks per SM); at the
+// channel's finest level bricks of 12 cells, slabs of 8 rows (864
+// q-points), 3 y chunks: 258 blocks of 103,424 B of shared memory, 128
+// registers and no spills at P = 2.
+//
+// Measured (tools/structured_levels.py --dim 2, device time by
+// torch.profiler, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6):
+// 114.5 us at 1024 x 256 cells of Q2 (the x-only design with cell-row
+// tiles 510.0 us in the same process), 6.2x the 18.5 us bound; the sweep
+// with its seam add 119.0 us (527.8 with the tiles' fold).  Tried and
+// dropped (PERF.md): three blocks per SM (80 registers, spills; slower),
+// the 1D tables in shared memory (slower), E2 limited to two passes (slabs
+// of 48 cells; 8% slower than four), E2's pass loop unrolled (slower).
+
+// I1 columns (3 components x brick nodes) a thread may own
+constexpr int kMaxCols2 = 2;
+// passes of E2 over a slab's cells (each warp takes 32 / NQ^2 cells a pass)
+constexpr int kMaxPass2 = 4;
+
+struct S2Dims {
+  int nx, ny;
+  int XB;    // cells per brick along x (the last brick may hold fewer)
+  int nbx;   // bricks per cell row
+  int YS;    // cell rows per slab
+  int YC;    // cell rows per y chunk
+};
+
+// shared-memory regions of one block, in floats: the staged node rows and
+// the cells' geometry (two buffers each), the y-contracted fields (A, Ay;
+// then the x adjoint V) and the test-function weights W
+struct S2Smem {
+  size_t in, geo, a, w;
+  __host__ __device__ size_t total() const { return in + geo + a + w; }
+};
+
+__host__ __device__ inline S2Smem s2_smem(int P, int XB, int YS, int NF,
+                                          int NG) {
+  const size_t NQ = P + 1;
+  const size_t XN = (size_t)P * XB + 1, LX = NQ * XB;
+  const size_t YN = (size_t)P * YS + 1, LY = NQ * YS;
+  const size_t cells = (size_t)YS * XB;
+  return S2Smem{2 * NF * YN * XN, 2 * cells * (6 + NQ * NQ),
+                s3_max((NF + NG) * LY * XN, 6 * LY * XN), 9 * LY * LX};
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 2)
+structured2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
+                    const float* __restrict__ vo,
+                    const float* __restrict__ jinv,
+                    const float* __restrict__ jxw,
+                    const float* __restrict__ hcell,
+                    const float* __restrict__ S1g,
+                    const float* __restrict__ D1g, float* __restrict__ out,
+                    float* __restrict__ seams, S2Dims dm, int flavor,
+                    int consider_dt, int cell_wise, GlsScalars sc) {
+  extern __shared__ float smem[];
+  constexpr int n1 = P + 1, NQ = P + 1, NQ2 = NQ * NQ;
+  constexpr int CPW = 32 / NQ2;   // cells per warp in E2
+  const int nx = dm.nx, ny = dm.ny, XB = dm.XB, YS = dm.YS;
+  const int bx = blockIdx.x % dm.nbx;
+  const int ky = blockIdx.x / dm.nbx;
+  const int x0 = bx * XB;
+  const int xb = min(XB, nx - x0);   // cells in this brick
+  const int xn = P * xb + 1;         // its nodes along x
+  const int Nx = P * nx + 1, Yr = P * ny + 1;
+  const int XN = P * XB + 1, LX = NQ * XB, YN = P * YS + 1, LY = NQ * YS;
+  const int QS = LY * LX;            // q-points of a slab (at most)
+  const int AF = LY * XN;            // one field's A
+  const bool incr = flavor == GLS_INCREMENT;
+  const int lead_ul = incr ? 3 : 2;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 3 + lead_ul + (need_dt_old ? 2 : 0);   // staged fields
+  const int NG = incr ? 6 : 3;                         // fields with grads
+  const int NK = need_dt_old ? 3 : 2;   // field kinds: u, u_lin, vec_old
+
+  // the y chunk: owned cell rows [yb, ye), walked from lo (one row below
+  // yb when the chunk does not start at row 0)
+  const int yb = ky * dm.YC;
+  const int ye = min(yb + dm.YC, ny);
+  const int lo = yb > 0 ? yb - 1 : 0;
+
+  // 1D tables in registers
+  float S1[NQ][n1], D1[NQ][n1];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < n1; ++i) {
+      S1[q][i] = __ldg(S1g + q * n1 + i);
+      D1[q][i] = __ldg(D1g + q * n1 + i);
+    }
+
+  const S2Smem sm = s2_smem(P, XB, YS, NF, NG);
+  const int GB = YS * XB * (6 + NQ2);   // one geometry buffer
+  float* sIn = smem;                    // (2, NF, YN, XN)
+  float* sGeo = sIn + sm.in;            // (2, [YS, XB, 4 | YS, XB, 2 |
+                                        //      YS, XB, NQ^2])
+  float* sA = sGeo + sm.geo;            // (NF, LY, XN) values along y
+  float* sAy = sA + NF * AF;            // (NG, LY, XN) y-derivatives
+  float* sV = sA;                       // (3 c, 2, LY, XN) x adjoint:
+                                        //   value -> y
+  float* sW = sA + sm.a;                // (3 kinds, 3 c, QS) weights:
+                                        //   value, d/dxi_x, d/dxi_y
+
+  // the brick's first node of every staged field
+  __shared__ const float* sField[8];
+  const size_t nn = (size_t)Nx * Yr;
+  if (threadIdx.x < NF) {
+    const int f = threadIdx.x;
+    sField[f] = (f < 3 ? u + f * nn
+                       : (f < 3 + lead_ul ? ul + (f - 3) * nn
+                                          : vo + (f - 3 - lead_ul) * nn)) +
+                P * x0;
+  }
+  __syncthreads();
+
+  // the node copies of a slab: thread group tg (of n_grp) keeps node column
+  // t_x of the brick and walks its share of the (node row, field) pairs
+  const int n_grp = blockDim.x / xn;
+  const int tg = threadIdx.x / xn;
+  const int t_x = threadIdx.x - tg * xn;
+
+  // copy the node rows and cell geometry of the slab starting at cell row
+  // y0 into buffer buf (cp.async; the caller commits)
+  auto stage = [&](int y0, int ys, int buf) {
+    const int yn = P * ys + 1;
+    if (tg < n_grp) {
+      float* dst0 = sIn + buf * NF * YN * XN + t_x;
+      for (StridedDigits<2> e({yn, NF}, tg, n_grp); e.valid(); e.next()) {
+        const int r = e.d[0], f = e.d[1];
+        cp_async4(dst0 + (f * YN + r) * XN,
+                  sField[f] + (cg_index(P, ny, y0 + r / P, r % P) * Nx + t_x));
+      }
+    }
+    float* gJ = sGeo + buf * GB;
+    float* gH = gJ + YS * XB * 4;
+    float* gQ = gH + YS * XB * 2;
+    const size_t c0 = (size_t)y0 * nx + x0;
+    for (StridedDigits<2> e({xb * 4, ys}); e.valid(); e.next())
+      cp_async4(gJ + e.d[1] * XB * 4 + e.d[0],
+                jinv + (c0 + (size_t)e.d[1] * nx) * 4 + e.d[0]);
+    for (StridedDigits<2> e({xb * 2, ys}); e.valid(); e.next())
+      cp_async4(gH + e.d[1] * XB * 2 + e.d[0],
+                hcell + (c0 + (size_t)e.d[1] * nx) * 2 + e.d[0]);
+    for (StridedDigits<2> e({xb * NQ2, ys}); e.valid(); e.next())
+      cp_async4(gQ + e.d[1] * XB * NQ2 + e.d[0],
+                jxw + (c0 + (size_t)e.d[1] * nx) * NQ2 + e.d[0]);
+  };
+
+  // E2: this thread's q-point (qx, qy) of the cell cw of its warp's group,
+  // and its rows of the 1D tables along x
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int cw = lane / NQ2;
+  const int qxy = lane - cw * NQ2;
+  const int qx = qxy % NQ, qy = qxy / NQ;
+  float Sx[n1], Dx[n1];
+  table_row(S1, qx, Sx);
+  table_row(D1, qx, Dx);
+
+  // I1: the (component, node column) = threadIdx.x + k * blockDim.x this
+  // thread owns (c = 3: none), and their y carries
+  int col_c[kMaxCols2], col_x[kMaxCols2];
+  float carry[kMaxCols2];
+#pragma unroll
+  for (int k = 0; k < kMaxCols2; ++k) {
+    const int it = threadIdx.x + k * blockDim.x;
+    col_c[k] = it < 3 * xn ? it / xn : 3;
+    col_x[k] = it - col_c[k] * xn;
+    carry[k] = 0.f;
+  }
+  // where node row `row` (class-grouped) of column (c, xl) goes: the
+  // lattice, or the seam entry of the brick's first node column
+  auto put = [&](int c, int xl, int row, float v) {
+    const size_t o = (size_t)c * Yr + row;
+    if (xl == 0 && bx > 0) {
+      seams[o * dm.nbx + bx] = v;
+    } else {
+      out[o * Nx + P * x0 + xl] = v;
+    }
+  };
+
+  const int n_slabs = (ye - lo + YS - 1) / YS;
+  stage(lo, min(YS, ye - lo), 0);
+  cp_async_commit();
+  for (int s = 0; s < n_slabs; ++s) {
+    const int y0 = lo + s * YS;
+    const int ys = min(YS, ye - y0);   // cell rows in this slab
+    const int ly = NQ * ys;            // q-point rows in this slab
+    if (s + 1 < n_slabs) {
+      const int y1 = y0 + YS;
+      stage(y1, min(YS, ye - y1), (s + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sbuf = sIn + (s & 1) * NF * YN * XN;
+    const float* gJ = sGeo + (s & 1) * GB;
+    const float* gH = gJ + YS * XB * 4;
+    const float* gQ = gH + YS * XB * 2;
+
+    // ---- E1: along y; items (node x, cell row, field) ------------------
+    for (StridedDigits<3> it({xn, ys, NK}); it.valid(); it.next()) {
+      const int xl = it.d[0], eyl = it.d[1], g = it.d[2];
+      const int f0 = g == 0 ? 0 : (g == 1 ? 3 : 3 + lead_ul);
+      const int nc = g == 0 ? 3 : (g == 1 ? lead_ul : 2);
+      const bool grads = f0 < NG;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (c >= nc) break;
+        const int f = f0 + c;
+        const float* col = sbuf + (f * YN + P * eyl) * XN + xl;
+        float nd[n1];
+#pragma unroll
+        for (int k = 0; k < n1; ++k) nd[k] = col[k * XN];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          float v = 0.f, d = 0.f;
+#pragma unroll
+          for (int k = 0; k < n1; ++k) {
+            v = fmaf(S1[q][k], nd[k], v);
+            d = fmaf(D1[q][k], nd[k], d);
+          }
+          const int o = (f * LY + eyl * NQ + q) * XN + xl;
+          sA[o] = v;
+          if (grads) sAy[o] = d;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- E2: along x, delta, physics, test-function weights; a warp
+    // takes CPW cells a pass, one q-point per lane (lanes past CPW * NQ2,
+    // and cells past the slab's, compute cell 0 and write nothing)
+    const int n_cells = ys * xb;
+#pragma unroll 1
+    for (int pass = 0; pass < kMaxPass2; ++pass) {
+      const int grp = warp + pass * n_warps;   // warp-uniform
+      if (grp * CPW >= n_cells) break;
+      const int cl_lin = grp * CPW + cw;
+      const bool valid = cw < CPW && cl_lin < n_cells;
+      const int cll = valid ? cl_lin : 0;
+      const int eyl = cll / xb, ex = cll - eyl * xb;
+      const int ix = ex * NQ + qx, iy = eyl * NQ + qy;
+      const int ao = iy * XN + P * ex;
+
+      // value and reference gradients (x, y) of field f at this q-point
+      auto eval = [&](int f, float& v, float (&gr)[2], bool grads) {
+        const float* a = sA + f * AF + ao;
+        float av[n1];
+#pragma unroll
+        for (int i = 0; i < n1; ++i) av[i] = a[i];
+        v = 0.f;
+#pragma unroll
+        for (int i = 0; i < n1; ++i) v = fmaf(Sx[i], av[i], v);
+        if (grads) {
+          const float* ay = sAy + f * AF + ao;
+          gr[0] = gr[1] = 0.f;
+#pragma unroll
+          for (int i = 0; i < n1; ++i) {
+            gr[0] = fmaf(Dx[i], av[i], gr[0]);
+            gr[1] = fmaf(Sx[i], ay[i], gr[1]);
+          }
+        }
+      };
+      float uv[3], ud[3][2];
+      float lv[3] = {0.f, 0.f, 0.f};
+      float ld[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+      float dto[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) eval(c, uv[c], ud[c], true);
+      if (incr) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) eval(3 + c, lv[c], ld[c], true);
+      } else {
+        float g2[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) eval(3 + c, lv[c], g2, false);
+      }
+      if (need_dt_old) {
+        float g2[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) eval(3 + lead_ul + c, dto[c], g2, false);
+      }
+
+      // the cell's geometry, staged with the slab
+      const int cl = eyl * XB + ex;
+      float ji[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ji[e] = gJ[cl * 4 + e];
+
+      // stabilization parameters; cell-wise: the max of |u*|^2 over the
+      // cell's NQ2 lanes
+      const float usq = lv[0] * lv[0] + lv[1] * lv[1];
+      float d1, d2;
+      if (cell_wise) {
+        const float m = valid ? usq : 0.f;
+        const int base = cw * NQ2;
+        float msq = 0.f;
+#pragma unroll
+        for (int k = 0; k < NQ2; ++k)
+          msq = fmaxf(msq, __shfl_sync(0xffffffffu, m, base + k));
+        gls_delta_cell(sc, gH[cl * 2], msq, d1, d2);
+      } else {
+        gls_delta_q(sc, gH[cl * 2 + 1], usq, d1, d2);
+      }
+
+      // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*2 + x]
+      float ug[2][2], pg[2];
+      float gus[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      float gps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          ug[a][x] = ud[a][0] * ji[x] + ud[a][1] * ji[2 + x];
+          gus[a][x] = ld[a][0] * ji[x] + ld[a][1] * ji[2 + x];
+        }
+        pg[x] = ud[2][0] * ji[x] + ud[2][1] * ji[2 + x];
+        gps[x] = ld[2][0] * ji[x] + ld[2][1] * ji[2 + x];
+      }
+
+      float vr[3], gr[3][2];
+      const float uvel[2] = {uv[0], uv[1]};
+      const float us[2] = {lv[0], lv[1]};
+      gls_physics<2>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
+                     uv[2], pg, us, gus, gps, dto, d1, d2, vr, gr);
+
+      if (valid) {
+        const float w = gQ[cl * NQ2 + qxy];
+        const int q = iy * LX + ix;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sW[c * QS + q] = vr[c] * w;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            sW[((1 + r) * 3 + c) * QS + q] =
+                (gr[c][0] * ji[r * 2] + gr[c][1] * ji[r * 2 + 1]) * w;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- I2: along x; items (cell ex, q-row iy, component c) -> nodes
+    // P*ex .. P*ex+P-1 (and P*xb for the brick's last cell); the left node
+    // also takes cell ex-1's part
+    const int VS = LY * XN;   // V kinds: value -> y
+    for (StridedDigits<3> it({xb, ly, 3}); it.valid(); it.next()) {
+      const int ex = it.d[0], iy = it.d[1], c = it.d[2];
+      const int o = c * QS + iy * LX + ex * NQ;
+      float wv[NQ], wx[NQ], wy[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        wv[q] = sW[o + q];
+        wx[q] = sW[o + 3 * QS + q];
+        wy[q] = sW[o + 6 * QS + q];
+      }
+      float lv = 0.f, lyv = 0.f;   // cell ex-1 at its local node P
+      if (ex > 0) {
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int ol = o - NQ + q;
+          lv = fmaf(S1[q][P], sW[ol], lv);
+          lv = fmaf(D1[q][P], sW[ol + 3 * QS], lv);
+          lyv = fmaf(S1[q][P], sW[ol + 6 * QS], lyv);
+        }
+      }
+      float* vvp = sV + (c * 2 * LY + iy) * XN + P * ex;
+#pragma unroll
+      for (int i = 0; i < n1; ++i) {
+        if (i == P && ex != xb - 1) break;
+        float vv = 0.f, vy = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          vv = fmaf(S1[q][i], wv[q], vv);
+          vv = fmaf(D1[q][i], wx[q], vv);
+          vy = fmaf(S1[q][i], wy[q], vy);
+        }
+        if (i == 0) {
+          vv = lv + vv;
+          vy = lyv + vy;
+        }
+        vvp[i] = vv;
+        vvp[i + VS] = vy;
+      }
+    }
+    __syncthreads();
+
+    // ---- I1: along y, one column (c, x) per thread, carry in registers
+#pragma unroll
+    for (int k = 0; k < kMaxCols2; ++k) {
+      const int c = col_c[k], xl = col_x[k];
+      if (c < 3) {
+        const float* vvp = sV + (c * 2 * LY) * XN + xl;
+        for (int eyl = 0; eyl < ys; ++eyl) {
+          const int eg = y0 + eyl;   // global cell row
+          float vv[NQ], vy[NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            vv[q] = vvp[(eyl * NQ + q) * XN];
+            vy[q] = vvp[(eyl * NQ + q) * XN + VS];
+          }
+#pragma unroll
+          for (int kk = 0; kk <= P; ++kk) {
+            float acc = 0.f;
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+              acc = fmaf(S1[q][kk], vv[q], acc);
+              acc = fmaf(D1[q][kk], vy[q], acc);
+            }
+            if (kk == 0) {
+              acc += carry[k];
+              if (eg >= yb) put(c, xl, cg_index(P, ny, eg, 0), acc);
+            } else if (kk < P) {
+              if (eg >= yb) put(c, xl, cg_index(P, ny, eg, kk), acc);
+            } else {
+              carry[k] = acc;
+            }
+          }
+        }
+      }
+    }
+    // the next iteration's barrier orders I1's reads of sV before E1
+    // rewrites that region
+  }
+  // the lattice's top node row, when this chunk ends the lattice
+  if (ye == ny) {
+#pragma unroll
+    for (int k = 0; k < kMaxCols2; ++k)
+      if (col_c[k] < 3)
+        put(col_c[k], col_x[k], cg_index(P, ny, ny - 1, P), carry[k]);
+  }
+}
+
 int ipow_host(int b, int e) {
   int r = 1;
   for (int i = 0; i < e; ++i) r *= b;
@@ -1278,21 +1632,76 @@ int launch3d(const float* u, const float* ul, const float* vo,
   return (int)cudaGetLastError();
 }
 
+// The launcher of structured2d_kernel<P>: validates the plan, sets the
+// kernel's dynamic shared-memory limit once, launches.
+template <int P>
+int launch2d(const float* u, const float* ul, const float* vo,
+             const float* jinv, const float* jxw, const float* h,
+             const float* S1, const float* D1, float* out, float* seams,
+             int nx, int ny, int flavor, int consider_dt, int cell_wise,
+             GlsScalars sc, int XB, int YS, int nyb, cudaStream_t stream) {
+  if (nx < 1 || ny < 1 || XB < 1 || YS < 1 || nyb < 1 || nyb > ny)
+    return (int)cudaErrorInvalidValue;
+  // I1 columns and E2 passes per thread
+  if (3 * (P * XB + 1) > kMaxCols2 * kThreads)
+    return (int)cudaErrorInvalidValue;
+  const int cpw = 32 / ((P + 1) * (P + 1));
+  if ((YS * XB + cpw - 1) / cpw > kMaxPass2 * (kThreads / 32))
+    return (int)cudaErrorInvalidValue;
+  // node offsets inside one field are 32-bit
+  const size_t nn = (size_t)(P * nx + 1) * (P * ny + 1);
+  if (nn > (size_t)0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int YC = (ny + nyb - 1) / nyb;
+  if ((nyb - 1) * YC >= ny) return (int)cudaErrorInvalidValue;
+  const int nbx = (nx + XB - 1) / XB;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 3 + (incr ? 3 : 2) + (need_dt_old ? 2 : 0);
+  const size_t bytes =
+      s2_smem(P, XB, YS, NF, incr ? 6 : 3).total() * sizeof(float);
+  static int max_optin = 0;
+  static size_t attr_bytes = 0;
+  cudaError_t err;
+  if (max_optin == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(
+        &max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // (the field pointer table is static shared memory beside it)
+  if (bytes + 8 * sizeof(float*) > (size_t)max_optin)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > attr_bytes) {
+    err = cudaFuncSetAttribute(structured2d_kernel<P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_bytes = bytes;
+  }
+  S2Dims dm{nx, ny, XB, nbx, YS, YC};
+  structured2d_kernel<P><<<nbx * nyb, kThreads, bytes, stream>>>(
+      u, ul, vo, jinv, jxw, h, S1, D1, out, seams, dm, flavor, consider_dt,
+      cell_wise, sc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// The 2D and the batched 3D kernel (the 3D kernel: structured3d_launch).
-// Returns 0, a CUDA error code, or 1 (cudaErrorInvalidValue) when the
-// chunk's tiles exceed the card's shared memory per block.
-extern "C" int structured_sweep_launch(
+// The batched 3D kernel, any degree.  Returns 0, a CUDA error code, or 1
+// (cudaErrorInvalidValue) when the chunk's tiles exceed the card's shared
+// memory per block.
+extern "C" int structured3d_batched_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
-    float* out, int dim, int P, int NQ, int nx, int ny, int nz, int flavor,
-    int consider_dt, int cell_wise, int batched, float weight, float stau,
-    float nu, float c1, float c2, void* stream) {
-  if (dim != 2 && !(dim == 3 && batched)) return (int)cudaErrorInvalidValue;
-  if (dim == 2) nz = 1;
+    float* out, int P, int NQ, int nx, int ny, int nz, int flavor,
+    int consider_dt, int cell_wise, float weight, float stau, float nu,
+    float c1, float c2, void* stream) {
+  constexpr int dim = 3;
   const int C = dim + 1, T = dim + 1;
   const int n1 = P + 1;
   const int R = ipow_host(n1, dim - 1);
@@ -1317,8 +1726,6 @@ extern "C" int structured_sweep_launch(
                         (size_t)T * C * QS + 2 * (size_t)C * R + R;
   const size_t bytes = floats * sizeof(float);
 
-  const void* fn = dim == 2 ? (const void*)structured2d_kernel
-                            : (const void*)structured3d_batched_kernel;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -1328,25 +1735,73 @@ extern "C" int structured_sweep_launch(
   if (err != cudaSuccess) return (int)err;
   if (bytes > (size_t)max_optin) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    err = cudaFuncSetAttribute(structured3d_batched_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   if (n_rows == 0 || nx == 0) return 0;
   GlsScalars sc{weight, stau, nu, c1, c2};
   SDims dm{P, NQ, nx, ny, nz, XS, nseg, seg_cells};
-  const dim3 grid(nseg * n_rows), block(kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dim == 2) {
-    structured2d_kernel<<<grid, block, bytes, st>>>(
-        u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
-        cell_wise, sc);
-  } else {
-    structured3d_batched_kernel<<<grid, block, bytes, st>>>(
-        u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
-        cell_wise, sc);
-  }
+  structured3d_batched_kernel<<<nseg * n_rows, kThreads, bytes,
+                                (cudaStream_t)stream>>>(
+      u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
+      cell_wise, sc);
   return (int)cudaGetLastError();
+}
+
+// The 2D kernel, degrees 1-4 with NQ = P + 1 Gauss points: xb cells per
+// brick, ys cell rows per slab, nyb y chunks (ops/structured.py
+// slab_plan_2d).  out (3, Yr, 1, Nx), seams (3, Yr, nbx).  Returns 0, a
+// CUDA error code, or 1 (cudaErrorInvalidValue) for a degree, plan or shape
+// it does not take.
+extern "C" int structured2d_launch(
+    const float* u, const float* ul, const float* vo, const float* jinv,
+    const float* jxw, const float* h, const float* S1, const float* D1,
+    float* out, float* seams, int P, int NQ, int nx, int ny, int flavor,
+    int consider_dt, int cell_wise, float weight, float stau, float nu,
+    float c1, float c2, int xb, int ys, int nyb, void* stream) {
+  GlsScalars sc{weight, stau, nu, c1, c2};
+  cudaStream_t st = (cudaStream_t)stream;
+#define S2_CASE(PP)                                                        \
+  if (P == PP && NQ == PP + 1)                                             \
+    return launch2d<PP>(u, ul, vo, jinv, jxw, h, S1, D1, out, seams, nx,   \
+                        ny, flavor, consider_dt, cell_wise, sc, xb, ys,    \
+                        nyb, st);
+  S2_CASE(1)
+  S2_CASE(2)
+  S2_CASE(3)
+  S2_CASE(4)
+#undef S2_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the compiler gave structured2d_kernel<P>: registers per thread,
+// local memory (spills) and static shared memory per thread block in
+// bytes; and the dynamic shared memory of one block in bytes for bricks of
+// xb cells, slabs of ys rows and the flavor's fields.  Returns 0 or a CUDA
+// error code.
+extern "C" int structured2d_attributes(int P, int xb, int ys, int flavor,
+                                       int consider_dt, int* regs,
+                                       int* local_bytes, int* static_smem,
+                                       long long* dynamic_smem) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (P == 1) err = cudaFuncGetAttributes(&a, structured2d_kernel<1>);
+  if (P == 2) err = cudaFuncGetAttributes(&a, structured2d_kernel<2>);
+  if (P == 3) err = cudaFuncGetAttributes(&a, structured2d_kernel<3>);
+  if (P == 4) err = cudaFuncGetAttributes(&a, structured2d_kernel<4>);
+  if (err != cudaSuccess) return (int)err;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *static_smem = (int)a.sharedSizeBytes;
+  const int NF = 3 + (incr ? 3 : 2) + (need_dt_old ? 2 : 0);
+  *dynamic_smem = (long long)(s2_smem(P, xb, ys, NF, incr ? 6 : 3).total() *
+                              sizeof(float));
+  return 0;
 }
 
 // The 3D kernel, degrees 1-4 with NQ = P + 1 Gauss points: xb cells per

@@ -30,9 +30,11 @@ What this module holds:
 - :class:`StructuredKernel`: the ctypes binding of ``csrc/structured.cu``
   (three kernels: 2D, 3D, and the batched 3D variant of the x-only
   design); :func:`fold_classes`, which sums cell-row tiles into the
-  class-grouped lattice in a fixed order; :func:`brick_plan`, the 3D
-  kernel's split into thread blocks, and :func:`fold_bricks`, which sums
-  its output.
+  class-grouped lattice in a fixed order (:func:`fold_tiles`, the batched
+  kernel's output); :func:`brick_plan`, the 3D kernel's split into thread
+  blocks, and :func:`fold_bricks`, which sums its output;
+  :func:`slab_plan_2d`, the 2D kernel's, and :func:`fold_seams_2d`, which
+  adds its x seams to the lattice it writes.
 - :class:`StructuredSweep`: the host wrapper one operator holds.
 
 The TPU layout machinery of the JAX module is not carried over: banded
@@ -371,13 +373,11 @@ def fold_classes(t, cell_dim: int, loc_dim: int, P: int):
 
 
 def fold_tiles(tables: StructuredTables, tiles):
-    """Cell-row tiles of the 2D and the batched 3D kernel -> ``(C,) +
-    lattice_shape``.  3D: (C, nz, ny, P+1, P+1, Nx); 2D: (C, ny, P+1, Nx)."""
+    """Cell-row tiles of the batched 3D kernel, (C, nz, ny, P+1, P+1, Nx)
+    -> ``(C,) + lattice_shape``."""
     P = tables.P
-    if tables.d == 3:
-        t = fold_classes(tiles, 1, 3, P)       # (C, Zr, ny, P+1, Nx)
-        return fold_classes(t, 2, 3, P)        # (C, Zr, Yr, Nx)
-    return fold_classes(tiles, 1, 2, P).unsqueeze(2)
+    t = fold_classes(tiles, 1, 3, P)       # (C, Zr, ny, P+1, Nx)
+    return fold_classes(t, 2, 3, P)        # (C, Zr, Yr, Nx)
 
 
 class BrickPlan(NamedTuple):
@@ -445,6 +445,95 @@ def fold_bricks(tables: StructuredTables, tiles, seams, xb: int):
     return fold_classes(tiles, 2, 3, P)
 
 
+class SlabPlan2D(NamedTuple):
+    """How the 2D kernel splits a lattice into thread blocks: one block per
+    (x brick of ``xb`` cells, y chunk of ``yc`` cell rows), walking its
+    chunk in slabs of ``ys`` cell rows."""
+
+    xb: int     # cells per brick along x (the last brick may hold fewer)
+    nbx: int    # bricks per cell row
+    ys: int     # cell rows per slab
+    yc: int     # cell rows per y chunk
+    nyb: int    # y chunks
+
+
+# per degree: brick shapes (cells along x, cell rows per slab) of 1-4 passes
+# of the kernel's E2 stage (a warp takes 32 // (P+1)^2 cells a pass)
+SLABS_2D = {1: ((32, 8), (16, 8), (64, 2), (16, 4)),
+            2: ((12, 8), (24, 4), (16, 6), (12, 4), (8, 3)),
+            3: ((12, 4), (16, 2), (8, 4), (8, 2)),
+            4: ((8, 4), (16, 2), (8, 2), (4, 2))}
+# blocks of the 2D kernel resident at once on an H100: two per SM
+WAVE_2D = 2 * 132
+# the shared memory per block the plans stay within: two blocks per SM
+SMEM_2D = 113 * 1024
+
+
+def slab_smem_2d(P: int, xb: int, ys: int, flavor: str,
+                 consider_dt: bool) -> int:
+    """Dynamic shared memory of one 2D block in bytes, as the launcher
+    computes it (``csrc/structured.cu`` ``s2_smem``): two buffers of the
+    slab's node rows of every staged field and of its cells' geometry, the
+    y-contracted fields and the test-function weights."""
+    n1 = NQ = P + 1
+    incr = flavor == "increment"
+    nf = 3 + (3 if incr else 2) + (2 if _need_dt_old(flavor, consider_dt)
+                                   else 0)
+    ng = 6 if incr else 3
+    xn, lx = P * xb + 1, NQ * xb
+    yn, ly = P * ys + 1, NQ * ys
+    floats = (2 * nf * yn * xn + 2 * ys * xb * (6 + n1 * n1)
+              + max((nf + ng) * ly * xn, 6 * ly * xn) + 9 * ly * lx)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def slab_plan_2d(P: int, cell_shape: tuple) -> SlabPlan2D:
+    """The 2D kernel's blocks for a lattice of ``cell_shape`` (nx, ny)
+    cells of degree P: of the brick shapes of ``SLABS_2D`` (those within
+    ``SMEM_2D`` in every flavor) and the y chunkings (a chunk recomputes
+    the cell row below it for its carry), the one of least estimated time,
+    waves of resident blocks x slabs per block x a slab's time (a fixed
+    part as long as 256 q-points, plus its q-points); ties go to taller
+    slabs (fewer node rows staged twice), then fewer blocks, then longer
+    bricks.  A slab is no deeper than the chunk's walk."""
+    nx, ny = cell_shape
+    nq2 = (P + 1) ** 2
+    best = None
+    for xb0, ys0 in SLABS_2D.get(P, ((1, 1),)):
+        if slab_smem_2d(P, xb0, ys0, "increment", True) > SMEM_2D:
+            continue
+        xb = min(xb0, nx)
+        nbx = -(-nx // xb)
+        yc_seen = set()
+        for nyb in range(1, ny + 1):
+            yc = -(-ny // nyb)
+            if yc in yc_seen:
+                continue
+            yc_seen.add(yc)
+            n_chunks = -(-ny // yc)
+            walk = yc + (1 if n_chunks > 1 else 0)
+            ys = min(ys0, walk)
+            blocks = nbx * n_chunks
+            cost = (-(-blocks // WAVE_2D) * -(-walk // ys)
+                    * (256 + xb * ys * nq2), -ys, blocks, -xb)
+            if best is None or cost < best[0]:
+                best = (cost, SlabPlan2D(xb, nbx, ys, yc, n_chunks))
+    return best[1]
+
+
+def fold_seams_2d(tables: StructuredTables, out, seams, xb: int):
+    """The 2D kernel's output -> ``(C,) + lattice_shape``: ``out`` (C, Yr,
+    1, Nx) is the lattice, complete but for the first node column of
+    bricks 1.., which ``seams`` (C, Yr, nbx) hold at their brick's index;
+    those are added at the x seams, in place, and ``out`` is returned."""
+    nbx = seams.shape[-1]
+    if nbx > 1:
+        step = tables.P * xb
+        out[:, :, 0, step:step * (nbx - 1) + 1:step] += seams[..., 1:]
+    return out
+
+
 class StructuredKernel:
     """ctypes binding of ``csrc/structured.cu``; the library is built at
     first use (``utils/cuda_build.py``)."""
@@ -462,16 +551,20 @@ class StructuredKernel:
 
             lib = load_library("structured")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn = lib.structured_sweep_launch
-            fn.argtypes = [vp] * 9 + [ci] * 10 + [cf] * 5 + [vp]
+            fn = lib.structured3d_batched_launch
+            fn.argtypes = [vp] * 9 + [ci] * 8 + [cf] * 5 + [vp]
             fn.restype = ci
             fn = lib.structured3d_launch
             fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
-            fn = lib.structured3d_attributes
-            fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3 + [
-                ctypes.POINTER(ctypes.c_longlong)]
+            fn = lib.structured2d_launch
+            fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
+            for fn in (lib.structured3d_attributes,
+                       lib.structured2d_attributes):
+                fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3 + [
+                    ctypes.POINTER(ctypes.c_longlong)]
+                fn.restype = ci
             cls._lib = lib
         return cls._lib
 
@@ -482,28 +575,38 @@ class StructuredKernel:
         return "structured3d_batched" if batched else "structured3d"
 
     @classmethod
-    def attributes(cls, P: int, plan: BrickPlan, flavor: str,
+    def attributes(cls, P: int, plan, flavor: str,
                    consider_dt: bool) -> dict:
         """Registers per thread, local memory (spills) and static shared
-        memory of ``structured3d_kernel<P>`` as built, and the dynamic
-        shared memory of one block under ``plan`` in that flavor."""
+        memory of ``structured3d_kernel<P>`` (``plan`` a
+        :class:`BrickPlan`) or ``structured2d_kernel<P>`` (a
+        :class:`SlabPlan2D`) as built, and the dynamic shared memory of one
+        block under ``plan`` in that flavor."""
         vals = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()]
-        err = cls._load().structured3d_attributes(
-            P, plan.xb, plan.zs, FLAVORS.index(flavor), int(consider_dt),
-            *(ctypes.byref(v) for v in vals))
+        lib = cls._load()
+        if isinstance(plan, SlabPlan2D):
+            fn, name, depth = (lib.structured2d_attributes,
+                               "structured2d_attributes", plan.ys)
+        else:
+            fn, name, depth = (lib.structured3d_attributes,
+                               "structured3d_attributes", plan.zs)
+        err = fn(P, plan.xb, depth, FLAVORS.index(flavor), int(consider_dt),
+                 *(ctypes.byref(v) for v in vals))
         if err != 0:
-            raise RuntimeError(f"structured3d_attributes: CUDA error {err}")
+            raise RuntimeError(f"{name}: CUDA error {err}")
         return dict(registers=vals[0].value, local_bytes=vals[1].value,
                     static_smem=vals[2].value, dynamic_smem=vals[3].value)
 
     @classmethod
     def launch(cls, tables: StructuredTables, sc: dict, uT, ulT, voT,
                flavor: str, consider_dt: bool, cell_wise: bool,
-               batched: bool = False, plan: BrickPlan = None):
-        """Launch the kernel of the tables' dimension: the 2D and batched
-        3D kernels return their cell-row tiles (:func:`fold_tiles`), the 3D
-        kernel (tiles, seams) under ``plan`` (default :func:`brick_plan`;
-        see :func:`fold_bricks`)."""
+               batched: bool = False, plan=None):
+        """Launch the kernel of the tables' dimension and return its
+        output: the 2D kernel (lattice, seams) under ``plan`` (default
+        :func:`slab_plan_2d`; see :func:`fold_seams_2d`), the 3D kernel
+        (tiles, seams) under ``plan`` (default :func:`brick_plan`; see
+        :func:`fold_bricks`), the batched 3D kernel its cell-row tiles
+        (:func:`fold_tiles`).  Raises on what the kernel does not take."""
         d, P, NQ = tables.d, tables.P, tables.NQ
         C = d + 1
         shp = lattice_shape(P, tables.cell_shape)
@@ -525,29 +628,34 @@ class StructuredKernel:
         scal = [sc[k] for k in ("weight", "stau", "nu", "c1", "c2")]
         ptrs = [t.data_ptr() for t in (uT, ulT, voT, tables.jinv, tables.jxw,
                                        tables.h, tables.S1, tables.D1)]
+        case = [FLAVORS.index(flavor), int(consider_dt), int(cell_wise)]
         stream = torch.cuda.current_stream(uT.device).cuda_stream
-        if d == 3 and not batched:
+        f32 = dict(dtype=torch.float32, device=uT.device)
+        if d == 2:
+            plan = plan or slab_plan_2d(P, tables.cell_shape)
+            lat = torch.empty((C,) + shp, **f32)
+            seams = torch.empty((C, shp[0], plan.nbx), **f32)
+            out = (lat, seams)
+            err = lib.structured2d_launch(
+                *ptrs, lat.data_ptr(), seams.data_ptr(), P, NQ, nx, ny,
+                *case, *scal, plan.xb, plan.ys, plan.nyb, stream)
+            hint = (f" (degree {P} with {NQ} Gauss points, or the plan "
+                    f"{tuple(plan)}, is not one the kernel takes)")
+        elif not batched:
             plan = plan or brick_plan(P, tables.cell_shape)
-            tiles = torch.empty((C, shp[0], ny, P + 1, shp[2]),
-                                dtype=torch.float32, device=uT.device)
-            seams = torch.empty((C, shp[0], ny, P + 1, plan.nbx),
-                                dtype=torch.float32, device=uT.device)
+            tiles = torch.empty((C, shp[0], ny, P + 1, shp[2]), **f32)
+            seams = torch.empty((C, shp[0], ny, P + 1, plan.nbx), **f32)
             out = (tiles, seams)
             err = lib.structured3d_launch(
                 *ptrs, tiles.data_ptr(), seams.data_ptr(), P, NQ, nx, ny, nz,
-                FLAVORS.index(flavor), int(consider_dt), int(cell_wise),
-                *scal, plan.xb, plan.zs, plan.nzb, stream)
+                *case, *scal, plan.xb, plan.zs, plan.nzb, stream)
             hint = (f" (degree {P} with {NQ} Gauss points, or the plan "
                     f"{tuple(plan)}, is not one the kernel takes)")
         else:
-            rows = (nz, ny) if d == 3 else (ny,)
-            out = torch.empty((C,) + rows + (P + 1,) * (d - 1)
-                              + (P * nx + 1,), dtype=torch.float32,
-                              device=uT.device)
-            err = lib.structured_sweep_launch(
-                *ptrs, out.data_ptr(), d, P, NQ, nx, ny, nz,
-                FLAVORS.index(flavor), int(consider_dt), int(cell_wise),
-                int(batched), *scal, stream)
+            out = torch.empty((C, nz, ny, P + 1, P + 1, P * nx + 1), **f32)
+            err = lib.structured3d_batched_launch(
+                *ptrs, out.data_ptr(), P, NQ, nx, ny, nz, *case, *scal,
+                stream)
             hint = (" (the chunk's shared-memory tiles exceed the card's "
                     "per-block limit)")
         if err != 0:
@@ -560,12 +668,18 @@ class StructuredKernel:
 def structured_sweep(tables: StructuredTables, sc: dict, uT, ulT, voT,
                      flavor: str, consider_dt: bool, cell_wise: bool,
                      batched: bool = False):
-    """The structured sweep: a CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
+    """The structured sweep: a CUDA kernel and the sum of what its blocks
+    share (the 2D kernel's x seams; the 3D kernel's x seams and node rows;
+    the batched kernel's cell-row tiles) for tensors on the card, the plain
+    version for tensors on the CPU.  ``batched`` selects the batched 3D
+    kernel (2D has one kernel)."""
     if uT.is_cuda:
         out = StructuredKernel.launch(tables, sc, uT, ulT, voT, flavor,
                                       consider_dt, cell_wise, batched)
-        if tables.d == 3 and not batched:
+        if tables.d == 2:
+            return fold_seams_2d(tables, *out,
+                                 slab_plan_2d(tables.P, tables.cell_shape).xb)
+        if not batched:
             return fold_bricks(tables, *out,
                                brick_plan(tables.P, tables.cell_shape).xb)
         return fold_tiles(tables, out)

@@ -127,18 +127,22 @@ def device_time_us(fn, name: str, n: int = 50) -> float:
     holds ``name``, over n calls of ``fn`` under ``torch.profiler`` (the
     kernel's own time, without the host's launch gaps that CUDA events
     around back-to-back launches also count).  The mean is over the
-    kernels the profiler recorded, which may miss one of the n."""
+    kernels the profiler recorded, which may miss one of the n; a window
+    in which it recorded none is profiled again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in rows)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in rows)
+        if count:
+            break
     if not 0 < count <= n:
         raise RuntimeError(f"profiled {count} {name} kernels in {n} calls")
     return sum(e.self_device_time_total for e in rows) / count

@@ -238,8 +238,10 @@ def test_structured_gates(case):
                                         (3, 2), (3, 3)])
 def test_lattice_index_and_fold(dim, degree):
     """The class-grouped index map equals the FESpace numbering, and the
-    kernels' cell-row tiles, folded, equal the scatter-add: tiles are
-    built here from per-cell values summed along x only."""
+    kernel's output, folded, equals the scatter-add: in 3D the batched
+    kernel's cell-row tiles (built here from per-cell values summed along
+    x only), in 2D the lattice and x seams of the 2D kernel under its own
+    plan (:func:`kernel_layout_2d`)."""
     st = TSpace(lattice_mesh(tgen, dim), degree)
     P = degree
     cs = tuple(st.cell_shape)
@@ -257,6 +259,17 @@ def test_lattice_index_and_fold(dim, degree):
     ref = np.zeros((C, st.n_nodes))
     for c in range(C):
         np.add.at(ref[c], idx.reshape(-1), r_loc[c].reshape(-1))
+    if dim == 2:
+        plan = ts.slab_plan_2d(P, cs)
+        lat, seams = kernel_layout_2d(r_loc, P, cs, plan)
+        tab = ts.StructuredTables(d=2, P=P, NQ=n1, cell_shape=cs, S1=None,
+                                  D1=None, jinv=None, jxw=None, h=None)
+        out = ts.fold_seams_2d(tab, torch.as_tensor(lat),
+                               torch.as_tensor(seams), plan.xb)
+        assert tuple(out.shape) == (C,) + shp
+        np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref,
+                                   rtol=1e-12, atol=1e-12)
+        return
     # tiles: per cell row, the x overlap-add of that row's cells
     nx = cs[0]
     Nx = P * nx + 1
@@ -353,3 +366,169 @@ def test_brick_tiles_fold(degree, plan):
     assert tuple(out.shape) == (C,) + shp
     np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
                                atol=1e-12)
+
+
+# the channel 2D level shapes (input/channel.json, dim 2, refinement 6),
+# the gls-vmult lane 2 9 2's 512 x 512, chip_smoke's sheared 37 x 5 and
+# odd ones
+SLAB_SHAPES = [(4, 1), (8, 2), (16, 4), (32, 8), (64, 16), (128, 32),
+               (256, 64), (512, 128), (1024, 256), (512, 512), (37, 5),
+               (1, 1), (1, 6), (3, 2), (3, 7), (7, 1), (7, 13)]
+
+
+def plan_blocks_2d(plan, cell_shape):
+    """The cells each block of the 2D kernel owns under ``plan``, as
+    ``csrc/structured.cu`` splits the lattice (block = (brick bx, y chunk
+    ky)): [(x0, x1, y0, y1)]."""
+    nx, ny = cell_shape
+    return [(bx * plan.xb, min(nx, (bx + 1) * plan.xb),
+             ky * plan.yc, min(ny, (ky + 1) * plan.yc))
+            for ky in range(plan.nyb) for bx in range(plan.nbx)]
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_slab_plan_2d_covers_every_cell_once(degree):
+    """The 2D kernel's blocks under ``slab_plan_2d`` own every cell of the
+    lattice exactly once, and the plan is one the launcher takes (at most
+    two I1 columns and four E2 passes per thread)."""
+    cpw = 32 // (degree + 1) ** 2
+    for cs in SLAB_SHAPES:
+        plan = ts.slab_plan_2d(degree, cs)
+        nx, ny = cs
+        assert plan.nbx == -(-nx // plan.xb) and 1 <= plan.xb <= nx
+        assert (plan.nyb - 1) * plan.yc < ny <= plan.nyb * plan.yc
+        assert 1 <= plan.ys <= plan.yc + 1
+        assert 3 * (degree * plan.xb + 1) <= 2 * 256
+        assert -(-plan.xb * plan.ys // cpw) <= 4 * 8
+        owned = np.zeros((ny, nx), int)
+        blocks = plan_blocks_2d(plan, cs)
+        assert len(blocks) == plan.nbx * plan.nyb
+        for x0, x1, y0, y1 in blocks:
+            assert x0 < x1 and y0 < y1
+            owned[y0:y1, x0:x1] += 1
+        assert (owned == 1).all(), (cs, plan)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_slab_plan_2d_fits_shared_memory(degree):
+    """No plan of ``slab_plan_2d`` needs more shared memory per block
+    (``slab_smem_2d``, the launcher's formula) than the two blocks per SM
+    it assumes, in any flavor; the finest channel level's plan needs the
+    bytes the kernel's comment states."""
+    for cs in SLAB_SHAPES:
+        plan = ts.slab_plan_2d(degree, cs)
+        for flavor in ts.FLAVORS:
+            for consider_dt in (True, False):
+                assert ts.slab_smem_2d(degree, plan.xb, plan.ys, flavor,
+                                       consider_dt) <= ts.SMEM_2D
+    assert 2 * ts.SMEM_2D <= 228 * 1024
+    if degree == 2:
+        fine = ts.slab_plan_2d(2, (1024, 256))
+        assert ts.slab_smem_2d(2, fine.xb, fine.ys, "increment",
+                               True) == 103424
+
+
+def kernel_layout_2d(r_loc, P, cell_shape, plan):
+    """The lattice (C, Yr, 1, Nx) and seams (C, Yr, nbx) as
+    ``structured2d_kernel`` writes them from per-cell values ``r_loc``
+    (C, n_c, (P+1)^2): each block sums its brick's cells along x, walks
+    its y chunk from the cell row below it (for the carry only) with the
+    shared node row carried, and writes its own node rows; the first node
+    column of brick b > 0 goes to the seams.  Every entry is written
+    exactly once (checked)."""
+    C = r_loc.shape[0]
+    nx, ny = cell_shape
+    n1 = P + 1
+    cy = ts.class_index(P, ny)
+    lat = np.full((C, P * ny + 1, 1, P * nx + 1), np.nan)
+    seams = np.full((C, P * ny + 1, plan.nbx), np.nan)
+    rl = r_loc.reshape(C, ny, nx, n1, n1)            # local (j, i)
+    for ky in range(plan.nyb):
+        yb, ye = ky * plan.yc, min(ny, (ky + 1) * plan.yc)
+        for bx in range(plan.nbx):
+            x0 = bx * plan.xb
+            xb = min(plan.xb, nx - x0)
+            xn = P * xb + 1
+            s0 = 1 if bx > 0 else 0
+
+            def put(row, v):
+                dst = lat[:, row, 0, P * x0 + s0:P * x0 + xn]
+                assert np.isnan(dst).all()
+                dst[...] = v[:, s0:]
+                if bx > 0:
+                    assert np.isnan(seams[:, row, bx]).all()
+                    seams[:, row, bx] = v[:, 0]
+
+            carry = np.zeros((C, xn))
+            for eg in range(max(yb - 1, 0), ye):
+                rows = np.zeros((C, n1, xn))
+                for ex in range(xb):
+                    rows[:, :, P * ex:P * ex + n1] += rl[:, eg, x0 + ex]
+                for k in range(n1):
+                    if k == 0:
+                        acc = rows[:, 0] + carry
+                    elif k == P:
+                        carry = rows[:, P]
+                        continue
+                    else:
+                        acc = rows[:, k]
+                    if eg >= yb:
+                        put(cy[eg, k], acc)
+            if ye == ny:
+                put(cy[ny - 1, P], carry)
+    assert not np.isnan(lat).any() and not np.isnan(seams[..., 1:]).any()
+    return lat, seams
+
+
+@pytest.mark.parametrize("degree,plan", [
+    (1, None), (2, None),
+    (1, ts.SlabPlan2D(3, 3, 2, 2, 3)), (2, ts.SlabPlan2D(2, 4, 1, 1, 5)),
+    (2, ts.SlabPlan2D(7, 1, 3, 5, 1)), (3, ts.SlabPlan2D(4, 2, 2, 3, 2)),
+    (4, ts.SlabPlan2D(5, 2, 1, 2, 3)),
+])
+def test_slab_layout_fold_2d(degree, plan):
+    """The 2D kernel's output, folded (``fold_seams_2d``), equals the
+    scatter-add of per-cell values on a 7 x 5 lattice: lattice and seams
+    built as the kernel lays them out, under forced plans with ragged last
+    bricks and several y chunks (each recomputing the row below it)."""
+    P = degree
+    cs = (7, 5)
+    plan = plan or ts.slab_plan_2d(P, cs)
+    idx = ts.lattice_cell_nodes(P, cs)
+    shp = ts.lattice_shape(P, cs)
+    rng = np.random.default_rng(5)
+    C = 3
+    r_loc = rng.standard_normal((C, idx.shape[0], (P + 1) ** 2))
+    ref = np.zeros((C, int(np.prod(shp))))
+    for c in range(C):
+        np.add.at(ref[c], idx.reshape(-1), r_loc[c].reshape(-1))
+    lat, seams = kernel_layout_2d(r_loc, P, cs, plan)
+    tab = ts.StructuredTables(d=2, P=P, NQ=P + 1, cell_shape=cs, S1=None,
+                              D1=None, jinv=None, jxw=None, h=None)
+    out = ts.fold_seams_2d(tab, torch.as_tensor(lat), torch.as_tensor(seams),
+                           plan.xb)
+    assert tuple(out.shape) == (C,) + shp
+    np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_launch_raises_on_cpu_tensors(dim):
+    """The kernels' wrapper takes CUDA tensors only (the sweep runs the
+    plain version for CPU tensors); it refuses before building anything."""
+    cells = (2, 2) if dim == 2 else (2, 2, 1)
+    mesh = tgen.subdivided_hyper_rectangle(cells, (0.0,) * dim, (1.0,) * dim,
+                                           colorize=True)
+    ti = TBDF(1)
+    ti.update_dt(0.1)
+    op = _gate_op(TSpace(mesh, 1), ti, F32)
+    tables = op._fast.tables
+    shp = ts.lattice_shape(1, tables.cell_shape)
+    u = torch.zeros((dim + 1,) + shp)
+    vo = torch.zeros((dim,) + shp)
+    sc = dict(weight=1.0, stau=1.0, nu=0.02, c1=4.0, c2=2.0)
+    with pytest.raises(TypeError):
+        ts.StructuredKernel.launch(tables, sc, u, u, vo, "increment", True,
+                                   True)
+    assert ts.StructuredKernel.launches == {
+        "structured2d": 0, "structured3d": 0, "structured3d_batched": 0}
