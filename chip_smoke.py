@@ -10,13 +10,21 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvcc`` per source, all started together: patch2d, prism, structured,
    patch3d, seam_sum),
 3. patch-2D kernel vs plain: the patch-2D kernel against its plain
-   PyTorch version on the card, on the Turek 2D ref-3 space (m = 8) and
-   every GMG level space (m = 1, 2, 4), in every flavor x delta mode x
-   consider_dt,
+   PyTorch version on the card, on every level space of the Turek 2D
+   chains of ``input/turek_2d_re100.json`` (Q2, m = 1, 2, 4, 8) and
+   ``input/turek_2d_re20.json`` (Q1, m = 1-16), and on Q2 at m = 16 and
+   32 and Q3 at m = 16, in every flavor x delta mode x consider_dt, two
+   launches bit-identical; the kernel's registers, spills and shared
+   memory per block at each degree; the whole sweep (the kernel reading
+   node-major vectors, then one seam-sum launch) against the plain sweep
+   at m = 8, the seam sums bit-identical to their plain version; kernel
+   and sweep timed there by the profiler's device time in the main
+   path's flavor, two launches an apply,
 4. 2D main path: ``input/turek_2d_re100.json`` as given (refinement 3,
    f64 outer solve, f32 GMG levels, direct coarse solve) for 5 time steps
    through ``Driver.run``, output off; every Newton solve converges, the
-   functionals are finite and the patch-2D kernel was launched,
+   functionals are finite, the patch-2D kernel was launched, each launch
+   followed by one seam sum, and no other fused kernel ran,
 5. 2D stored series: the corridor parameters (refinement 2, c1 = 2.0,
    c2 = 1.0, no coarse iteration) for 8 steps against the JAX package's
    CPU-f64 series ``validation/turek_2d_re100_ref2_q2_series.json``,
@@ -189,51 +197,63 @@ def reset_kernel_counts():
 # ---------------------------------------------------------------------------
 # phase 3: patch-2D kernel against plain version
 # ---------------------------------------------------------------------------
-def level_operators(device):
-    """f32 patch-2D operators on the Turek ref-3 chain (m = 1, 2, 4, 8)."""
+# (label, degree, refinements of the Turek 2D mesh) of the chains whose
+# levels phase 3 checks: input/turek_2d_re100.json's (Q2, m = 1-8), the
+# Q1 chain of input/turek_2d_re20.json (m = 1-16), and the shapes the
+# previous design could not launch
+PATCH2D_CHAINS = (("turek_2d_re100", 2, 3), ("turek_2d_re20", 1, 4))
+PATCH2D_EXTRA = (("Q2 ref 4", 2, 4), ("Q2 ref 5", 2, 5), ("Q3 ref 4", 3, 4))
+
+
+def patch2d_operator(mesh, degree, device):
+    """An f32 BDF-2 patch-2D operator on ``mesh`` of degree ``degree``."""
     import torch
 
     from ns_gls_tpu_torch.fem.constraints import AffineConstraints
     from ns_gls_tpu_torch.fem.space import FESpace
-    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder
     from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
     from ns_gls_tpu_torch.ops.time_integration import BDFIntegrator
 
-    sim = SimulationCylinder(2)
-    mesh = sim.create_mesh(3)
-    meshes = [mesh]
-    while meshes[0].prev is not None:
-        meshes.insert(0, meshes[0].prev)
     ti = BDFIntegrator(2)
     ti.update_dt(0.01)
     ti.update_dt(0.008)
-    ops = []
-    for m in meshes:
-        space = FESpace(m, 2)
-        ca = AffineConstraints(space.n_nodes, 3).close(torch.float32, device)
-        ops.append(NavierStokesOperator(
-            space, ca, ca, nu=0.001, c_1=0.2, c_2=0.0, time_integrator=ti,
-            dtype=torch.float32, device=device,
-        ))
-    return ops
+    space = FESpace(mesh, degree)
+    ca = AffineConstraints(space.n_nodes, 3).close(torch.float32, device)
+    return NavierStokesOperator(
+        space, ca, ca, nu=0.001, c_1=0.2, c_2=0.0, time_integrator=ti,
+        dtype=torch.float32, device=device,
+    )
 
 
-def kernel_inputs(tables, seed=0):
+def patch2d_level_sets(device):
+    """(label, patch-2D tables) of every level phase 3 checks."""
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder
+
+    sim = SimulationCylinder(2)
+    out = []
+    for name, degree, ref in PATCH2D_CHAINS:
+        meshes = [sim.create_mesh(ref)]
+        while meshes[0].prev is not None:
+            meshes.insert(0, meshes[0].prev)
+        out += [(f"{name} level {l}",
+                 patch2d_operator(mesh, degree, device)._fast.tables)
+                for l, mesh in enumerate(meshes)]
+    out += [(name, patch2d_operator(sim.create_mesh(ref), degree,
+                                    device)._fast.tables)
+            for name, degree, ref in PATCH2D_EXTRA]
+    return out
+
+
+def patch2d_inputs(tables, seed=0):
+    """Random node-major u, u_lin and vec_old (n_nodes, 3) on the card."""
     import numpy as np
     import torch
 
-    n_p = tables.jinv.shape[0]
-    Xn = tables.P * tables.m + 1
     rng = np.random.default_rng(seed)
-    dev = tables.jinv.device
-
-    def t(lead):
-        return torch.as_tensor(
-            rng.standard_normal((lead, n_p, Xn, Xn)), dtype=torch.float32,
-            device=dev,
-        ).contiguous()
-
-    return t(3), t(3), t(2)
+    return tuple(torch.as_tensor(rng.standard_normal((tables.n_nodes, 3)),
+                                 dtype=torch.float32,
+                                 device=tables.jinv.device)
+                 for _ in range(3))
 
 
 SC = dict(weight=187.5, stau=100.0, nu=0.001, c1=0.2, c2=0.3)
@@ -265,31 +285,119 @@ def compare_cases(name, launch, plain, cases):
     return worst_abs, worst_rel
 
 
-def phase_kernel_vs_plain(ops):
+def phase_kernel_vs_plain(level_sets):
+    """The patch-2D kernel against its plain version on every level of
+    ``level_sets`` in every flavor x delta mode x consider_dt; two launches
+    on the same inputs give the same bits.  Returns (max abs err, max rel
+    err)."""
+    import torch
+
     from ns_gls_tpu_torch.ops import patch2d as p2
 
     worst_rel = 0.0
     worst_abs = 0.0
     n_cases = 0
-    for op in ops:
-        tables = op._fast.tables
-        u, ul, vo = kernel_inputs(tables)
-        cases = []
-        for flavor in p2.FLAVORS:
-            ulf = ul if flavor == "increment" else ul[:2].contiguous()
-            for cell_wise in (True, False):
-                for cdt in (True, False):
-                    cases.append((tables, SC, u, ulf, vo, flavor, cdt,
-                                  cell_wise))
+    for label, tables in level_sets:
+        u, ul, vo = patch2d_inputs(tables)
+        cases = [(tables, SC, u, ul, vo, flavor, cdt, cell_wise)
+                 for flavor in p2.FLAVORS for cell_wise in (True, False)
+                 for cdt in (True, False)]
         a, r = compare_cases("patch-2D", p2.Patch2DKernel.launch,
                              p2.patch2d_sweep_plain, cases)
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
         n_cases += len(cases)
-        log(f"[3] m={tables.m} patches={tables.jinv.shape[0]}: "
-            f"{len(cases)} cases ok")
+        for case in (cases[4], cases[1]):
+            x = p2.Patch2DKernel.launch(*case)
+            y = p2.Patch2DKernel.launch(*case)
+            torch.cuda.synchronize()
+            if not torch.equal(x, y):
+                raise AssertionError(f"two patch-2D launches on the same "
+                                     f"inputs differ ({label})")
+        log(f"[3] {label}: P={tables.P} m={tables.m} "
+            f"patches={tables.jinv.shape[0]} plan {tuple(tables.plan)}: "
+            f"{len(cases)} cases ok, max rel err {r:.3e}")
     log(f"[3] kernel vs plain: {n_cases} cases, max abs err {worst_abs:.3e}, "
-        f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL})")
+        f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL}); relaunches "
+        f"bit-identical")
     return worst_abs, worst_rel
+
+
+def log_patch2d_build(level_sets, flavor, consider_dt):
+    """Registers, spills and shared memory per block of the patch-2D
+    kernel as built, at each degree of ``level_sets`` under the plan of
+    its finest level there, in the flavor given."""
+    from ns_gls_tpu_torch.ops import patch2d as p2
+
+    finest = {}
+    for _, t in level_sets:
+        if t.m >= finest.get(t.P, t).m:
+            finest[t.P] = t
+    for P, t in sorted(finest.items()):
+        a = p2.Patch2DKernel.attributes(P, t.plan, flavor, consider_dt)
+        log(f"[3] patch2d_kernel<{P}> at m={t.m}: {a['registers']} "
+            f"registers, {a['spill_bytes']} B local memory (spills), "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
+            f"shared memory per block (plan {tuple(t.plan)}, {flavor}, "
+            f"consider_dt {consider_dt})")
+
+
+def phase_patch2d_sweep(tables, flavor, consider_dt, cell_wise):
+    """The whole sweep at ``tables``' shape (kernel, one seam-sum launch)
+    against the plain kernel and plain seam sums; the seam sums bit-equal
+    to their plain version on the kernel's own tiles, twice; times by the
+    profiler's device time: the kernel, and the sweep with its seam sum
+    and the kernels it launches; the plain version by events and the
+    bound.  Returns the kernel line's numbers."""
+    import torch
+
+    from ns_gls_tpu_torch.ops import patch2d as p2
+    from ns_gls_tpu_torch.utils import segment as sg
+    from ns_gls_tpu_torch.utils.roofline import bound, patch2d_cost
+    from ns_gls_tpu_torch.utils.timer import device_kernels_us, device_time_us
+
+    u, ul, vo = patch2d_inputs(tables, seed=1)
+    args = (tables, SC, u, ul, vo, flavor, consider_dt, cell_wise)
+    tiles = p2.Patch2DKernel.launch(*args).reshape(-1, 3)
+    got = sg.SeamSumKernel.launch(tables.seams, tiles)
+    again = sg.SeamSumKernel.launch(tables.seams, tiles)
+    plain_seams = sg.seam_sum_plain(tables.seams, tiles)
+    ref = sg.seam_sum_plain(tables.seams,
+                            p2.patch2d_sweep_plain(*args).reshape(-1, 3))
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got, plain_seams)):
+        raise AssertionError("the seam sums differ from their plain version "
+                             "or from themselves")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not rel <= KERNEL_REL_TOL:
+        raise AssertionError(f"patch-2D sweep vs plain sweep: rel err "
+                             f"{rel:.3e} > {KERNEL_REL_TOL}")
+
+    def kernel():
+        return p2.Patch2DKernel.launch(*args)
+
+    def sweep():
+        return sg.seam_sum(tables.seams, kernel().reshape(-1, 3))
+
+    us = device_time_us(kernel, "patch2d_kernel")
+    sweep_us, sweep_launches = device_kernels_us(sweep)
+    events_ms = time_sweep(kernel)
+    plain_ms = time_sweep(lambda: p2.patch2d_sweep_plain(*args), n=50)
+    nbytes, flops = patch2d_cost(tables, flavor, consider_dt, cell_wise)
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"[3] sweep (kernel, seam sums) vs plain sweep at m={tables.m}: max "
+        f"rel err {rel:.3e}; seam sums bit-identical to their plain version "
+        f"and to themselves")
+    log(f"[3] m={tables.m} {flavor} sweep (consider_dt {consider_dt}, "
+        f"cell-wise {cell_wise}), device time: kernel {us:.3f} us, sweep "
+        f"{sweep_us:.3f} us in {sweep_launches:g} launches; kernel by events "
+        f"{1e3 * events_ms:.3f} us (back-to-back launches: the host's rate); "
+        f"plain {plain_ms:.4f} ms; bound {1e3 * bound_ms:.4f} us by "
+        f"{bound_by} ({nbytes} B, {flops} flop)")
+    if sweep_launches != 2:
+        raise AssertionError(f"the patch-2D sweep launched "
+                             f"{sweep_launches:g} kernels an apply, want 2")
+    return dict(ms=us / 1e3, sweep_ms=sweep_us / 1e3, events_ms=events_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def time_sweep(fn, n=200):
@@ -484,6 +592,13 @@ def phase_main_path():
     check_run(params, drv, recs, MAIN_STEPS)
     if launches <= 0:
         raise AssertionError("the patch-2D kernel was not launched")
+    # every sweep is the kernel and one seam sum, and no other fused
+    # kernel runs on this path
+    others = {k: n for k, n in counts.items()
+              if n and k not in ("patch2d_gls_sweep", "seam_sum")}
+    if counts["seam_sum"] != launches or others:
+        raise AssertionError(f"patch-2D path launches {counts}: want one "
+                             f"seam sum per patch-2D kernel and nothing else")
     stats = drv.step_stats
     log(f"[4] Turek 2D ref {params.n_global_refinements}: {drv.mesh.n_cells} cells, {n_dofs} DoFs, "
         f"setup {setup_s:.2f} s, {MAIN_STEPS} steps in {run_s:.2f} s")
@@ -493,7 +608,8 @@ def phase_main_path():
     log(f"[4] steady seconds per step (steps 3-{MAIN_STEPS}): "
         f"{sum(steady) / len(steady):.4f}; kernel launches {counts} "
         f"({launches / MAIN_STEPS:.1f} patch-2D per step)")
-    return dict(launches=launches, n_dofs=n_dofs, stats=stats)
+    return dict(launches=launches, seam_launches=counts["seam_sum"],
+                n_dofs=n_dofs, stats=stats)
 
 
 def check_series(tag, recs, ref, tol):
@@ -1274,11 +1390,7 @@ def main() -> int:
 
         # 2. build
         from ns_gls_tpu_torch.utils import cuda_build
-        from ns_gls_tpu_torch.utils.roofline import (
-            bound,
-            patch2d_cost,
-            prism_cost,
-        )
+        from ns_gls_tpu_torch.utils.roofline import bound, prism_cost
 
         t0 = time.perf_counter()
         cuda_build.build_libraries(KERNEL_SOURCES)
@@ -1289,24 +1401,19 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[2]   {name}: {line.strip()}")
 
-        # 3. patch-2D kernel against plain version
-        ops = level_operators("cuda")
-        max_abs, max_rel = phase_kernel_vs_plain(ops)
-
-        # kernel time at the ref-3 shape (m = 8), the main path's flavor
-        from ns_gls_tpu_torch.ops import patch2d as p2
-
-        tables = ops[-1]._fast.tables
-        u, ul, vo = kernel_inputs(tables, seed=1)
-        args = (tables, SC, u, ul, vo, "increment", True, False)
-        ms = time_sweep(lambda: p2.Patch2DKernel.launch(*args))
-        plain_ms = time_sweep(lambda: p2.patch2d_sweep_plain(*args), n=50)
-        nbytes, flops = patch2d_cost(tables, "increment", True, False)
-        bound_ms, bound_by = bound(nbytes, flops)
-        log(f"[3] m=8 increment sweep: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
-            f"({nbytes} B, {flops} flop)")
-        del ops, u, ul, vo, args, tables
+        # 3. patch-2D kernel against plain version, then the sweep at the
+        # ref-3 shape (m = 8) in the main path's flavor (increment, the
+        # BDF history, q-wise delta)
+        t0 = time.perf_counter()
+        p2_levels = patch2d_level_sets("cuda")
+        log(f"[3] {len(p2_levels)} patch-2D level spaces set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        max_abs, max_rel = phase_kernel_vs_plain(p2_levels)
+        log_patch2d_build(p2_levels, "increment", True)
+        p2_fine = next(t for label, t in p2_levels
+                       if label == "turek_2d_re100 level 3")
+        p2_times = phase_patch2d_sweep(p2_fine, "increment", True, False)
+        del p2_levels, p2_fine
 
         # 4. 2D main path
         main = phase_main_path()
@@ -1402,6 +1509,9 @@ def main() -> int:
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
         # 16. kernel line, card line, result line
+        # the patch-2D kernel: device time at m = 8 in the main path's
+        # flavor, alone (ms) and with its seam sum (sweep_ms); launches
+        # from phase 4, one seam sum after each
         kernels = [dict(
             name="patch2d_gls_sweep",
             route="cuda",
@@ -1409,11 +1519,14 @@ def main() -> int:
             replaces="ns_gls_tpu/ops/patch2d.py:309",
             launches=main["launches"],
             max_abs_err=max_abs,
-            ms=ms,
-            plain_ms=plain_ms,
-            bound_ms=bound_ms,
-            bound_by=bound_by,
+            ms=p2_times["ms"],
+            plain_ms=p2_times["plain_ms"],
+            bound_ms=p2_times["bound_ms"],
+            bound_by=p2_times["bound_by"],
             library_ms=None,
+            sweep_ms=p2_times["sweep_ms"],
+            events_ms=p2_times["events_ms"],
+            seam_sum_launches=main["seam_launches"],
         ), dict(
             name="prism_gls_sweep",
             route="cuda",

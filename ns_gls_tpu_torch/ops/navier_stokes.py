@@ -72,8 +72,8 @@ class NSState(NamedTuple):
     - fused: only the *vectors* (u_lin, vec_old, u_old) are stored and the
       q-point tables are recomputed inside the sweep; the table fields
       have q-extent 0.  The fused sweeps also keep the lattice views
-      (structured), patch-gathered views (patch-2D, prism) or contiguous
-      node-major vectors (patch-3D, whose kernel reads them through the
+      (structured), patch-gathered views (prism) or contiguous node-major
+      vectors (patch-2D and patch-3D, whose kernels read them through the
       patch lattices) ``u_linT`` / ``vec_oldT``.
     """
 
@@ -91,10 +91,9 @@ class NSState(NamedTuple):
     vec_old: torch.Tensor       # (n_nodes, C) fused mode, else (0, C)
     u_old: torch.Tensor         # (n_nodes, C) fused theta mode, else (0, C)
     u_linT: torch.Tensor        # structured: (C,) + lattice_shape;
-    #                             patch-2D: (C, n_patches, Yn, Xn); prism:
-    #                             (C, n_patches, Yn, Xn, Nzn); patch-3D:
-    #                             (n_nodes, C); else (0,)
-    vec_oldT: torch.Tensor      # the same with lead d (patch-3D: C)
+    #                             prism: (C, n_patches, Yn, Xn, Nzn);
+    #                             patch-2D, patch-3D: (n_nodes, C); else (0,)
+    vec_oldT: torch.Tensor      # the same with lead d (patch-2D, 3D: C)
 
 
 # --------------------------------------------------------------------------
@@ -492,9 +491,10 @@ class NavierStokesOperator:
         behind one interface here) or the general one."""
         sw = self._fast
         if sw is not None:
-            # u is viewed as a lattice (structured: a reshape, no index)
-            # or patch-gathered here; the linearization tensors are kept
-            # that way in the state
+            # u is viewed as a lattice (structured: a reshape, no index),
+            # patch-gathered (prism) or kept node-major (patch-2D, patch-
+            # 3D) here; the linearization tensors are kept that way in
+            # the state
             flavor = ("residual" if residual_form
                       else "increment" if self.increment_form else "fixed")
             return sw.apply(self._weight_host, self._stau_host,

@@ -3,53 +3,160 @@
 Port of ``ns_gls_tpu/ops/patch2d.py``.  The mesh is tiled into
 per-coarse-cell refinement PATCHES (``fem/space.py``
 ``_build_patch2d_numbering``): an m x m lattice of cells whose
-(P*m+1)^2 nodes form a dense tile.  One fused sweep evaluates u, u_lin
+(P*m+1)^2 nodes form a dense lattice.  Every patch lies in its coarse
+cell's own frame, so neighbours meet under any orientation and a node
+may lie in any number of patches: the lattice ids, not index
+arithmetic, decide which nodes meet.  One fused sweep evaluates u, u_lin
 and vec_old at every quadrature point of a patch (values and reference
-gradients from the 1D Lagrange tables), maps gradients with the per-cell,
-per-q ``jinv`` (curved cells cost nothing extra), computes delta_1/delta_2
-and the GLS q-point physics, and integrates back onto the patch tile.
+gradients from the 1D Lagrange tables), maps gradients with the
+per-cell, per-q ``jinv`` (curved cells cost nothing extra), computes
+delta_1/delta_2 and the GLS q-point physics, and integrates back onto
+the nodes.
 
 Layout (per patch, no TPU grouping or padding):
 
-- node tiles ``(lead, n_patches, Yn, Xn)`` with Xn = Yn = P*m + 1,
+- the node vectors u, u_lin and vec_old stay node-major ``(n_nodes, 3)``:
+  the kernel reads them through the patch lattices ``patch_nodes
+  (n_patches, Yn, Xn)`` (int32 node ids, Xn = Yn = P*m + 1), so no tile
+  is gathered per apply,
 - geometry ``jinv (n_patches, 4, Lq, Lq)`` (entry r*2+x = dxi_r/dx_x),
   ``jxw (n_patches, Lq, Lq)`` with Lq = NQ*m in natural order (q-point
   row iy = ey*NQ + qy, column ix = ex*NQ + qx), and the cell sizes
   ``h (n_patches, 2, m, m)`` (h_min_vertex, measure-based h),
-- output tiles ``(C, n_patches, Yn, Xn)``.
+- output CELL-ROW tiles ``(n_patches, m, nbx, P+1, XN, 3)``: cell row
+  ey, x brick bx of ``xb`` cells (XN = P*xb + 1 nodes, the plan's), its
+  node row j (patch node row P*ey + j), node P*xb*bx + x, the three
+  components: the integrals over the cells of cell row ey in brick bx
+  only.  Node rows shared by two cell rows and node columns shared by two
+  bricks appear in both; one seam-sum launch (``utils/segment.py``
+  ``seam_sum``, a fixed order per node) adds them together with the
+  patch seams.
 
-The patch gather in and the multiplicity-class seam compression out
-(nodes on patch seams sum the tiles of every patch that holds them) are
-plain tensor gathers around the sweep.
+The sweep is the CUDA kernel ``csrc/patch2d.cu`` for tensors on the card
+and :func:`patch2d_sweep_plain` (its plain PyTorch version, the same
+arithmetic with dense 1D band matrices) for tensors on the CPU;
+:func:`patch2d_plan` splits the work into the kernel's thread blocks.
 
-The sweep itself is the CUDA kernel ``csrc/patch2d.cu`` for tensors on
-the card and :func:`patch2d_sweep_plain` (its plain PyTorch version, the
-same arithmetic with dense 1D band matrices) for tensors on the CPU.
-
-Supported: dim 2, any degree, any m, curved cells, BDF/stationary
-(theta = 1), cell- or q-wise stabilization, fixed/increment/residual
-flavors, f32, meshes with ONE patch family (uniformly refined).  The
-operator uses the general sweep for anything else; adaptive multi-family
-meshes raise.
+Supported: dim 2, any degree (the kernel: 1-4), any m, curved cells,
+BDF/stationary (theta = 1), cell- or q-wise stabilization,
+fixed/increment/residual flavors, f32, meshes with ONE patch family
+(uniformly refined).  The operator uses the general sweep for anything
+else; adaptive multi-family meshes raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ns_gls_tpu_torch.fem.lagrange import (
-    eval_lagrange,
-    gauss_lobatto_points_1d,
-    gauss_points_1d,
-)
+from ns_gls_tpu_torch.ops.prism import band_1d
 from ns_gls_tpu_torch.ops.structured import _delta, _physics
-from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
+from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
 
 FLAVORS = ("fixed", "increment", "residual")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split into thread blocks
+# ---------------------------------------------------------------------------
+class Patch2DPlan(NamedTuple):
+    """One block per (patch, x brick of ``xb`` cells, y chunk of ``yc``
+    cell rows), walking its chunk in slabs of ``ys`` cell rows.  The brick
+    sets the output tiles' layout; slabs and chunks do not change a bit of
+    the output."""
+
+    xb: int     # cells per x brick (divides m)
+    nbx: int    # bricks per cell row
+    ys: int     # cell rows per slab
+    yc: int     # cell rows per y chunk
+    nyb: int    # y chunks per patch
+
+
+# SMs of an H100 SXM
+N_SM = 132
+SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
+# a slab's fixed time, in q-points' time (tools/patch2d_levels.py --sweep
+# on the Turek 2D levels: one slab costs ~2 us, a q-point ~7 ns, and a
+# second block on an SM shares its issue slots rather than hiding its
+# latency)
+SLAB_FIXED = 128
+THREADS = 256
+MAX_COLS = 2                   # I1 columns (component, node) per thread
+MAX_PASSES = 4                 # E2 passes over a slab's cells
+
+
+def smem_bytes(P: int, xb: int, ys: int, yc: int, flavor: str,
+               consider_dt: bool) -> int:
+    """Dynamic shared memory of one block (``csrc/patch2d.cu`` p2_smem):
+    two buffers of a slab's node rows of every staged field, one of its
+    q-points' geometry and cells' h, the y-contracted fields, the
+    test-function weights and the lattice ids of the chunk's node rows."""
+    incr = flavor == "increment"
+    dt_old = consider_dt and flavor in ("increment", "residual")
+    nf = 3 + (3 if incr else 2) + (2 if dt_old else 0)
+    ng = 6 if incr else 3
+    nq = P + 1
+    xn, lx = P * xb + 1, nq * xb
+    yn, ly = P * ys + 1, nq * ys
+    qs = ly * lx
+
+    def r4(a):
+        return -(-a // 4) * 4
+
+    words = (r4(2 * nf * yn * xn) + r4(5 * qs + 2 * ys * xb)
+             + r4(max((nf + ng) * ly * xn, 6 * ly * xn)) + r4(9 * qs)
+             + (P * yc + 1) * xn)
+    return 4 * words
+
+
+def _plan_ok(P: int, xb: int, ys: int) -> bool:
+    """The launcher's limits: I1 columns and E2 passes per thread."""
+    cpw = 32 // (P + 1) ** 2
+    return (3 * (P * xb + 1) <= MAX_COLS * THREADS
+            and -(-ys * xb // cpw) <= MAX_PASSES * (THREADS // 32))
+
+
+@functools.lru_cache(maxsize=64)
+def patch2d_plan(P: int, m: int, n_patches: int) -> Patch2DPlan:
+    """The kernel's blocks for ``n_patches`` patches of m x m cells of
+    degree P: of the bricks (divisors of m), slab depths and y chunkings
+    within the launcher's limits and the shared memory of the largest
+    flavor (increment with the history), the one of least estimated time,
+    blocks per SM x slabs per block x a slab's time (``SLAB_FIXED`` plus
+    its q-points); ties go to fewer blocks, then longer bricks, then
+    deeper slabs.  Raises for a degree the kernel does not take or a
+    shape nothing fits."""
+    if not 1 <= P <= 4:
+        raise ValueError(f"the patch-2D kernel takes degrees 1-4, not {P}")
+    nq2 = (P + 1) ** 2
+    best = None
+    for xb in (d for d in range(m, 0, -1) if m % d == 0):
+        nbx = m // xb
+        yc_seen = set()
+        for nyb in range(1, m + 1):
+            yc = -(-m // nyb)
+            if yc in yc_seen:
+                continue
+            yc_seen.add(yc)
+            n_chunks = -(-m // yc)
+            for ys in range(1, yc + 1):
+                if not _plan_ok(P, xb, ys):
+                    break
+                if smem_bytes(P, xb, ys, yc, "increment",
+                              True) > SMEM_PER_BLOCK:
+                    continue
+                blocks = n_patches * nbx * n_chunks
+                cost = (-(-blocks // N_SM) * -(-yc // ys)
+                        * (SLAB_FIXED + ys * xb * nq2), blocks, -xb, -ys)
+                if best is None or cost < best[0]:
+                    best = (cost, Patch2DPlan(xb, nbx, ys, yc, n_chunks))
+    if best is None:
+        raise ValueError(f"no patch-2D plan fits: P={P}, m={m}")
+    return best[1]
 
 
 class Patch2DTables(NamedTuple):
@@ -58,35 +165,43 @@ class Patch2DTables(NamedTuple):
     P: int
     NQ: int
     m: int
+    n_nodes: int
+    plan: Patch2DPlan
     S1: torch.Tensor        # (NQ, P+1) 1D values at the Gauss points
     D1: torch.Tensor        # (NQ, P+1) 1D derivatives
-    bS: torch.Tensor        # (Lq, Xn) patch band: bS[ex*NQ+qx, P*ex+l]
+    bS: torch.Tensor        # (Lq, Xn) patch band: bS[e*NQ+q, P*e+l]
     bD: torch.Tensor        # (Lq, Xn)
+    xS: torch.Tensor        # (NQ*xb, P*xb+1) the band of one x brick
+    xD: torch.Tensor
     jinv: torch.Tensor      # (n_patches, 4, Lq, Lq)
     jxw: torch.Tensor       # (n_patches, Lq, Lq)
     h: torch.Tensor         # (n_patches, 2, m, m)  (h_min_vertex, hq)
-    patch_nodes: torch.Tensor   # (n_patches, Yn, Xn) int64 node ids
-    compress: ClassGather   # patch tile positions -> nodes (seam sums)
+    patch_nodes: torch.Tensor   # (n_patches, Yn, Xn) int32 node ids
+    seams: SeamSums         # cell-row tile rows -> nodes
 
 
-def _band_1d(P, NQ, m):
-    """Single-patch 1D bands (NQ*m, P*m+1) in natural q order
-    (row = ex*NQ + qx): basis values / reference derivatives of the
-    patch nodes at the patch's Gauss points."""
-    nodes = gauss_lobatto_points_1d(P + 1)
-    qpts, _ = gauss_points_1d(NQ)
-    S1, D1 = eval_lagrange(tuple(nodes), np.asarray(qpts))  # (NQ, P+1)
-    Lq, Xn = NQ * m, P * m + 1
-    bS = np.zeros((Lq, Xn))
-    bD = np.zeros((Lq, Xn))
-    for e in range(m):
-        for q in range(NQ):
-            for l in range(P + 1):
-                bS[e * NQ + q, P * e + l] = S1[q, l]
-                # reference-cell derivative: the chain rule to physical
-                # coordinates is in jinv (per-cell geometry)
-                bD[e * NQ + q, P * e + l] = D1[q, l]
-    return S1, D1, bS, bD
+def tile_nodes(pn: np.ndarray, P: int, m: int, xb: int) -> np.ndarray:
+    """(n_p, m, nbx, P+1, P*xb+1) node of every tile row: row (p, ey, bx,
+    j, x) holds lattice node pn[p, P*ey + j, P*xb*bx + x]."""
+    ey = np.arange(m)[:, None, None, None]
+    bx = np.arange(m // xb)[None, :, None, None]
+    j = np.arange(P + 1)[None, None, :, None]
+    x = np.arange(P * xb + 1)[None, None, None, :]
+    return pn[:, P * ey + j, P * xb * bx + x]
+
+
+def replan(tables: Patch2DTables, plan: Patch2DPlan) -> Patch2DTables:
+    """``tables`` under ``plan``: with the band of its x brick and the
+    seam table of the tiles' layout it sets."""
+    _, _, _, xS, xD = band_1d(tables.P, tables.NQ, plan.xb)
+    dev = tables.jinv.device
+    pn = tables.patch_nodes.cpu().numpy().astype(np.int64)
+    return tables._replace(
+        plan=plan,
+        xS=torch.as_tensor(np.asarray(xS, np.float32), device=dev),
+        xD=torch.as_tensor(np.asarray(xD, np.float32), device=dev),
+        seams=seam_sums(tile_nodes(pn, tables.P, tables.m, plan.xb),
+                        tables.n_nodes, dev))
 
 
 def build_patch2d_tables(op):
@@ -107,11 +222,11 @@ def build_patch2d_tables(op):
     P = space.degree
     NQ = space.n_q1d
     m = int(fam["m"])
-    pn = np.asarray(fam["patch_nodes"], np.int64)     # (n_patches, Yn, Xn)
+    pn = np.asarray(fam["patch_nodes"], np.int32)     # (n_patches, Yn, Xn)
     n_patches = pn.shape[0]
     Lq = NQ * m
 
-    S1, D1, bS, bD = _band_1d(P, NQ, m)
+    S1, D1, _, bS, bD = band_1d(P, NQ, m)
 
     cells = np.asarray(fam["cells"])
     patch = np.asarray(fam["patch_of_cell"])
@@ -143,13 +258,13 @@ def build_patch2d_tables(op):
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    return Patch2DTables(
-        P=P, NQ=NQ, m=m,
-        S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD),
+    tables = Patch2DTables(
+        P=P, NQ=NQ, m=m, n_nodes=space.n_nodes, plan=None,
+        S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD), xS=None, xD=None,
         jinv=f32(jinv_t), jxw=f32(jxw_t), h=f32(h_t),
-        patch_nodes=torch.as_tensor(pn, device=dev),
-        compress=class_gather(pn.reshape(-1), space.n2d, dev),
+        patch_nodes=torch.as_tensor(pn, device=dev), seams=None,
     )
+    return replan(tables, patch2d_plan(P, m, n_patches))
 
 
 # ---------------------------------------------------------------------------
@@ -160,37 +275,40 @@ def _lead_ul(flavor: str, C: int = 3) -> int:
     return C if flavor == "increment" else C - 1
 
 
-def patch2d_sweep_plain(tables: Patch2DTables, sc: dict, uP, ulP, voP,
+def patch2d_sweep_plain(tables: Patch2DTables, sc: dict, u, ul, vo,
                         flavor: str, consider_dt: bool, cell_wise: bool):
-    """Plain PyTorch version of the patch-2D sweep (the CUDA kernel's
-    reference).  ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).
-    uP (3, n_p, Yn, Xn), ulP (3 or 2, ...), voP (2, ...) -> (3, n_p, Yn, Xn).
-    """
+    """Plain PyTorch version of the patch-2D kernel (its reference).
+    ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).  u, ul, vo:
+    node-major (n_nodes, 3) (ul: the first 3 components read in
+    increment, 2 otherwise; vo: 2) -> cell-row tiles (n_p, m, nbx, P+1,
+    XN, 3)."""
     d, C = 2, 3
-    dev = uP.device
+    dev = u.device
     sc = {k: torch.tensor(v, dtype=torch.float32, device=dev)
           for k, v in sc.items()}
     bS, bD = tables.bS, tables.bD
     NQ, m = tables.NQ, tables.m
+    pn = tables.patch_nodes.long()
+    n_p = pn.shape[0]
+    nbx = tables.plan.nbx
     need_lin_grads = flavor == "increment"
     need_dt_old = consider_dt and flavor in ("increment", "residual")
 
-    def fwd(t, grads):
-        # t (n_p, Yn, Xn) -> values / reference derivatives (n_p, Lq, Lq)
-        tx = t @ bS.T                   # contract x: (n_p, Yn, Lq)
+    def fwd(v, lead, grads):
+        # the first ``lead`` components on the patch lattices (lead, n_p,
+        # Yn, Xn) -> values / reference derivatives (lead, n_p, Lq, Lq)
+        t = v[:, :lead].T[:, pn]
+        tx = t @ bS.T                   # contract x: (lead, n_p, Yn, Lq)
         val = bS @ tx                   # contract y
         if not grads:
             return val, None, None
-        dx = bS @ (t @ bD.T)
-        dy = bD @ tx
-        return val, dx, dy
+        return val, bS @ (t @ bD.T), bD @ tx
 
-    u = [fwd(uP[c], True) for c in range(C)]
-    ul = [fwd(ulP[c], need_lin_grads) for c in range(_lead_ul(flavor))]
-    dt_old = ([fwd(voP[c], False)[0] for c in range(d)]
-              if need_dt_old else None)
+    uv, udx, udy = fwd(u, C, True)
+    lv, ldx, ldy = fwd(ul, _lead_ul(flavor), need_lin_grads)
+    dt_old = list(fwd(vo, d, False)[0]) if need_dt_old else None
 
-    ustar = [ul[a][0] for a in range(d)]
+    ustar = [lv[a] for a in range(d)]
     usq = ustar[0] * ustar[0] + ustar[1] * ustar[1]
 
     def per_q(cellwise_t):
@@ -200,7 +318,6 @@ def patch2d_sweep_plain(tables: Patch2DTables, sc: dict, uP, ulP, voP,
     h1 = per_q(tables.h[:, 0])
     hq = per_q(tables.h[:, 1])
     if cell_wise:
-        n_p = usq.shape[0]
         msq = usq.reshape(n_p, m, NQ, m, NQ).amax(dim=(2, 4))
         d1_q, d2_q = _delta(sc, h1, hq, per_q(msq), None, True)
     else:
@@ -211,26 +328,38 @@ def patch2d_sweep_plain(tables: Patch2DTables, sc: dict, uP, ulP, voP,
     def to_phys(dx, dy):
         return [dx * ji[0] + dy * ji[2], dx * ji[1] + dy * ji[3]]
 
-    u_grad = [to_phys(u[a][1], u[a][2]) for a in range(d)]
-    p_grad = to_phys(u[d][1], u[d][2])
+    u_grad = [to_phys(udx[a], udy[a]) for a in range(d)]
+    p_grad = to_phys(udx[d], udy[d])
     gus = gps = None
     if need_lin_grads:
-        gus = [to_phys(ul[a][1], ul[a][2]) for a in range(d)]
-        gps = to_phys(ul[d][1], ul[d][2])
+        gus = [to_phys(ldx[a], ldy[a]) for a in range(d)]
+        gps = to_phys(ldx[d], ldy[d])
 
     val_res, grad_res = _physics(
-        d, flavor, sc, [u[a][0] for a in range(d)], u_grad, u[d][0], p_grad,
+        d, flavor, sc, [uv[a] for a in range(d)], u_grad, uv[d], p_grad,
         ustar, gus, gps, dt_old, d1_q, d2_q, consider_dt,
     )
 
+    # the test-function weights of the C components: value, then the
+    # reference x and y gradient weights, (C, n_p, Lq, Lq) each
     jxw = tables.jxw
-    out = []
-    for c in range(C):
-        w_val = val_res[c] * jxw
-        grx = (grad_res[c][0] * ji[0] + grad_res[c][1] * ji[1]) * jxw
-        gry = (grad_res[c][0] * ji[2] + grad_res[c][1] * ji[3]) * jxw
-        out.append(bS.T @ (w_val @ bS + grx @ bD) + bD.T @ (gry @ bS))
-    return torch.stack(out)
+    g0 = torch.stack([g[0] for g in grad_res])
+    g1 = torch.stack([g[1] for g in grad_res])
+    w_val = torch.stack(val_res) * jxw
+    grx = (g0 * ji[0] + g1 * ji[1]) * jxw
+    gry = (g0 * ji[2] + g1 * ji[3]) * jxw
+
+    def bricks(w):
+        # (C, n_p, Lq, Lq) -> (C, n_p, m, NQ, nbx, NQ*xb): cell row,
+        # q-row, brick, the brick's q-columns
+        return w.reshape(C, n_p, m, NQ, nbx, -1)
+
+    # along x within each brick, then along y within each cell row
+    xv = bricks(w_val) @ tables.xS + bricks(grx) @ tables.xD
+    xy = bricks(gry) @ tables.xS
+    out = (torch.einsum("qj,cpeqbx->pebjxc", tables.S1, xv)
+           + torch.einsum("qj,cpeqbx->pebjxc", tables.D1, xy))
+    return out.contiguous()
 
 
 class Patch2DKernel:
@@ -240,96 +369,123 @@ class Patch2DKernel:
     # launches of the CUDA kernel in this process: one per successful
     # ``launch``, nowhere else
     launches = 0
-    _fn = None
+    _lib = None
+    # the last tables held to the kernel's needs (checked once per tables)
+    _checked = None
 
     @classmethod
     def _load(cls):
-        if cls._fn is None:
+        if cls._lib is None:
             from ns_gls_tpu_torch.utils.cuda_build import load_library
 
             lib = load_library("patch2d")
-            fn = lib.patch2d_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 5 + [vp]
+            fn = lib.patch2d_sweep_launch
+            fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
-            cls._fn = fn
-        return cls._fn
+            at = lib.patch2d_attributes
+            ip = ctypes.POINTER(ci)
+            at.argtypes = [ci] * 6 + [ip, ip, ip,
+                                      ctypes.POINTER(ctypes.c_longlong)]
+            at.restype = ci
+            cls._lib = lib
+        return cls._lib
 
     @classmethod
-    def launch(cls, tables: Patch2DTables, sc: dict, uP, ulP, voP,
+    def _check_tables(cls, tables: Patch2DTables, device):
+        if cls._checked is tables:
+            return
+        for t in (tables.jinv, tables.jxw, tables.h, tables.S1, tables.D1,
+                  tables.patch_nodes):
+            if t.device != device or not t.is_contiguous():
+                raise ValueError("tables must be contiguous on u's device")
+        if tables.patch_nodes.dtype != torch.int32:
+            raise TypeError("patch_nodes: need int32 node ids")
+        cls._checked = tables
+
+    @classmethod
+    def launch(cls, tables: Patch2DTables, sc: dict, u, ul, vo,
                flavor: str, consider_dt: bool, cell_wise: bool):
+        """The kernel on node-major u, ul, vo (n_nodes, 3) under the
+        tables' plan -> cell-row tiles."""
         n_p = tables.jinv.shape[0]
         P, NQ, m = tables.P, tables.NQ, tables.m
-        Xn = P * m + 1
-        C = 3
-        lead_ul = _lead_ul(flavor)
-        for name, t, lead in (("u", uP, C), ("u_lin", ulP, lead_ul),
-                              ("vec_old", voP, 2)):
+        for name, t in (("u", u), ("u_lin", ul), ("vec_old", vo)):
             if not t.is_cuda or t.dtype != torch.float32:
                 raise TypeError(f"{name}: need a float32 CUDA tensor")
-            if tuple(t.shape) != (lead, n_p, Xn, Xn):
-                raise ValueError(
-                    f"{name}: shape {tuple(t.shape)}, need "
-                    f"({lead}, {n_p}, {Xn}, {Xn})"
-                )
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: need a contiguous tensor")
-        for t in (tables.jinv, tables.jxw, tables.h, tables.S1, tables.D1):
-            if t.device != uP.device or not t.is_contiguous():
-                raise ValueError("tables must be contiguous on u's device")
-        out = torch.empty((C, n_p, Xn, Xn), dtype=torch.float32,
-                          device=uP.device)
-        fn = cls._load()
-        err = fn(
-            uP.data_ptr(), ulP.data_ptr(), voP.data_ptr(),
-            tables.jinv.data_ptr(), tables.jxw.data_ptr(),
-            tables.h.data_ptr(), tables.S1.data_ptr(), tables.D1.data_ptr(),
-            out.data_ptr(),
+            if tuple(t.shape) != (tables.n_nodes, 3) or not t.is_contiguous():
+                raise ValueError(f"{name}: need a contiguous "
+                                 f"({tables.n_nodes}, 3) tensor, got "
+                                 f"{tuple(t.shape)}")
+        cls._check_tables(tables, u.device)
+        plan = tables.plan
+        out = torch.empty((n_p, m, plan.nbx, P + 1, P * plan.xb + 1, 3),
+                          dtype=torch.float32, device=u.device)
+        err = cls._load().patch2d_sweep_launch(
+            u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
+            tables.patch_nodes.data_ptr(), tables.jinv.data_ptr(),
+            tables.jxw.data_ptr(), tables.h.data_ptr(),
+            tables.S1.data_ptr(), tables.D1.data_ptr(), out.data_ptr(),
             n_p, P, NQ, m, FLAVORS.index(flavor), int(consider_dt),
             int(cell_wise),
             sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
-            torch.cuda.current_stream(uP.device).cuda_stream,
+            plan.xb, plan.ys, plan.nyb,
+            torch.cuda.current_stream(u.device).cuda_stream,
         )
         if err != 0:
-            hint = (" (the patch's shared-memory tiles exceed the card's "
-                    "per-block limit)" if err == 1 else "")
+            hint = (" (a degree, plan or input the kernel does not take)"
+                    if err == 1 else "")
             raise RuntimeError(
-                f"patch2d kernel launch failed: CUDA error {err}{hint}"
+                f"patch-2D kernel launch failed: CUDA error {err}{hint}"
             )
         cls.launches += 1
         return out
 
+    @classmethod
+    def attributes(cls, P: int, plan: Patch2DPlan, flavor: str,
+                   consider_dt: bool) -> dict:
+        """Registers per thread, spills (local memory) and static shared
+        memory per block of the built kernel for degree P, and its dynamic
+        shared memory per block under ``plan``, in bytes."""
+        regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        dyn = ctypes.c_longlong()
+        err = cls._load().patch2d_attributes(
+            P, plan.xb, plan.ys, plan.yc, FLAVORS.index(flavor),
+            int(consider_dt), ctypes.byref(regs), ctypes.byref(local),
+            ctypes.byref(static), ctypes.byref(dyn))
+        if err != 0:
+            raise RuntimeError(f"patch2d_attributes: CUDA error {err}")
+        return dict(registers=regs.value, spill_bytes=local.value,
+                    static_smem=static.value, dynamic_smem=dyn.value)
 
-def patch2d_sweep(tables: Patch2DTables, sc: dict, uP, ulP, voP,
-                  flavor: str, consider_dt: bool, cell_wise: bool):
-    """The patch-2D sweep: the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
-    if uP.is_cuda:
-        return Patch2DKernel.launch(tables, sc, uP, ulP, voP, flavor,
-                                     consider_dt, cell_wise)
-    if uP.device.type != "cpu":
-        raise TypeError(f"patch2d sweep: unsupported device {uP.device}")
-    return patch2d_sweep_plain(tables, sc, uP, ulP, voP, flavor,
-                               consider_dt, cell_wise)
+
+def patch2d_sweep(tables: Patch2DTables, sc: dict, u, ul, vo, flavor: str,
+                  consider_dt: bool, cell_wise: bool):
+    """The patch-2D kernel for tensors on the card, its plain version for
+    tensors on the CPU: node-major vectors -> cell-row tiles."""
+    if u.is_cuda:
+        return Patch2DKernel.launch(tables, sc, u, ul, vo, flavor,
+                                    consider_dt, cell_wise)
+    if u.device.type != "cpu":
+        raise TypeError(f"patch-2D sweep: unsupported device {u.device}")
+    return patch2d_sweep_plain(tables, sc, u, ul, vo, flavor, consider_dt,
+                               cell_wise)
 
 
 # ---------------------------------------------------------------------------
 # host wrapper
 # ---------------------------------------------------------------------------
 class Patch2DSweep:
-    """Applies the fused patch-2D sweep for one operator.
-
-    The interface every fused sweep of the operator has:
-    ``gather_nodes(v, lead)`` maps the first ``lead`` components of a
-    node-major vector (n_nodes, C) to the patch tiles the sweep consumes,
-    ``view_shape(lead)`` is their shape, and ``apply(...)`` runs the
-    sweep and seam-compresses back to a node-major (n_nodes, C) result.
-    """
+    """Applies the fused patch-2D sweep for one operator, with the
+    interface every fused sweep of the operator has.  The kernel reads the
+    node-major vectors through the patch lattices itself, so
+    ``gather_nodes(v, lead)`` only makes v a contiguous (n_nodes, 3)
+    array, and ``apply(...)`` runs the sweep and the seam sums back to
+    (n_nodes, 3): two launches on the card."""
 
     def __init__(self, op, tables: Patch2DTables):
         self.tables = tables
-        self.C = op.space.dim + 1
-        self.d = op.space.dim
+        self.d = 2
         self.m = tables.m
         self.consider_dt = op.consider_time_derivative
         self.cell_wise = op.cell_wise_stabilization
@@ -338,20 +494,23 @@ class Patch2DSweep:
         self.c2 = op.c_2
 
     def view_shape(self, lead: int):
-        return (lead,) + tuple(self.tables.patch_nodes.shape)
+        return (self.tables.n_nodes, 3)
 
     def gather_nodes(self, v, lead: int):
-        """(n_nodes, C) -> (lead, n_patches, Yn, Xn)."""
-        return v[:, :lead].T[:, self.tables.patch_nodes]
+        """(n_nodes, 3) -> the same, contiguous (every component is kept:
+        the kernel reads the ``lead`` it needs)."""
+        return v.contiguous()
 
-    def apply(self, weight: float, stau: float, uP, ulP, voP, flavor: str):
-        """uP/ulP/voP: (lead, n_patches, Yn, Xn) patch tiles (from
-        ``gather_nodes``).  Returns (n_nodes, C)."""
+    def compress(self, tiles):
+        """Cell-row tiles (n_p, m, nbx, P+1, XN, 3) -> (n_nodes, 3)."""
+        return seam_sum(self.tables.seams, tiles.reshape(-1, 3))
+
+    def apply(self, weight: float, stau: float, u, ul, vo, flavor: str):
+        """u, ul, vo: node-major (n_nodes, 3) (from ``gather_nodes``).
+        Returns (n_nodes, 3)."""
         sc = dict(weight=weight, stau=stau, nu=self.nu, c1=self.c1,
                   c2=self.c2)
-        if flavor != "increment":
-            ulP = ulP[: self.d]
-        out = patch2d_sweep(self.tables, sc, uP.contiguous(),
-                            ulP.contiguous(), voP.contiguous(), flavor,
-                            self.consider_dt, self.cell_wise)
-        return class_sum(self.tables.compress, out.reshape(self.C, -1).T)
+        tiles = patch2d_sweep(self.tables, sc, u.contiguous(),
+                              ul.contiguous(), vo.contiguous(), flavor,
+                              self.consider_dt, self.cell_wise)
+        return self.compress(tiles)

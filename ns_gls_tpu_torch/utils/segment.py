@@ -10,7 +10,7 @@ back in target order.  Two runs give the same bits.
 
 :class:`SeamSums` is the same sum as one launch of a CUDA kernel
 (``csrc/seam_sum.cu``) over a CSR table, with a plain version beside it:
-the patch-3D sweep's seam sums.
+the seam sums of the patch-2D and patch-3D sweeps.
 """
 
 from __future__ import annotations
@@ -120,13 +120,22 @@ def seam_sums(target: np.ndarray, n_out: int, device) -> SeamSums:
 def seam_sum_plain(ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the seam-sum kernel: src (n_rows, C) ->
     (n_out, C), each node's rows added one after the other in table order,
-    starting from zero (the kernel's order, so the same sums)."""
+    starting from zero (the kernel's order, so the same sums).  A node
+    with fewer rows than the most adds zeros at the end, which changes no
+    sum."""
     off = ss.offsets.long()
     start, counts = off[:-1], off[1:] - off[:-1]
+    n_rows = ss.sources.shape[0]
     out = src.new_zeros((len(counts), src.shape[1]))
-    for k in range(int(counts.max()) if len(counts) else 0):
-        sel = torch.nonzero(counts > k).squeeze(1)
-        out[sel] = out[sel] + src[ss.sources[start[sel] + k].long()]
+    if n_rows == 0:
+        return out
+    k = torch.arange(int(counts.max()), device=src.device)
+    pos = (start[:, None] + k[None, :]).clamp(max=n_rows - 1)
+    rows = torch.where(k[None, :] < counts[:, None], ss.sources[pos].long(),
+                       n_rows)
+    padded = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+    for j in range(rows.shape[1]):
+        out = out + padded[rows[:, j]]
     return out
 
 
@@ -147,28 +156,31 @@ class SeamSumKernel:
             from ns_gls_tpu_torch.utils.cuda_build import load_library
 
             fn = load_library("seam_sum").seam_sum_launch
-            vp = ctypes.c_void_p
-            fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp]
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [vp, vp, vp, vp, ci, ci, vp]
             fn.restype = ctypes.c_int
             cls._fn = fn
         return cls._fn
 
     @classmethod
     def launch(cls, ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
+        """src (n_rows, C), C = 3 or 4 components a row -> (n_out, C)."""
         n_rows = ss.sources.shape[0]
         if not src.is_cuda or src.dtype != torch.float32:
             raise TypeError("seam sums: need a float32 CUDA tensor")
-        if tuple(src.shape) != (n_rows, 4) or not src.is_contiguous():
-            raise ValueError(f"seam sums: need a contiguous ({n_rows}, 4) "
-                             f"tensor, got {tuple(src.shape)}")
+        if (src.dim() != 2 or src.shape[0] != n_rows
+                or src.shape[1] not in (3, 4) or not src.is_contiguous()):
+            raise ValueError(f"seam sums: need a contiguous ({n_rows}, 3 "
+                             f"or 4) tensor, got {tuple(src.shape)}")
         for t in ss:
             if t.device != src.device or t.dtype != torch.int32:
                 raise ValueError("seam-sum tables: int32 on src's device")
         n_out = ss.offsets.shape[0] - 1
-        out = torch.empty((n_out, 4), dtype=torch.float32, device=src.device)
+        C = src.shape[1]
+        out = torch.empty((n_out, C), dtype=torch.float32, device=src.device)
         err = cls._load()(
             src.data_ptr(), ss.offsets.data_ptr(), ss.sources.data_ptr(),
-            out.data_ptr(), n_out,
+            out.data_ptr(), n_out, C,
             torch.cuda.current_stream(src.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"seam-sum kernel launch failed: CUDA error "

@@ -148,5 +148,25 @@ def device_time_us(fn, name: str, n: int = 50) -> float:
     return sum(e.self_device_time_total for e in rows) / count
 
 
+def device_kernels_us(fn, n: int = 50):
+    """(mean device time in microseconds of all the CUDA kernels one call
+    of ``fn`` launches, kernels launched per call), over n calls under
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows) / n,
+            sum(e.count for e in rows) / n)
+
+
 def print_wall_time_statistics():
     _collection.print_all()

@@ -2,7 +2,8 @@
 kernel is held to on the card) against the JAX package's Pallas patch-2D
 kernel, run as the JAX package's own tests run it on the CPU (interpret
 mode through ``use_structured=True``), and against the port's own f32
-general sweep.
+general sweep; the kernel's split into thread blocks and the seam table
+of its cell-row tiles.
 
 Both sides run in f32 with different summation orders, so the tolerance
 is 1e-5 relative to the max-abs of the reference.
@@ -25,12 +26,14 @@ from ns_gls_tpu_torch.fem.constraints import AffineConstraints as TAff
 from ns_gls_tpu_torch.fem.space import FESpace as TSpace
 from ns_gls_tpu_torch.mesh.cylinder import cylinder_mesh_2d as tmesh
 from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator as TOp
+from ns_gls_tpu_torch.ops import patch2d as tp2
 from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep
 from ns_gls_tpu_torch.ops.time_integration import (
     BDFIntegrator as TBDF,
     SolutionHistory as THist,
 )
 from ns_gls_tpu_torch.utils.device import torch_threads
+from ns_gls_tpu_torch.utils.segment import seam_sum_plain
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,12 +53,12 @@ def _refine(m, n):
     return m
 
 
-def _setup(n_ref, increment, cell_wise, consider_dt):
+def _setup(n_ref, increment, cell_wise, consider_dt, degree=2):
     """JAX Pallas-interpret operator, port patch-2D operator and port
     general-sweep operator (all f32) on the curved Turek 2D mesh refined
-    n_ref times (patches of m = 2**n_ref cells per axis)."""
-    sj = JSpace(_refine(jmesh(), n_ref), 2)
-    st = TSpace(_refine(tmesh(), n_ref), 2)
+    n_ref times (patches of m = 2**n_ref cells per axis), of ``degree``."""
+    sj = JSpace(_refine(jmesh(), n_ref), degree)
+    st = TSpace(_refine(tmesh(), n_ref), degree)
     bn = st.boundary_nodes([0])
     vals = [[1.0, 0.0]] * len(bn)
     bj = JAff(sj.n_nodes, 3)
@@ -131,3 +134,132 @@ def test_plain_patch2d_vs_pallas_no_dt(cell_wise):
     _close(opg.vmult(torch.as_tensor(v)).numpy(), ref_v)
     _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),
            opj.evaluate_residual(jnp.asarray(u)))
+
+
+@pytest.mark.parametrize("cell_wise", [True, False])
+@pytest.mark.parametrize("increment", [True, False])
+@pytest.mark.parametrize("degree,n_ref", [(1, 1), (1, 2), (3, 0), (3, 1)])
+def test_plain_patch2d_vs_pallas_degrees(degree, n_ref, increment,
+                                         cell_wise):
+    """The other degrees the kernel is built for: Q1 (``turek_2d_re20.json``)
+    at m = 2 and 4, Q3 at m = 1 and 2; every flavor, both delta modes."""
+    opj, opt, opg, u, v = _setup(n_ref, increment, cell_wise, True, degree)
+    assert opt._fast.tables.P == degree
+    ref_v = opj.vmult(jnp.asarray(v))
+    _close(opt.vmult(torch.as_tensor(v)).numpy(), ref_v)
+    _close(opg.vmult(torch.as_tensor(v)).numpy(), ref_v)
+    ref_r = opj.evaluate_residual(jnp.asarray(u))
+    _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(), ref_r)
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_patch2d_plan_covers_every_cell_row_once(P):
+    """The CUDA kernel's split (``ops/patch2d.py`` ``patch2d_plan``: one
+    block per patch, x brick and y chunk, walking slabs of cell rows) at
+    every patch size m = 1-64, for one patch and for Turek 2D's 88: the
+    bricks tile the cell row, the chunks own each cell row once, a slab is
+    no deeper than its chunk, the launcher's own chunking agrees, the
+    thread limits hold and a block's shared memory fits the card's 227 KB
+    in every flavor."""
+    for m in range(1, 65):
+        for n_patches in (1, 88):
+            plan = tp2.patch2d_plan(P, m, n_patches)
+            assert m % plan.xb == 0 and plan.nbx * plan.xb == m
+            owned = []
+            for ky in range(plan.nyb):
+                yb, ye = ky * plan.yc, min((ky + 1) * plan.yc, m)
+                assert ye > yb
+                owned += range(yb, ye)
+            assert owned == list(range(m))
+            # the launcher recomputes the chunk from nyb
+            assert -(-m // plan.nyb) == plan.yc
+            assert 1 <= plan.ys <= plan.yc
+            assert tp2._plan_ok(P, plan.xb, plan.ys)
+            for flavor in tp2.FLAVORS:
+                for cdt in (True, False):
+                    assert tp2.smem_bytes(P, plan.xb, plan.ys, plan.yc,
+                                          flavor, cdt) <= 232448
+
+
+def test_patch2d_plan_refuses_other_degrees():
+    """A degree the kernel has no specialization for is refused with a
+    clear message when the plan is made, before any launch."""
+    for P in (0, 5):
+        with pytest.raises(ValueError, match="degrees 1-4"):
+            tp2.patch2d_plan(P, 8, 88)
+
+
+def _turek_tables(n_ref, degree=2):
+    st = TSpace(_refine(tmesh(), n_ref), degree)
+    ca = TAff(st.n_nodes, 3).close(F32, "cpu")
+    ti = TBDF(2)
+    ti.update_dt(0.1)
+    op = TOp(st, ca, ca, time_integrator=ti, dtype=F32, device="cpu",
+             nu=0.02, c_1=4.0, c_2=2.0)
+    return op._fast.tables
+
+
+@pytest.mark.parametrize("xb", [1, 2, 4])
+def test_seam_rows_cover_every_node(xb):
+    """Turek 2D ref 2 (m = 4, 88 patches in their coarse cells' own
+    frames): the seam table lists every row of the cell-row tiles once,
+    each under the node its lattice id names, ascending, and every node
+    has as many rows as the tiles hold it: per patch, 1 or 2 cell rows
+    (a node row between two cell rows) times 1 or 2 bricks (a node column
+    between two bricks); the counts come from the lattices alone."""
+    t = tp2.replan(_turek_tables(2), tp2.Patch2DPlan(xb, 4 // xb, 1, 1, 4))
+    P, m = t.P, t.m
+    pn = t.patch_nodes.numpy().astype(np.int64)
+    off = t.seams.offsets.numpy().astype(np.int64)
+    src = t.seams.sources.numpy().astype(np.int64)
+    rows = tp2.tile_nodes(pn, P, m, xb).reshape(-1)
+    assert len(off) == t.n_nodes + 1 and off[-1] == len(rows)
+    assert np.array_equal(np.sort(src), np.arange(len(rows)))
+    node_of = np.repeat(np.arange(t.n_nodes), np.diff(off))
+    assert np.array_equal(rows[src], node_of)
+    for n in range(t.n_nodes):
+        assert (np.diff(src[off[n]:off[n + 1]]) > 0).all()
+    Xn = P * m + 1
+    edge = np.arange(Xn)
+    ry = np.where((edge % P == 0) & (edge > 0) & (edge < Xn - 1), 2, 1)
+    rx = np.where((edge % (P * xb) == 0) & (edge > 0) & (edge < Xn - 1),
+                  2, 1)
+    want = np.zeros(t.n_nodes, np.int64)
+    np.add.at(want, pn.reshape(-1),
+              np.broadcast_to(ry[:, None] * rx[None, :], pn.shape[1:])
+              .reshape(1, -1).repeat(pn.shape[0], 0).reshape(-1))
+    assert np.array_equal(np.diff(off), want)
+    assert (want >= 1).all()
+
+
+def test_plain_bricks_agree():
+    """The plain version under bricks of 1, 2 and 4 cells (1-4 tiles per
+    cell row) at m = 4: the seam-summed sweeps agree with one another to
+    f32 rounding in every flavor."""
+    base = _turek_tables(2)
+    rng = np.random.default_rng(3)
+    u, ul, vo = (torch.as_tensor(rng.standard_normal((base.n_nodes, 3)),
+                                 dtype=F32) for _ in range(3))
+    sc = dict(weight=1.3, stau=2.0, nu=0.02, c1=4.0, c2=2.0)
+    for flavor in tp2.FLAVORS:
+        got = []
+        for xb in (1, 2, 4):
+            t = tp2.replan(base, tp2.Patch2DPlan(xb, 4 // xb, 2, 2, 2))
+            tiles = tp2.patch2d_sweep_plain(t, sc, u, ul, vo, flavor, True,
+                                            False)
+            assert tiles.shape == (t.jinv.shape[0], 4, 4 // xb, 3,
+                                   2 * xb + 1, 3)
+            got.append(seam_sum_plain(t.seams, tiles.reshape(-1, 3)))
+        for g in got[1:]:
+            _close(g.numpy(), got[0].numpy())
+
+
+def test_kernel_launch_raises_on_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only (the sweep runs the
+    plain version for CPU tensors); it refuses before building anything."""
+    t = _turek_tables(1)
+    u = torch.zeros((t.n_nodes, 3))
+    sc = dict(weight=1.0, stau=1.0, nu=0.02, c1=4.0, c2=2.0)
+    with pytest.raises(TypeError):
+        tp2.Patch2DKernel.launch(t, sc, u, u, u, "increment", True, False)
+    assert tp2.Patch2DKernel.launches == 0

@@ -128,21 +128,6 @@ class Baseline:
         return rows.permute(1, 2, 5, 3, 4, 0)
 
 
-def device_total_us(fn, n=50):
-    """Mean device time in microseconds of all the CUDA kernels one call
-    of ``fn`` launches, over n calls under ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / n
-
-
 def rel_err(a, ref):
     return float((a - ref).abs().max() / ref.abs().max())
 
@@ -201,7 +186,11 @@ def main(argv=None) -> int:
     from ns_gls_tpu_torch.utils import cuda_build
     from ns_gls_tpu_torch.utils import segment as sg
     from ns_gls_tpu_torch.utils.roofline import bound, patch3d_cost
-    from ns_gls_tpu_torch.utils.timer import device_time_us, time_cuda
+    from ns_gls_tpu_torch.utils.timer import (
+        device_kernels_us,
+        device_time_us,
+        time_cuda,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -249,7 +238,7 @@ def main(argv=None) -> int:
         rec["us"] = 1e3 * time_cuda(kernel, args.reps, warmup=5)
         rec["device_us"] = device_time_us(kernel, "patch3d_kernel")
         rec["sweep_us"] = 1e3 * time_cuda(sweep, args.reps, warmup=5)
-        rec["sweep_device_us"] = device_total_us(sweep)
+        rec["sweep_device_us"] = device_kernels_us(sweep)[0]
         rec["seam_device_us"] = device_time_us(sweep, "seam_sum_kernel")
         nbytes, flops = patch3d_cost(tables, "increment", cdt, cw)
         bms, by = bound(nbytes, flops)
@@ -277,7 +266,8 @@ def main(argv=None) -> int:
                                                        "patch3d_kernel")
             rec["baseline_sweep_us"] = 1e3 * time_cuda(old_sweep, args.reps,
                                                        warmup=5)
-            rec["baseline_sweep_device_us"] = device_total_us(old_sweep)
+            rec["baseline_sweep_device_us"] = device_kernels_us(
+                old_sweep)[0]
             rec["device_us_again"] = device_time_us(kernel, "patch3d_kernel")
             del old, uP, ulP, voP
         if args.sweep:
