@@ -30,15 +30,18 @@ Phases (any failure exits non-zero and prints no result line):
    CPU-f64 series ``validation/turek_2d_re100_ref2_q2_series.json``,
 6. prism kernel vs plain: the Turek 3D driver is set up (its level
    spaces are built once and reused by phase 7); the prism kernel against
-   its plain version on every level space (m = 1, 2, 4, 8) in every
-   flavor x delta mode x consider_dt, two launches bit-identical; its time
-   and bound at each level shape,
+   its plain version on every level space (m = 1, 2, 4, 8) and on
+   synthetic single patch columns at the shapes the kernel refused before
+   its x bricks ((P, m) = (3, 16), (4, 8), (4, 16)), in every flavor x
+   delta mode x consider_dt, two launches bit-identical; its time and
+   bound at each shape,
 7. 3D main path: ``input/turek_3d_re100.json`` as given (refinement 3,
    f64 outer, f32 prism GMG levels, AMG coarse iterated by GMRES) for 3
    steps through ``Driver.run``, output off; every Newton solve
    converges, the functionals are finite and the prism kernel was
    launched; its launches per level and the time they take above their
-   bounds,
+   bounds; the fine level's f64 general sweep (a scatter by
+   ``index_put_``) twice on equal inputs, bit for bit,
 8. 3D stored series: refinement 1, 4 steps, against the JAX package's
    CPU series ``validation/turek_3d_re100_ref1_series.json``,
 9. structured kernels vs plain: the channel 3D driver is set up
@@ -72,8 +75,11 @@ Phases (any failure exits non-zero and prints no result line):
     ``input/sphere.json`` one too (phase 15); the patch-3D kernel against
     its plain version on every patch-3D level space of the first (m = 2,
     4, 8), on the single-cell-patch Q1 space of the second (m = 1) and on
-    the sphere at refinements 0 and 1 in degrees 3 and 4, in every flavor
-    x delta mode x consider_dt, two launches bit-identical; the kernel's
+    the sphere at refinements 0 and 1 in degrees 3 and 4, and on synthetic
+    single patches at the shapes it refused before its x bricks ((P, m) =
+    (1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16); their time and
+    bound logged), in every flavor x delta mode x consider_dt, two
+    launches bit-identical; the kernel's
     registers, spills and shared memory per block; the whole sweep (the
     kernel reading node-major vectors, then one seam-sum launch) against
     the plain sweep at the finest level, the seam sums bit-identical to
@@ -88,8 +94,20 @@ Phases (any failure exits non-zero and prints no result line):
     ran the general sweep in f32,
 15. transient sphere: ``input/sphere.json`` as given (Q1, refinement 0,
     BDF-2, inexact Newton, direct coarse) for 3 steps, the same checks,
-16. the kernel line (JSON) with launches, errors, times and bounds,
-17. the result line (JSON).
+16. weak outflow: ``input/hoffmann_2d_reinf.json`` as given (Q2,
+    refinement 2, u max 39, nu = 0, BDF-2, inexact Newton, Nitsche
+    outflow; f64 fine level on the general sweep, f32 GMG levels on the
+    patch-2D kernel, direct coarse) for 5 steps through ``Driver.run``,
+    output off: every Newton solve ends by the solver's criteria, the
+    solution is finite, no flux through the slip cylinder and walls, the
+    patch-2D kernel ran with one seam sum a launch and no other fused
+    kernel, the face sweep ran on every level; then the Q1 refinement-1
+    configuration, Nitsche and cut, against the JAX package's stored
+    series ``validation/hoffmann_2d_reinf_ref1_q1_series.json``; the face
+    sweep's scatter twice on equal inputs, bit for bit (phase 7 does the
+    same for the f64 general sweep on the Turek 3D fine level),
+17. the kernel line (JSON) with launches, errors, times and bounds,
+18. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -97,6 +115,7 @@ Imports nothing of the JAX package; needs the repository around it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -434,7 +453,41 @@ def prism_inputs(tables, seed=0):
                        tables.jinv.device, seed)
 
 
-def phase_prism_vs_plain(ops):
+# the (P, m) the prism kernel refused before its x bricks, on synthetic
+# single patch columns of PRISM_BRICK_NZ layers
+PRISM_BRICK_SHAPES = ((3, 16), (4, 8), (4, 16))
+PRISM_BRICK_NZ = 16
+
+
+def synthetic_prism_tables(P, m, nz, device, seed=0):
+    """Prism tables of one patch column of m x m cells and nz layers of
+    degree P, its prismatic geometry a random perturbation of the unit
+    box's lattice (a shape no input config reaches)."""
+    import numpy as np
+
+    from ns_gls_tpu_torch.ops.prism import make_prism_tables
+
+    rng = np.random.default_rng(seed)
+    NQ, Xn = P + 1, P * m + 1
+    Lq = NQ * m
+    jinv = np.zeros((1, 5, Lq, Lq))
+    jinv[0, 0] = jinv[0, 3] = m
+    jinv[0, :4] += 0.1 * m * rng.standard_normal((4, Lq, Lq))
+    jinv[0, 4] = nz
+    jxw = (1.0 + 0.2 * rng.random((1, Lq, Lq))) / (m * NQ) ** 2
+    h = np.empty((1, 2, m, m))
+    h[0, 0], h[0, 1] = 1.0 / m, 1.0 / (m * P)
+    pn = np.arange(Xn * Xn, dtype=np.int64).reshape(1, Xn, Xn)
+    return make_prism_tables(P, NQ, m, nz, Xn * Xn, pn, jinv, jxw, h,
+                             device)
+
+
+def phase_prism_vs_plain(table_sets):
+    """The prism kernel against its plain version on every tables of
+    ``table_sets`` ((label, tables)) in every flavor x delta mode x
+    consider_dt; two launches on the same inputs give the same bits at
+    the last and at every synthetic shape.  Returns (max abs err, max rel
+    err)."""
     import torch
 
     from ns_gls_tpu_torch.ops import prism as pr
@@ -442,8 +495,7 @@ def phase_prism_vs_plain(ops):
     worst_rel = 0.0
     worst_abs = 0.0
     n_cases = 0
-    for op in ops:
-        tables = op._fast.tables
+    for label, tables in table_sets:
         u, ul, vo = prism_inputs(tables)
         cases = []
         for flavor in pr.FLAVORS:
@@ -456,42 +508,45 @@ def phase_prism_vs_plain(ops):
                              pr.prism_sweep_plain, cases)
         worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
         n_cases += len(cases)
-        log(f"[6] m={tables.m} nz={tables.nz} "
-            f"patches={tables.jinv.shape[0]}: {len(cases)} cases ok")
-    # two launches on the same inputs give the same bits (no atomics)
-    tables = ops[-1]._fast.tables
-    u, ul, vo = prism_inputs(tables, seed=2)
-    args = (tables, SC3, u, ul, vo, "increment", True, False)
-    a = pr.PrismKernel.launch(*args)
-    b = pr.PrismKernel.launch(*args)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("two prism launches on the same inputs differ")
+        log(f"[6] {label}: P={tables.P} m={tables.m} nz={tables.nz} "
+            f"patches={tables.jinv.shape[0]} plan {tuple(tables.plan)}: "
+            f"{len(cases)} cases ok, max rel err {r:.3e}")
+        if label.startswith("synthetic") or tables is table_sets[-1][1]:
+            # two launches on the same inputs give the same bits (no
+            # atomics)
+            for case in (cases[4], cases[1]):
+                x = pr.PrismKernel.launch(*case)
+                y = pr.PrismKernel.launch(*case)
+                torch.cuda.synchronize()
+                if not torch.equal(x, y):
+                    raise AssertionError(f"two prism launches on the same "
+                                         f"inputs differ ({label})")
     log(f"[6] kernel vs plain: {n_cases} cases, max abs err {worst_abs:.3e}, "
-        f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL}); two m=8 "
-        f"launches bit-identical")
+        f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL}); relaunches "
+        f"bit-identical")
     return worst_abs, worst_rel
 
 
-def time_prism_levels(ops):
-    """The prism kernel's time and bound at every level shape, in the
-    timing case (increment, history, q-wise delta): {m: dict}."""
+def time_prism_levels(table_sets):
+    """The prism kernel's time and bound at the shape of every tables of
+    ``table_sets`` ((label, tables)), in the timing case (increment,
+    history, q-wise delta): {label: dict}."""
     from ns_gls_tpu_torch.ops import prism as pr
     from ns_gls_tpu_torch.utils.roofline import bound, prism_cost
     from ns_gls_tpu_torch.utils.timer import device_time_us
 
     levels = {}
-    for op in ops:
-        tables = op._fast.tables
+    for label, tables in table_sets:
         u, ul, vo = prism_inputs(tables, seed=1)
         args = (tables, SC3, u, ul, vo, "increment", True, False)
         ms = time_sweep(lambda: pr.PrismKernel.launch(*args))
         dev_us = device_time_us(lambda: pr.PrismKernel.launch(*args),
                                 "prism_kernel")
         bound_ms, by = bound(*prism_cost(tables, "increment", True, False))
-        levels[tables.m] = dict(nz=tables.nz, us=1e3 * ms, device_us=dev_us,
-                                bound_us=1e3 * bound_ms, bound_by=by)
-        log(f"[6] m={tables.m} nz={tables.nz}: launches back to back "
+        levels[label] = dict(nz=tables.nz, us=1e3 * ms, device_us=dev_us,
+                             bound_us=1e3 * bound_ms, bound_by=by)
+        log(f"[6] {label}: P={tables.P} m={tables.m} nz={tables.nz}: "
+            f"launches back to back "
             f"{1e3 * ms:.1f} us each, kernel device time {dev_us:.1f} us, "
             f"bound {1e3 * bound_ms:.2f} us by {by}")
     return levels
@@ -1072,6 +1127,52 @@ def sweep_scalars(op):
                 c1=sw.c1, c2=sw.c2)
 
 
+# the (P, m) the patch-3D kernel refused before its x bricks, on synthetic
+# single patches
+PATCH3D_BRICK_SHAPES = ((1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16))
+
+
+def synthetic_patch3d_tables(P, m, device, seed=0):
+    """Patch-3D tables of one patch of m^3 cells of degree P, its geometry
+    a random perturbation of the unit cube's lattice (a shape no input
+    config reaches)."""
+    import numpy as np
+
+    from ns_gls_tpu_torch.ops.patch3d import make_patch3d_tables
+
+    rng = np.random.default_rng(seed)
+    NQ, XP = P + 1, P * m + 1
+    # (patch, ey, entry, ez, qz, qy, ex, qx)
+    jinv = 0.1 * m * rng.standard_normal((1, m, 9, m, NQ, NQ, m, NQ))
+    for e in (0, 4, 8):
+        jinv[:, :, e] += m
+    jxw = ((1.0 + 0.2 * rng.random((1, m, m, NQ, NQ, m, NQ)))
+           / (m * NQ) ** 3)
+    h = np.empty((1, m, 2, m, m))
+    h[:, :, 0], h[:, :, 1] = 1.0 / m, 1.0 / (m * P)
+    pn = np.arange(XP ** 3, dtype=np.int64).reshape(1, XP, XP, XP)
+    return make_patch3d_tables(P, NQ, m, XP ** 3, pn, jinv, jxw, h, device)
+
+
+def time_patch3d_shapes(level_sets):
+    """The patch-3D kernel's device time and bound at each shape of
+    ``level_sets`` in the timing case of the other 3D kernels (increment,
+    the history, q-wise delta)."""
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.utils.roofline import bound, patch3d_cost
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    for label, tables, sc in level_sets:
+        u, ul, vo = patch3d_inputs(tables, seed=1)
+        args = (tables, sc, u, ul, vo, "increment", True, False)
+        dev_us = device_time_us(lambda: p3.Patch3DKernel.launch(*args),
+                                "patch3d_kernel", n=20)
+        bound_ms, by = bound(*patch3d_cost(tables, "increment", True, False))
+        log(f"[13] {label}: P={tables.P} m={tables.m} plan "
+            f"{tuple(tables.plans[('increment', True)])}: kernel device time "
+            f"{dev_us:.1f} us, bound {1e3 * bound_ms:.2f} us by {by}")
+
+
 def sphere_tables(ref, degree, device):
     """Patch-3D tables of the Gmsh sphere (spherical manifold on the
     sphere) refined ``ref`` times, degree ``degree``, f32, BDF-2."""
@@ -1148,8 +1249,7 @@ def log_patch3d_build(level_sets, flavor, consider_dt):
         if (t.P, t.m) in seen:
             continue
         seen.add((t.P, t.m))
-        plan = p3.patch3d_plan(t.P, t.m, t.jinv.shape[0], flavor,
-                               consider_dt)
+        plan = t.plans[(flavor, consider_dt)]
         a = p3.Patch3DKernel.attributes(t.P, t.m, plan, flavor, consider_dt)
         log(f"[13] patch3d_kernel<{t.P}> at m={t.m}: {a['registers']} "
             f"registers, {a['spill_bytes']} B local memory (spills), "
@@ -1221,22 +1321,33 @@ def time_patch3d(tables, sc, flavor, consider_dt, cell_wise):
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_slip(tag, drv, ids):
+    """Finite solution and no flux through the slip boundaries ``ids``;
+    returns the largest |u.n| there."""
+    import torch
+
+    u = drv.solution.current
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"[{tag}] non-finite solution")
+    nodes, normals = drv.space.boundary_node_normals(ids)
+    d = drv.space.dim
+    un = u[torch.as_tensor(nodes, device=u.device), :d]
+    flux = float((un * torch.as_tensor(normals, dtype=u.dtype,
+                                       device=u.device)).sum(1).abs().max())
+    if not flux < SLIP_FLUX_TOL:
+        raise AssertionError(f"[{tag}] slip flux {flux:.3e} on {ids}")
+    return flux
+
+
 def check_sphere_solution(tag, drv):
     """Finite solution; no normal flux through the slip walls (id 2), no
     velocity on the sphere (id 0).  Returns (max flux, max |u| there)."""
     import torch
 
+    flux = check_slip(tag, drv, [2])
     u = drv.solution.current
-    if not bool(torch.isfinite(u).all()):
-        raise AssertionError(f"[{tag}] non-finite sphere solution")
-    nodes, normals = drv.space.boundary_node_normals([2])
-    un = u[torch.as_tensor(nodes, device=u.device), :3]
-    flux = float((un * torch.as_tensor(normals, dtype=u.dtype,
-                                       device=u.device)).sum(1).abs().max())
     wall = torch.as_tensor(drv.space.boundary_nodes([0]), device=u.device)
     no_slip = float(u[wall, :3].abs().max())
-    if not flux < SLIP_FLUX_TOL:
-        raise AssertionError(f"[{tag}] slip-wall flux {flux:.3e}")
     if not no_slip < NO_SLIP_TOL:
         raise AssertionError(f"[{tag}] velocity on the sphere {no_slip:.3e}")
     return flux, no_slip
@@ -1324,7 +1435,14 @@ def phases_sphere():
     level_sets += [(f"sphere ref {ref} Q{degree}",
                     sphere_tables(ref, degree, "cuda"), SC_SHEAR)
                    for degree in (3, 4) for ref in (0, 1)]
-    max_abs, _ = phase_patch3d_vs_plain(level_sets)
+    # the shapes the kernel refused before its x bricks
+    brick_sets = [(f"synthetic P={P} m={m}",
+                   synthetic_patch3d_tables(P, m, "cuda"), SC3)
+                  for P, m in PATCH3D_BRICK_SHAPES]
+    max_abs, _ = phase_patch3d_vs_plain(level_sets + brick_sets)
+    time_patch3d_shapes(brick_sets)
+    log_patch3d_build(brick_sets, "increment", True)
+    del brick_sets
     fine = drv_s.mg_ops[-1]
     path = ("increment", fine.consider_time_derivative,
             fine.cell_wise_stabilization)
@@ -1360,6 +1478,170 @@ def phases_sphere():
         seam_sum_ms=t["seam_ms"],
         sweep_ms=t["sweep_ms"],
     )
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: the weak outflow (Hoffmann/ReInf) and the general sweep's
+# scatter order
+# ---------------------------------------------------------------------------
+HOFFMANN_STEPS = 5
+HOFFMANN_DOFS = 17592
+# the stored JAX series of the Q1 refinement-1 configuration: the port on a
+# CPU meets it to 2.7e-10 of the solution's max-abs (tests/test_torch_
+# outflow.py); the card, with its own power-iteration start vectors and the
+# patch-2D kernel's f32 sums, is held to the functionals' 1e-6 relative
+HOFFMANN_SERIES_TOL = 1e-6
+
+
+class BoundarySweepCount:
+    """Counts the calls of the weak-outflow face sweep by operator while
+    it is installed."""
+
+    def __init__(self):
+        self.calls = []          # (operator, calls)
+
+    def count(self, op) -> int:
+        return next((n for o, n in self.calls if o is op), 0)
+
+    def __enter__(self):
+        from ns_gls_tpu_torch.ops.navier_stokes import NavierStokesOperator
+
+        self._cls = NavierStokesOperator
+        self._orig = orig = NavierStokesOperator._boundary_sweep
+        calls = self.calls
+
+        def counted(op, *a, **kw):
+            for i, (o, n) in enumerate(calls):
+                if o is op:
+                    calls[i] = (o, n + 1)
+                    break
+            else:
+                calls.append((op, 1))
+            return orig(op, *a, **kw)
+
+        NavierStokesOperator._boundary_sweep = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._boundary_sweep = self._orig
+        return False
+
+
+def check_converged(tag, drv, params):
+    """Every step's Newton solve ended by the solver's own criteria: below
+    the tolerance, or accepted at its f32 floors (the solver raises on
+    anything else)."""
+    tol = params.nonlinear_tolerance
+    for i, s in enumerate(drv.step_stats):
+        log(f"[{tag}] step {i + 1}: {s['seconds']:.3f} s, Newton "
+            f"{s['newton']} (residual {s['newton_residual']:.2e}"
+            f"{'' if s['newton_residual'] <= tol else ', accepted at the f32 floor'}"
+            f"), GMRES {s['gmres']}")
+        if not math.isfinite(s["newton_residual"]):
+            raise AssertionError(f"[{tag}] step {i + 1}: Newton residual "
+                                 f"{s['newton_residual']}")
+
+
+def phase_hoffmann():
+    """``input/hoffmann_2d_reinf.json`` as given (Q2, refinement 2, u max
+    39, nu = 0, BDF-2, inexact Newton, Nitsche outflow, GMG on f32
+    patch-2D levels, direct coarse solve) for ``HOFFMANN_STEPS`` steps;
+    then the Q1 refinement-1 configuration against the JAX package's
+    stored series where it exists.  Returns the main path's patch-2D
+    launches and the driver."""
+    import torch
+
+    from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep
+
+    params = config({}, "hoffmann_2d_reinf.json")
+    drv, setup_s = setup_driver(params)
+    n_dofs = drv.space.n_nodes * 3
+    if n_dofs != HOFFMANN_DOFS:
+        raise AssertionError(f"{n_dofs} Hoffmann DoFs, want {HOFFMANN_DOFS}")
+    if not all(isinstance(op._fast, Patch2DSweep) for op in drv.mg_ops):
+        raise AssertionError("a Hoffmann GMG level holds no patch-2D sweep")
+    ops = [drv.op] + list(drv.mg_ops)
+    if not all(op.needs_face_integrals and op.face_blocks for op in ops):
+        raise AssertionError("a Hoffmann level has no weak outflow faces")
+    with BoundarySweepCount() as faces:
+        recs, run_s, counts = run_steps(drv, HOFFMANN_STEPS)
+    if len(drv.step_stats) != HOFFMANN_STEPS:
+        raise AssertionError(f"ran {len(drv.step_stats)} steps")
+    check_converged(16, drv, params)
+    for r in recs:
+        for k in ("drag", "lift", "p_diff"):
+            if not math.isfinite(r[k]):
+                raise AssertionError(f"[16] non-finite {k} at t={r['t']}")
+    flux = max(check_slip(16, drv, [2]), check_slip(16, drv, [3, 4]))
+    launches = counts["patch2d_gls_sweep"]
+    others = {k: n for k, n in counts.items()
+              if n and k not in ("patch2d_gls_sweep", "seam_sum")}
+    if launches <= 0 or counts["seam_sum"] != launches or others:
+        raise AssertionError(f"Hoffmann path launches {counts}: want "
+                             "patch2d_gls_sweep, one seam sum each, nothing "
+                             "else")
+    per_level = [faces.count(op) for op in ops]
+    if min(per_level) <= 0:
+        raise AssertionError(f"face sweep calls per level {per_level}: "
+                             "want the face sweep on every level")
+    stats = drv.step_stats
+    steady = [s["seconds"] for s in stats[2:]]
+    log(f"[16] Hoffmann/ReInf Q{params.fe_degree} ref "
+        f"{params.n_global_refinements}: {drv.mesh.n_cells} cells, {n_dofs} "
+        f"DoFs, GMG levels {[op.space.n_nodes * 3 for op in drv.mg_ops]} "
+        f"(patch-2D m = {[op._fast.m for op in drv.mg_ops]}), setup "
+        f"{setup_s:.2f} s, {HOFFMANN_STEPS} steps in {run_s:.2f} s; steady "
+        f"seconds per step (steps 3-{HOFFMANN_STEPS}) "
+        f"{sum(steady) / len(steady):.4f}; Newton "
+        f"{[s['newton'] for s in stats]}, GMRES {[s['gmres'] for s in stats]}"
+        f"; slip flux {flux:.2e}")
+    log(f"[16] kernel launches {counts} ({launches / HOFFMANN_STEPS:.1f} "
+        f"patch-2D per step); face sweep calls fine, then levels coarse to "
+        f"fine: {per_level[0]}, {per_level[:0:-1]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    path = os.path.join(ROOT, "validation",
+                        "hoffmann_2d_reinf_ref1_q1_series.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            ser = json.load(f)
+        for name, ref in ser["variants"].items():
+            from ns_gls_tpu_torch.config import Parameters
+
+            prm = Parameters.from_dict(ser["config"] | ref["overrides"])
+            d2, recs2, _, run2_s, c2 = run_driver(prm, ref["steps"])
+            worst = check_series(f"16 {name}", recs2, ref["series"],
+                                 HOFFMANN_SERIES_TOL)
+            check_converged(f"16 {name}", d2, prm)
+            check_slip(f"16 {name}", d2, [2])
+            u_ref = torch.as_tensor(ref["solution"], dtype=torch.float64,
+                                    device="cuda")
+            gap = float((d2.solution.current - u_ref).abs().max()
+                        / u_ref.abs().max())
+            log(f"[16] Q1 ref 1 {name}: {ref['steps']} steps in "
+                f"{run2_s:.2f} s, Newton "
+                f"{[s['newton'] for s in d2.step_stats]} (JAX "
+                f"{ref['newton']}), GMRES "
+                f"{[s['gmres'] for s in d2.step_stats]} (JAX "
+                f"{ref['gmres']}); max functional gap {worst:.3e} (tol "
+                f"{HOFFMANN_SERIES_TOL:.0e}); solution gap {gap:.3e} of the "
+                f"JAX max-abs; launches {c2}")
+    return dict(launches=launches, seam_launches=counts["seam_sum"],
+                stats=stats), drv
+
+
+def scatter_bits(tag, label, fn):
+    """Two calls of ``fn`` on equal inputs: the same bits?"""
+    import torch
+
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    gap = float((a - b).abs().max())
+    log(f"[{tag}] {label}: two calls on equal inputs "
+        f"{'bit-identical' if same else f'differ (max |gap| {gap:.3e})'}")
+    return same
 
 
 def main() -> int:
@@ -1429,8 +1711,16 @@ def main() -> int:
         drv3, setup3_s = setup_driver(params3)
         log(f"[6] Turek 3D ref {params3.n_global_refinements} driver set "
             f"up in {setup3_s:.2f} s")
-        pmax_abs, _ = phase_prism_vs_plain(drv3.mg_ops)
-        plevels = time_prism_levels(drv3.mg_ops)
+        turek_sets = [(f"Turek 3D level {l}", op._fast.tables)
+                      for l, op in enumerate(drv3.mg_ops)]
+        brick_sets = [(f"synthetic P={P} m={m}",
+                       synthetic_prism_tables(P, m, PRISM_BRICK_NZ, "cuda"))
+                      for P, m in PRISM_BRICK_SHAPES]
+        pmax_abs, _ = phase_prism_vs_plain(turek_sets + brick_sets)
+        tl = time_prism_levels(turek_sets)
+        plevels = {t.m: tl[label] for label, t in turek_sets}
+        time_prism_levels(brick_sets)
+        del turek_sets, brick_sets
         ptables = drv3.mg_ops[-1]._fast.tables
         u, ul, vo = prism_inputs(ptables, seed=1)
         pargs = (ptables, SC3, u, ul, vo, "increment", True, False)
@@ -1443,9 +1733,19 @@ def main() -> int:
             f"({nbytes} B, {flops} flop)")
         del u, ul, vo, pargs, ptables
 
-        # 7. 3D main path
+        # 7. 3D main path; the f64 fine level's general sweep (a scatter
+        # by index_put_) twice on equal inputs
         main3 = phase_main_path_3d(drv3, params3, setup3_s, plevels)
-        del drv3
+        u3 = drv3.solution.current
+        v3 = torch.ones_like(u3)
+        for label, fn in (
+                ("Turek 3D fine-level residual (f64 general sweep)",
+                 lambda: drv3.op.evaluate_residual(u3)),
+                ("Turek 3D fine-level vmult (f64 general sweep)",
+                 lambda: drv3.op.vmult(v3))):
+            if not scatter_bits(7, label, fn):
+                raise AssertionError(f"{label}: not deterministic")
+        del drv3, u3, v3
 
         # 8. 3D stored series
         phase_series_3d()
@@ -1506,9 +1806,22 @@ def main() -> int:
 
         # 13-15. the patch-3D kernel and the sphere
         p3_line = phases_sphere()
+        torch.cuda.empty_cache()
+        log(f"[-] sphere phases done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 16. the weak outflow: Hoffmann/ReInf as given, the Q1 series;
+        # the face sweep's scatter twice on equal inputs
+        hoff, drv_h = phase_hoffmann()
+        uh = drv_h.solution.current
+        label = "Hoffmann fine-level face sweep (f64, index_put_ scatter)"
+        if not scatter_bits(16, label, lambda: drv_h.op._boundary_sweep(
+                uh, torch.zeros_like(uh), residual_form=True)):
+            raise AssertionError(f"{label}: not deterministic")
+        del drv_h, uh
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 16. kernel line, card line, result line
+        # 17. kernel line, card line, result line
         # the patch-2D kernel: device time at m = 8 in the main path's
         # flavor, alone (ms) and with its seam sum (sweep_ms); launches
         # from phase 4, one seam sum after each
@@ -1527,6 +1840,8 @@ def main() -> int:
             sweep_ms=p2_times["sweep_ms"],
             events_ms=p2_times["events_ms"],
             seam_sum_launches=main["seam_launches"],
+            # the Hoffmann/ReInf path's launches (phase 16)
+            hoffmann_launches=hoff["launches"],
         ), dict(
             name="prism_gls_sweep",
             route="cuda",

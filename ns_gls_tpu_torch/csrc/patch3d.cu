@@ -18,18 +18,21 @@
 //                                  read in increment, 3 otherwise; vec_old:
 //                                  3), read through the patch lattices
 //   pnodes     (n_p, Xn, Xn, Xn)   int32 node id of lattice node [y][x][z]
-//   jinv       (n_p, m, 9, QB)     per cell row ey: entry r*3 + x of J^-1
-//   jxw        (n_p, m, QB)        |det J| * weight
-//   h          (n_p, m, 2, m*m)    per cell ez*m + ex of the row:
-//                                  h_min_vertex, hq
-//   tiles      (n_p, m, Xn, P+1, Xn, 4)  cell-row tiles: cell row ey, node
-//                                  plane z, its node row j, node x,
-//                                  component: the integrals over cell row
-//                                  ey only
-// with Xn = P*m + 1, QB = m*NQ^3*m and the q-points of a cell row in the
-// order (((ez*NQ + qz)*NQ + qy)*m + ex)*NQ + qx.  Node rows shared by two
-// cell rows, and the patch seams, are summed by one launch of the seam-sum
-// kernel (csrc/seam_sum.cu: per node, its tile positions in a fixed order).
+//   jinv       (n_p, m, nbx, 9, QB)  per cell row ey and x brick bx:
+//                                  entry r*3 + x of J^-1
+//   jxw        (n_p, m, nbx, QB)   |det J| * weight
+//   h          (n_p, m, nbx, 2, m*xb)  per cell ez*xb + ex of the brick's
+//                                  row: h_min_vertex, hq
+//   tiles      (n_p, m, nbx, Xn, P+1, XN, 4)  cell-row tiles: cell row ey,
+//                                  x brick bx, node plane z, its node row
+//                                  j, node P*xb*bx + x, component: the
+//                                  integrals over the cells of cell row ey
+//                                  in brick bx only
+// with Xn = P*m + 1, XN = P*xb + 1, QB = m*NQ^3*xb and the q-points of a
+// brick's cell row in the order (((ez*NQ + qz)*NQ + qy)*xb + ex)*NQ + qx.
+// Node rows shared by two cell rows, node columns shared by two bricks,
+// and the patch seams, are summed by one launch of the seam-sum kernel
+// (csrc/seam_sum.cu: per node, its tile positions in a fixed order).
 //
 // What bounds the function on an H100, at the sphere's finest level
 // (input/sphere_amg.json: P = 2, NQ = 3, m = 8, Xn = 17, 48 patches,
@@ -54,8 +57,10 @@
 //
 // Design: the prism kernel's (csrc/prism.cu) and the 3D structured one's
 // (csrc/structured.cu structured3d_kernel), with the geometry read per
-// q-point.  One thread block per (patch, cell row ey, z chunk); it walks
-// its chunk in slabs of ZS cell layers.
+// q-point.  One thread block per (patch, cell row ey, x brick, z chunk);
+// it walks its chunk in slabs of ZS cell layers.  A brick of xb cells (the
+// whole cell row where it fits) bounds every shared region and the I1
+// columns per thread whatever the patch size m.
 //  - Sum factorization along every axis: a slab is evaluated along z
 //    (E1), then x (E2), then y (E3, one thread per q-point, which maps the
 //    reference gradients with its own 3 x 3 J^-1 and runs the physics in
@@ -92,9 +97,10 @@
 //    digits (StridedDigits), with no runtime division per item.
 //  - Exact f32 FMAs, no tensor cores, no atomics: two launches on the same
 //    inputs give the same bits.
-// The slab depth and the z chunks come from the caller (ops/patch3d.py
-// patch3d_plan: least estimated waves x slabs x slab time); the launcher
-// refuses a degree, plan or input it does not take.  Launch: 256 threads,
+// The brick, slab depth and z chunks come from the caller (ops/patch3d.py
+// patch3d_brick, patch3d_plan: least estimated waves x slabs x slab time,
+// made when the tables are built); the launcher refuses a degree, plan or
+// input it does not take.  Launch: 256 threads,
 // at most 128 registers (two blocks per SM).
 //
 // Measured (tools/patch3d_levels.py, device time by torch.profiler, the
@@ -103,7 +109,10 @@
 // 6.1x the bound, 73.9 us with the seam sums (the previous gather, kernel
 // and class sums 402.9); 489.8 us at m = 16 (1,422.0), 12.6 at m = 4
 // (37.2), 6.9 at m = 2 (16.0).  Other slab depths and chunkings were
-// slower (its --sweep).
+// slower (its --sweep).  With the x bricks (the whole row one brick on
+// every sphere level): 67.0 us at m = 8 against 68.2 for the revision
+// without them in the same process, the same bits; 21.9-278.6 us at the
+// single-patch shapes it refused before (PERF.md section 6).
 #include <cuda_runtime.h>
 
 #include "gls_qpoint.cuh"
@@ -118,6 +127,8 @@ constexpr int kMaxCols = 2;
 
 struct P3Dims {
   int n_p, m;
+  int xb;      // cells per x brick
+  int nbx;     // bricks per cell row
   int ZS;      // cell layers per slab
   int ZC;      // cell layers per z chunk
   int nzb;     // z chunks per column
@@ -143,11 +154,12 @@ __host__ __device__ inline size_t p3_round4(size_t a) {
   return (a + 3) / 4 * 4;
 }
 
-// walk: the most cell layers a block walks (its chunk and the layer below)
-__host__ __device__ inline P3Smem p3_smem(int P, int m, int ZS, int walk,
+// xb: the brick's cells along x; walk: the most cell layers a block walks
+// (its chunk and the layer below)
+__host__ __device__ inline P3Smem p3_smem(int P, int xb, int ZS, int walk,
                                           int NK, int NF, int NG) {
   const size_t n1 = P + 1, NQ = P + 1;
-  const size_t Xn = (size_t)P * m + 1, LX = NQ * m;
+  const size_t Xn = (size_t)P * xb + 1, LX = NQ * xb;
   const size_t ZN = (size_t)P * ZS + 1, LZ = NQ * ZS;
   const size_t PL = n1 * Xn;          // one node plane of the cell row
   const size_t QS = LZ * NQ * LX;     // q-points per slab
@@ -157,7 +169,7 @@ __host__ __device__ inline P3Smem p3_smem(int P, int m, int ZS, int walk,
                 p3_round4(p3_max(p3_max((NF + NG) * LZ * PL, 16 * QS),
                                  8 * LZ * PL)),
                 p3_round4(p3_max((NF + 2 * NG) * XF, 12 * XF)),
-                p3_round4((size_t)ZS * m),
+                p3_round4((size_t)ZS * xb),
                 ((size_t)P * walk + 1) * PL};
 }
 
@@ -176,18 +188,21 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
                int consider_dt, int cell_wise, GlsScalars sc) {
   extern __shared__ __align__(16) float smem[];
   constexpr int n1 = P + 1, NQ = P + 1, NQ3 = NQ * NQ * NQ;
-  const int m = dm.m, ZS = dm.ZS;
+  const int m = dm.m, ZS = dm.ZS, xb = dm.xb;
   int blk = blockIdx.x;
   const int kz = blk % dm.nzb;
   blk /= dm.nzb;
+  const int bx = blk % dm.nbx;
+  blk /= dm.nbx;
   const int ey = blk % m;
   const int p = blk / m;
-  const int Xn = P * m + 1;          // nodes per lattice axis
-  const int LX = NQ * m, ZN = P * ZS + 1, LZ = NQ * ZS;
-  const int PL = n1 * Xn;
+  const int XP = P * m + 1;          // the patch's nodes per lattice axis
+  const int Xn = P * xb + 1;         // the brick's nodes along x
+  const int LX = NQ * xb, ZN = P * ZS + 1, LZ = NQ * ZS;
+  const int PL = n1 * Xn;            // one node plane of the brick's row
   const int QS = LZ * NQ * LX;
   const int XF = LZ * n1 * LX;
-  const int QB = m * NQ3 * m;
+  const int QB = m * NQ3 * xb;
   const bool incr = flavor == GLS_INCREMENT;
   const int lead_ul = incr ? 4 : 3;
   const bool need_dt_old =
@@ -213,7 +228,7 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     }
 
   const P3Smem sm =
-      p3_smem(P, m, ZS, dm.ZC + (dm.nzb > 1 ? 1 : 0), NK, NF, NG);
+      p3_smem(P, xb, ZS, dm.ZC + (dm.nzb > 1 ? 1 : 0), NK, NF, NG);
   float* sIn = smem;                     // (2, NK, ZN, n1, Xn, 4)
   float* sGeo = sIn + sm.in;             // (10, QS): J^-1 entries, JxW
   float* sA = sGeo + sm.geo;             // (NF, LZ, n1, Xn)
@@ -224,17 +239,20 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
   float* sXD = sX + NF * XF;             // (NG, LZ, n1, LX)
   float* sXZ = sXD + NG * XF;            // (NG, LZ, n1, LX)
   float* sY = sX;                        // (4 c, 3, LZ, n1, LX)
-  float* scell = sX + sm.r2;             // (ZS, m) max |u*|^2 per cell
+  float* scell = sX + sm.r2;             // (ZS, xb) max |u*|^2 per cell
   int* sIdx = reinterpret_cast<int*>(scell + sm.cells);  // (planes, n1, Xn)
 
-  // the lattice ids of the walk's node planes of rows P*ey .. P*ey + P:
-  // sIdx[zz * PL + j * Xn + x] is node (y = P*ey + j, x, z = P*lo + zz)
+  // the lattice ids of the walk's node planes of rows P*ey .. P*ey + P
+  // and the brick's nodes: sIdx[zz * PL + j * Xn + x] is node (y = P*ey +
+  // j, x = P*xb*bx + x, z = P*lo + zz)
   {
-    const size_t row0 = ((size_t)p * Xn + (size_t)P * ey) * Xn;
+    const size_t row0 = ((size_t)p * XP + (size_t)P * ey) * XP +
+                        (size_t)P * xb * bx;
     const int nzp = P * (ze - lo) + 1;
-    for (StridedDigits<2> e({nzp, PL}); e.valid(); e.next())
-      sIdx[e.d[0] * PL + e.d[1]] =
-          __ldg(pnodes + (row0 + e.d[1]) * Xn + P * lo + e.d[0]);
+    for (StridedDigits<3> e({nzp, Xn, n1}); e.valid(); e.next())
+      sIdx[e.d[0] * PL + e.d[2] * Xn + e.d[1]] =
+          __ldg(pnodes + (row0 + (size_t)e.d[2] * XP + e.d[1]) * XP +
+                P * lo + e.d[0]);
   }
   __syncthreads();
 
@@ -257,13 +275,13 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 
   // copy the geometry of the slab starting at cell layer zl0: ten runs of
   // its q-points, in the tables' order (the caller commits)
-  const size_t grow = (size_t)p * m + ey;
+  const size_t grow = ((size_t)p * m + ey) * dm.nbx + bx;
   const float* jiRow = jinv + grow * 9 * QB;
   const float* jwRow = jxw + grow * QB;
-  const float* hRow = hcell + grow * 2 * m * m;
+  const float* hRow = hcell + grow * 2 * m * xb;
   auto stage_geo = [&](int zl0, int zs) {
-    const int nq = zs * NQ3 * m;
-    const int q0 = zl0 * NQ3 * m;
+    const int nq = zs * NQ3 * xb;
+    const int q0 = zl0 * NQ3 * xb;
     if (dm.geo16) {
       for (StridedDigits<2> e({nq / 4, 10}); e.valid(); e.next()) {
         const int i = 4 * e.d[0], k = e.d[1];
@@ -285,7 +303,7 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
   float carry[kMaxCols];
 #pragma unroll
   for (int k = 0; k < kMaxCols; ++k) carry[k] = 0.f;
-  float* tileRow = tiles + grow * Xn * PL * 4;   // (plane, j, x, c)
+  float* tileRow = tiles + grow * XP * PL * 4;   // (plane, j, x, c)
 
   const int n_slabs = (ze - lo + ZS - 1) / ZS;
   stage(lo, min(ZS, ze - lo), 0);
@@ -339,7 +357,7 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     __syncthreads();
 
     // ---- E2: along x; items (cell ex, node row j, q layer iz, vector) --
-    for (StridedDigits<4> it({m, n1, lz, NK}); it.valid(); it.next()) {
+    for (StridedDigits<4> it({xb, n1, lz, NK}); it.valid(); it.next()) {
       const int ex = it.d[0], j = it.d[1], iz = it.d[2], g = it.d[3];
       const int f0 = g == 0 ? 0 : (g == 1 ? 4 : 4 + lead_ul);
       const int nc = g == 0 ? 4 : (g == 1 ? lead_ul : 3);
@@ -384,8 +402,8 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     // q-points, one warp per cell and a shuffle reduction -> scell
     if (cell_wise) {
       const int lane = threadIdx.x & 31;
-      for (int w = threadIdx.x >> 5; w < zs * m; w += blockDim.x >> 5) {
-        const int ezl = w / m, ex = w - ezl * m;
+      for (int w = threadIdx.x >> 5; w < zs * xb; w += blockDim.x >> 5) {
+        const int ezl = w / xb, ex = w - ezl * xb;
         float mx = 0.f;
         for (int t = lane; t < NQ3; t += 32) {
           const int qz = t / (NQ * NQ), qy = (t / NQ) % NQ, qx = t % NQ;
@@ -407,7 +425,7 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        if (lane == 0) scell[ezl * m + ex] = mx;
+        if (lane == 0) scell[ezl * xb + ex] = mx;
       }
       __syncthreads();
     }
@@ -467,12 +485,12 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
       for (int e = 0; e < 9; ++e) ji[e] = sGeo[e * QS + q];
 
       // stabilization parameters
-      const int cell = (zl0 + ezl) * m + ex;
+      const int cell = (zl0 + ezl) * xb + ex;
       float d1, d2;
       if (cell_wise) {
-        gls_delta_cell(sc, __ldg(hRow + cell), scell[ezl * m + ex], d1, d2);
+        gls_delta_cell(sc, __ldg(hRow + cell), scell[ezl * xb + ex], d1, d2);
       } else {
-        gls_delta_q(sc, __ldg(hRow + m * m + cell),
+        gls_delta_q(sc, __ldg(hRow + m * xb + cell),
                     lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], d1, d2);
       }
 
@@ -566,10 +584,10 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     __syncthreads();
 
     // ---- I2: along x; items (cell ex, node row j, q layer iz) -> nodes
-    // P*ex .. P*ex+P-1 (and P*m for the last cell); the left node also
-    // takes cell ex-1's part
+    // P*ex .. P*ex+P-1 (and P*xb for the brick's last cell); the left node
+    // also takes cell ex-1's part
     const int VS = LZ * PL;        // V kinds: value -> z
-    for (StridedDigits<3> it({m, n1, lz}); it.valid(); it.next()) {
+    for (StridedDigits<3> it({xb, n1, lz}); it.valid(); it.next()) {
       const int ex = it.d[0], j = it.d[1], iz = it.d[2];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -594,7 +612,7 @@ patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
         float* vvp = sV + ((c * 2 * LZ + iz) * n1 + j) * Xn + P * ex;
 #pragma unroll
         for (int i = 0; i < n1; ++i) {
-          if (i == P && ex != m - 1) break;
+          if (i == P && ex != xb - 1) break;
           float vv = 0.f, vz = 0.f;
 #pragma unroll
           for (int qx = 0; qx < NQ; ++qx) {
@@ -672,25 +690,26 @@ int launch_tp(const float* u, const float* ul, const float* vo,
               const int* pnodes, const float* jinv, const float* jxw,
               const float* h, const float* S1, const float* D1, float* tiles,
               int n_p, int m, int flavor, int consider_dt, int cell_wise,
-              GlsScalars sc, int ZS, int nzb, cudaStream_t stream) {
+              GlsScalars sc, int xb, int ZS, int nzb, cudaStream_t stream) {
   constexpr int NQ3 = (P + 1) * (P + 1) * (P + 1);
-  if (n_p < 0 || m < 1 || ZS < 1 || ZS > m || nzb < 1 || nzb > m)
+  if (n_p < 0 || m < 1 || xb < 1 || m % xb != 0 || ZS < 1 || ZS > m ||
+      nzb < 1 || nzb > m)
     return (int)cudaErrorInvalidValue;
-  if (4 * (P + 1) * (P * m + 1) > kMaxCols * kThreads)
+  if (4 * (P + 1) * (P * xb + 1) > kMaxCols * kThreads)
     return (int)cudaErrorInvalidValue;
   const int ZC = (m + nzb - 1) / nzb;
   if ((nzb - 1) * ZC >= m) return (int)cudaErrorInvalidValue;
   // the node vectors are read 16 bytes a node
   if (!aligned16(u) || !aligned16(ul) || !aligned16(vo))
     return (int)cudaErrorInvalidValue;
-  const int geo16 = (NQ3 * m) % 4 == 0 && aligned16(jinv) && aligned16(jxw);
+  const int geo16 = (NQ3 * xb) % 4 == 0 && aligned16(jinv) && aligned16(jxw);
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
       consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
   const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
   const int NK = need_dt_old ? 3 : 2;
   const size_t bytes =
-      p3_smem(P, m, ZS, ZC + (nzb > 1 ? 1 : 0), NK, NF, incr ? 8 : 4)
+      p3_smem(P, xb, ZS, ZC + (nzb > 1 ? 1 : 0), NK, NF, incr ? 8 : 4)
           .total() * sizeof(float);
   // the opt-in limit and the kernel's dynamic shared-memory attribute are
   // looked up and raised once, not at every launch
@@ -714,8 +733,8 @@ int launch_tp(const float* u, const float* ul, const float* vo,
     attr_bytes = bytes;
   }
   if (n_p == 0) return 0;
-  P3Dims dm{n_p, m, ZS, ZC, nzb, geo16};
-  patch3d_kernel<P><<<n_p * m * nzb, kThreads, bytes, stream>>>(
+  P3Dims dm{n_p, m, xb, m / xb, ZS, ZC, nzb, geo16};
+  patch3d_kernel<P><<<n_p * m * (m / xb) * nzb, kThreads, bytes, stream>>>(
       u, ul, vo, pnodes, jinv, jxw, h, S1, D1, tiles, dm, flavor,
       consider_dt, cell_wise, sc);
   return (int)cudaGetLastError();
@@ -724,23 +743,23 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 }  // namespace
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// Degrees 1-4 with NQ = P + 1 Gauss points; zs cell layers per slab and
-// nzb z chunks per column (ops/patch3d.py patch3d_plan).  Returns 0, a
-// CUDA error code, or 1 (cudaErrorInvalidValue) for a degree, plan or
-// input it does not take.
+// Degrees 1-4 with NQ = P + 1 Gauss points; xb cells per x brick (a
+// divisor of m), zs cell layers per slab and nzb z chunks per column
+// (ops/patch3d.py patch3d_plan).  Returns 0, a CUDA error code, or 1
+// (cudaErrorInvalidValue) for a degree, plan or input it does not take.
 extern "C" int patch3d_sweep_launch(
     const float* u, const float* ul, const float* vo, const int* pnodes,
     const float* jinv, const float* jxw, const float* h, const float* S1,
     const float* D1, float* tiles, int n_p, int P, int NQ, int m, int flavor,
     int consider_dt, int cell_wise, float weight, float stau, float nu,
-    float c1, float c2, int zs, int nzb, void* stream) {
+    float c1, float c2, int xb, int zs, int nzb, void* stream) {
   GlsScalars sc{weight, stau, nu, c1, c2};
   cudaStream_t st = (cudaStream_t)stream;
 #define P3_CASE(PP)                                                         \
   if (P == PP && NQ == PP + 1)                                              \
     return launch_tp<PP>(u, ul, vo, pnodes, jinv, jxw, h, S1, D1, tiles,    \
-                         n_p, m, flavor, consider_dt, cell_wise, sc, zs,    \
-                         nzb, st);
+                         n_p, m, flavor, consider_dt, cell_wise, sc, xb,    \
+                         zs, nzb, st);
   P3_CASE(1)
   P3_CASE(2)
   P3_CASE(3)
@@ -751,11 +770,11 @@ extern "C" int patch3d_sweep_launch(
 
 // What the compiler gave patch3d_kernel<P>: registers per thread, local
 // memory (spills) and static shared memory per thread block in bytes; and
-// the dynamic shared memory of one block in bytes for the plan (zs, nzb)
-// on patches of m cells a side and the flavor's fields.  Returns 0 or a
-// CUDA error code.
-extern "C" int patch3d_attributes(int P, int m, int zs, int nzb, int flavor,
-                                  int consider_dt, int* regs,
+// the dynamic shared memory of one block in bytes for the plan (xb, zs,
+// nzb) on patches of m cells a side and the flavor's fields.  Returns 0 or
+// a CUDA error code.
+extern "C" int patch3d_attributes(int P, int m, int xb, int zs, int nzb,
+                                  int flavor, int consider_dt, int* regs,
                                   int* local_bytes, int* static_smem,
                                   long long* dynamic_smem) {
   cudaFuncAttributes a{};
@@ -765,7 +784,8 @@ extern "C" int patch3d_attributes(int P, int m, int zs, int nzb, int flavor,
   if (P == 3) err = cudaFuncGetAttributes(&a, patch3d_kernel<3>);
   if (P == 4) err = cudaFuncGetAttributes(&a, patch3d_kernel<4>);
   if (err != cudaSuccess) return (int)err;
-  if (m < 1 || nzb < 1 || nzb > m) return (int)cudaErrorInvalidValue;
+  if (m < 1 || xb < 1 || m % xb != 0 || nzb < 1 || nzb > m)
+    return (int)cudaErrorInvalidValue;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
       consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
@@ -774,7 +794,7 @@ extern "C" int patch3d_attributes(int P, int m, int zs, int nzb, int flavor,
   *local_bytes = (int)a.localSizeBytes;
   *static_smem = (int)a.sharedSizeBytes;
   *dynamic_smem = (long long)(
-      p3_smem(P, m, zs, ZC + (nzb > 1 ? 1 : 0), need_dt_old ? 3 : 2,
+      p3_smem(P, xb, zs, ZC + (nzb > 1 ? 1 : 0), need_dt_old ? 3 : 2,
               4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0), incr ? 8 : 4)
           .total() * sizeof(float));
   return 0;

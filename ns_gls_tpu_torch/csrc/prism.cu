@@ -20,13 +20,15 @@
 //   jxw   (n_p, Lq, Lq)              2D factor of |det J| * weight
 //   h     (n_p, 2, m, m)             per 2D cell: h_min_vertex, hq
 //   wz    (NQ)                       z Gauss weights
-//   out   (4, n_p, m, P+1, Xn, Nzn)  cell-row tiles: row (ey, j) holds
-//                                    node row P*ey + j integrated over
-//                                    cell row ey only
-// with Xn = P*m + 1, Nzn = P*nz + 1, Lq = NQ*m, q-point row iy = ey*NQ+qy,
-// column ix = ex*NQ + qx.  Node rows shared by two cell rows (and patch
-// seams) are left to the caller's seam compress, which sums whole z-runs
-// in a fixed order.
+//   out   (4, n_p, m, nbx, P+1, XN, Nzn)  cell-row tiles: row (ey, bx, j)
+//                                    holds node row P*ey + j of x brick bx
+//                                    (nodes P*xb*bx .. P*xb*(bx+1))
+//                                    integrated over the cells of cell row
+//                                    ey in that brick only
+// with Xn = P*m + 1, XN = P*xb + 1, Nzn = P*nz + 1, Lq = NQ*m, q-point row
+// iy = ey*NQ+qy, column ix = ex*NQ + qx.  Node rows shared by two cell
+// rows, node columns shared by two bricks, and patch seams are left to the
+// caller's seam compress, which sums whole z-runs in a fixed order.
 //
 // What bounds the function on an H100, at the Turek 3D ref-3 shapes
 // (P = 2, NQ = 3, m = 8, nz = 32: Xn = 17, Nzn = 65, 100 patches, 204,800
@@ -47,8 +49,10 @@
 // us per launch at that shape (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 // section 6), 29.7x the bound.
 //
-// Design.  One thread block per (patch, cell row ey, z chunk); it walks
-// its chunk of the z column in slabs of ZS cell layers.
+// Design.  One thread block per (patch, cell row ey, x brick, z chunk);
+// it walks its chunk of the z column in slabs of ZS cell layers.  A brick
+// of xb cells (the whole cell row where it fits) bounds every shared
+// region and the I1 columns per thread whatever the patch size m.
 //  - Sum factorization one axis at a time, the order of the TPU kernel's
 //    band products: a slab is evaluated along z (E1), then x (E2), then
 //    y (E3, one thread per q-point, which then runs the physics in
@@ -63,18 +67,21 @@
 //    straight to the output tile.
 //  - Overlapped slab loads: the next slab's node tiles are copied to
 //    shared memory with cp.async (double buffer) while this slab computes.
-//  - z chunks: the launcher splits each z column in two when each half
-//    still holds two slabs; the shorter walks and twice the blocks cut the
-//    time at m = 4 and 8.  A chunk's block also evaluates the cell layer
+//  - z chunks: the plan splits each z column in two when each half still
+//    holds two slabs; the shorter walks and twice the blocks cut the time
+//    at m = 4 and 8.  A chunk's block also evaluates the cell layer
 //    just below it and writes only the z-planes it owns (the plane on a
 //    chunk seam gets both layers' contributions in the same order as in
 //    one walk), so the output layout, the seam compress and the plain
 //    version are those of one walk.
 //  - Exact f32 FMAs, no tensor cores, no atomics: two launches on the
 //    same inputs give the same bits.
-// Launch: 256 threads, at most 128 registers (two blocks per SM); at the
-// ref-3 shape slabs of 2 cell layers (432 q-points) and each column in two
-// z chunks: 1,600 blocks of ~100 KB of shared memory.
+// Launch: 256 threads, at most 128 registers (two blocks per SM).  The
+// brick, slab depth and z chunks come from the caller (ops/prism.py
+// prism_plan, made when the tables are built); the launcher refuses a
+// degree, plan or input it does not take.  At the ref-3 shape: the whole
+// cell row as one brick, slabs of 2 cell layers (432 q-points) and each
+// column in two z chunks: 1,600 blocks of ~100 KB of shared memory.
 //
 // The loops over a stage's items advance their indices as mixed-radix
 // digits (StridedDigits) and the slab copies take their field's first
@@ -85,7 +92,11 @@
 // H100 80GB HBM3, 700.00 W): 586.2 us at m = 8 (the previous design
 // 2,013.4 us in the same process), 8.6x the bound; 89.0 us at m = 4
 // (290.1), 14.1 us at m = 2 (35.7), 5.6 us at m = 1 (13.1).  Other slab
-// depths and chunk counts were slower (its --sweep).  The kernel is bound
+// depths and chunk counts were slower (its --sweep).  With the x bricks
+// (the whole row one brick on every Turek 3D level): 592.3 us at m = 8
+// against 589.9 for the revision without them in the same process, the
+// same bits; 89-91 us at the shapes it refused before, (P, m) = (3, 16),
+// (4, 8), (4, 16) with 16 layers (PERF.md section 6).  The kernel is bound
 // by latency (barriers, the physics' dependency chains at 16 warps per
 // SM), not by the FMA units or shared-memory bandwidth;
 // tools/prism_stage_clocks.py counts the cycles of each stage.
@@ -98,13 +109,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-// q-points per slab the launcher aims for (about two per thread)
-constexpr int kSlabQ = 512;
 // I1 columns (4 components x node rows x nodes) a thread may own
 constexpr int kMaxCols = 4;
 
 struct PrismDims {
   int n_p, m, nz;
+  int xb;    // cells per x brick
+  int nbx;   // bricks per cell row
   int ZS;    // cell layers per slab
   int ZC;    // cell layers per z chunk (a block's share of the column)
   int nzb;   // z chunks per column
@@ -122,11 +133,12 @@ __host__ __device__ inline size_t max2(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
-__host__ __device__ inline PrismSmem prism_smem(int P, int NQ, int m,
+// (xb: the brick's cells along x)
+__host__ __device__ inline PrismSmem prism_smem(int P, int NQ, int xb,
                                                 int ZS, int NF, int NG) {
-  const size_t n1 = P + 1, Xn = P * m + 1, Lq = NQ * m;
-  const size_t NR = n1 * Xn, ZN = P * ZS + 1, LZ = NQ * ZS;
-  const size_t QS = NQ * Lq * LZ, XS = n1 * Lq * LZ;
+  const size_t n1 = P + 1, XN = P * xb + 1, LX = NQ * xb;
+  const size_t NR = n1 * XN, ZN = P * ZS + 1, LZ = NQ * ZS;
+  const size_t QS = NQ * LX * LZ, XS = n1 * LX * LZ;
   return PrismSmem{2 * NF * NR * ZN,
                    max2(max2((NF + NG) * NR * LZ, 16 * QS), 8 * NR * LZ),
                    max2((NF + 2 * NG) * XS, 12 * XS), QS};
@@ -143,19 +155,24 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
              GlsScalars sc) {
   extern __shared__ float smem[];
   constexpr int n1 = P + 1;
-  const int m = dm.m, nz = dm.nz, ZS = dm.ZS;
+  const int m = dm.m, nz = dm.nz, ZS = dm.ZS, xb = dm.xb;
   int b = blockIdx.x;
   const int kz = b % dm.nzb;
   b /= dm.nzb;
+  const int bx = b % dm.nbx;
+  b /= dm.nbx;
   const int ey = b % m;
   const int p = b / m;
-  const int Xn = P * m + 1;
+  const int Xn = P * m + 1;       // the patch's nodes along x and y
+  const int XN = P * xb + 1;      // the brick's nodes along x
   const int Nzn = P * nz + 1;
-  const int Lq = NQ * m;
-  const int NR = n1 * Xn;
+  const int Lq = NQ * m;          // the patch's q-points along x and y
+  const int LX = NQ * xb;         // the brick's q-points along x
+  const int ex0 = bx * xb;        // the brick's first cell
+  const int NR = n1 * XN;
   const int ZN = P * ZS + 1;
   const int LZ = NQ * ZS;
-  const int QS = NQ * Lq * LZ;
+  const int QS = NQ * LX * LZ;
   const bool incr = flavor == GLS_INCREMENT;
   const int lead_ul = incr ? 4 : 3;
   const bool need_dt_old =
@@ -179,26 +196,29 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
       D1[q][i] = __ldg(D1g + q * n1 + i);
     }
 
-  const PrismSmem sm = prism_smem(P, NQ, m, ZS, NF, NG);
-  const int XS = n1 * Lq * LZ;                        // one field's X
+  const PrismSmem sm = prism_smem(P, NQ, xb, ZS, NF, NG);
+  const int XS = n1 * LX * LZ;                        // one field's X
   float* sIn = smem;                                  // (2, NF, NR, ZN)
   float* sA = sIn + sm.in;                            // (NF, NR, LZ)
   float* sAz = sA + NF * NR * LZ;                     // (NG, NR, LZ)
   float* sW = sA;                                     // (4 k, 4 c, QS)
   float* sV = sA;                                     // (4 c, 2, NR, LZ)
-  float* sX = sA + sm.r1;                             // (NF, n1, Lq, LZ)
-  float* sXD = sX + NF * XS;                          // (NG, n1, Lq, LZ)
-  float* sXZ = sXD + NG * XS;                         // (NG, n1, Lq, LZ)
-  float* sY = sX;                                     // (4 c, 3, n1, Lq, LZ)
+  float* sX = sA + sm.r1;                             // (NF, n1, LX, LZ)
+  float* sXD = sX + NF * XS;                          // (NG, n1, LX, LZ)
+  float* sXZ = sXD + NG * XS;                         // (NG, n1, LX, LZ)
+  float* sY = sX;                                     // (4 c, 3, n1, LX, LZ)
   float* susq = sX + sm.r2;                           // (QS)
 
   const size_t cstride = (size_t)dm.n_p * Xn * Xn * Nzn;
-  const size_t rows0 = ((size_t)p * Xn + (size_t)P * ey) * Xn;  // row j=0,x=0
-  const float* ji = jinv + (size_t)p * 5 * Lq * Lq;
-  const float* jw = jxw + (size_t)p * Lq * Lq;
-  const float* hp = hcell + (size_t)p * 2 * m * m;
-  const size_t ostride = (size_t)dm.n_p * m * NR * Nzn;
-  const size_t orow = ((size_t)p * m + ey) * NR * Nzn;
+  // row j = 0, node x = the brick's first of the block's node rows
+  const size_t rows0 =
+      ((size_t)p * Xn + (size_t)P * ey) * Xn + (size_t)P * ex0;
+  // the brick's first q-point column and cell of the patch tables
+  const float* ji = jinv + (size_t)p * 5 * Lq * Lq + ex0 * NQ;
+  const float* jw = jxw + (size_t)p * Lq * Lq + ex0 * NQ;
+  const float* hp = hcell + (size_t)p * 2 * m * m + ex0;
+  const size_t ostride = (size_t)dm.n_p * m * dm.nbx * NR * Nzn;
+  const size_t orow = (((size_t)p * m + ey) * dm.nbx + bx) * NR * Nzn;
   const int LL = Lq * Lq;
 
   // the block's first node row of every staged field
@@ -213,14 +233,15 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
   __syncthreads();
 
   // copy the node tiles of the slab starting at cell layer zl0 into
-  // buffer buf (cp.async; the caller commits)
+  // buffer buf (cp.async; the caller commits): node column (j, x) of the
+  // brick is node row j, node P*ex0 + x of the patch tile
   auto stage = [&](int zl0, int zs, int buf) {
     const int zn = P * zs + 1;
     float* dst0 = sIn + buf * NF * NR * ZN;
-    for (StridedDigits<3> e({zn, NR, NF}); e.valid(); e.next()) {
-      const int zl = e.d[0], r = e.d[1], f = e.d[2];
-      cp_async4(dst0 + (f * NR + r) * ZN + zl,
-                sField[f] + (r * Nzn + P * zl0 + zl));
+    for (StridedDigits<4> e({zn, XN, n1, NF}); e.valid(); e.next()) {
+      const int zl = e.d[0], x = e.d[1], j = e.d[2], f = e.d[3];
+      cp_async4(dst0 + (f * NR + j * XN + x) * ZN + zl,
+                sField[f] + ((j * Xn + x) * Nzn + P * zl0 + zl));
     }
   };
 
@@ -273,13 +294,13 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     __syncthreads();
 
     // ---- E2: along x, items (f, j, ex, iz) -> NQ q-columns each --------
-    for (StridedDigits<4> it({lz, m, n1, NF}); it.valid(); it.next()) {
+    for (StridedDigits<4> it({lz, xb, n1, NF}); it.valid(); it.next()) {
       const int iz = it.d[0], ex = it.d[1], j = it.d[2], f = it.d[3];
-      const int a0 = (f * NR + j * Xn + P * ex) * LZ + iz;
+      const int a0 = (f * NR + j * XN + P * ex) * LZ + iz;
       float av[n1];
 #pragma unroll
       for (int i = 0; i < n1; ++i) av[i] = sA[a0 + i * LZ];
-      const int x0 = ((f * n1 + j) * Lq + ex * NQ) * LZ + iz;
+      const int x0 = ((f * n1 + j) * LX + ex * NQ) * LZ + iz;
 #pragma unroll
       for (int qx = 0; qx < NQ; ++qx) {
         float v = 0.f;
@@ -306,22 +327,22 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     }
     __syncthreads();
 
-    // q-point q of the slab: q = (qy * Lq + ix) * lz + iz
+    // q-point q of the slab: q = (qy * LX + ix) * lz + iz, ix the brick's
     // ---- E3a (cell-wise delta): |u*|^2 at every q-point ---------------
     if (cell_wise) {
-      for (StridedDigits<3> it({lz, Lq, NQ}); it.valid(); it.next()) {
+      for (StridedDigits<3> it({lz, LX, NQ}); it.valid(); it.next()) {
         const int iz = it.d[0], ix = it.d[1], qy = it.d[2];
-        const int q = (qy * Lq + ix) * lz + iz;
+        const int q = (qy * LX + ix) * lz + iz;
         float Sy[n1];
 #pragma unroll
         for (int j = 0; j < n1; ++j) Sy[j] = __ldg(S1g + qy * n1 + j);
         float us = 0.f;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float* xr = sX + ((4 + c) * n1 * Lq + ix) * LZ + iz;
+          const float* xr = sX + ((4 + c) * n1 * LX + ix) * LZ + iz;
           float v = 0.f;
 #pragma unroll
-          for (int j = 0; j < n1; ++j) v = fmaf(Sy[j], xr[j * Lq * LZ], v);
+          for (int j = 0; j < n1; ++j) v = fmaf(Sy[j], xr[j * LX * LZ], v);
           us = fmaf(v, v, us);
         }
         susq[q] = us;
@@ -330,9 +351,9 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     }
 
     // ---- E3b: along y, delta, physics, test-function weights ----------
-    for (StridedDigits<3> it({lz, Lq, NQ}); it.valid(); it.next()) {
+    for (StridedDigits<3> it({lz, LX, NQ}); it.valid(); it.next()) {
       const int iz = it.d[0], ix = it.d[1], qy = it.d[2];
-      const int q = (qy * Lq + ix) * lz + iz;
+      const int q = (qy * LX + ix) * lz + iz;
       const int ex = ix / NQ;
       const int ezl = iz / NQ, qz = iz - ezl * NQ;
       // this q-point's row of the 1D tables (qy is not a compile-time
@@ -347,16 +368,16 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
       // value and reference gradients of field f at this q-point
       auto eval = [&](int f, float& v, float& gx, float& gy, float& gz,
                       bool grads) {
-        const int o = (f * n1 * Lq + ix) * LZ + iz;
+        const int o = (f * n1 * LX + ix) * LZ + iz;
         v = gx = gy = gz = 0.f;
 #pragma unroll
         for (int j = 0; j < n1; ++j) {
-          const float xv = sX[o + j * Lq * LZ];
+          const float xv = sX[o + j * LX * LZ];
           v = fmaf(Sy[j], xv, v);
           if (grads) {
             gy = fmaf(Dy[j], xv, gy);
-            gx = fmaf(Sy[j], sXD[o + j * Lq * LZ], gx);
-            gz = fmaf(Sy[j], sXZ[o + j * Lq * LZ], gz);
+            gx = fmaf(Sy[j], sXD[o + j * LX * LZ], gx);
+            gz = fmaf(Sy[j], sXZ[o + j * LX * LZ], gz);
           }
         }
       };
@@ -392,7 +413,7 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
           for (int bq = 0; bq < NQ; ++bq)       // qx'
 #pragma unroll
             for (int c = 0; c < NQ; ++c)        // qz'
-              msq = fmaxf(msq, susq[(a * Lq + ex * NQ + bq) * lz +
+              msq = fmaxf(msq, susq[(a * LX + ex * NQ + bq) * lz +
                                     ezl * NQ + c]);
         gls_delta_cell(sc, __ldg(hp + cell2d), msq, d1, d2);
       } else {
@@ -448,12 +469,12 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
     __syncthreads();
 
     // ---- I3: along y, items (c, ix, iz) -> node rows j -----------------
-    for (StridedDigits<3> it({lz, Lq, 4}); it.valid(); it.next()) {
+    for (StridedDigits<3> it({lz, LX, 4}); it.valid(); it.next()) {
       const int iz = it.d[0], ix = it.d[1], c = it.d[2];
       float wv[NQ], wx[NQ], wy[NQ], wzv[NQ];
 #pragma unroll
       for (int qy = 0; qy < NQ; ++qy) {
-        const int q = (qy * Lq + ix) * lz + iz;
+        const int q = (qy * LX + ix) * lz + iz;
         wv[qy] = sW[c * QS + q];
         wx[qy] = sW[(4 + c) * QS + q];
         wy[qy] = sW[(8 + c) * QS + q];
@@ -469,20 +490,21 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
           yx = fmaf(S1[qy][j], wx[qy], yx);
           yz = fmaf(S1[qy][j], wzv[qy], yz);
         }
-        const int o = ((c * 3 * n1 + j) * Lq + ix) * LZ + iz;
+        const int o = ((c * 3 * n1 + j) * LX + ix) * LZ + iz;
         sY[o] = yv;
-        sY[o + n1 * Lq * LZ] = yx;
-        sY[o + 2 * n1 * Lq * LZ] = yz;
+        sY[o + n1 * LX * LZ] = yx;
+        sY[o + 2 * n1 * LX * LZ] = yz;
       }
     }
     __syncthreads();
 
     // ---- I2: along x, items (c, j, ex, iz) -> nodes P*ex .. P*ex+P-1 --
-    // (and P*m for the last cell); the left node also takes cell ex-1's
-    for (StridedDigits<4> it({lz, m, n1, 4}); it.valid(); it.next()) {
+    // (and P*xb for the brick's last cell); the left node also takes cell
+    // ex-1's
+    for (StridedDigits<4> it({lz, xb, n1, 4}); it.valid(); it.next()) {
       const int iz = it.d[0], ex = it.d[1], j = it.d[2], c = it.d[3];
-      const int o = ((c * 3 * n1 + j) * Lq + ex * NQ) * LZ + iz;
-      const int YS = n1 * Lq * LZ;   // Yv -> Yx -> Yz
+      const int o = ((c * 3 * n1 + j) * LX + ex * NQ) * LZ + iz;
+      const int YS = n1 * LX * LZ;   // Yv -> Yx -> Yz
       float yv[NQ], yx[NQ], yz[NQ];
 #pragma unroll
       for (int qx = 0; qx < NQ; ++qx) {
@@ -500,11 +522,11 @@ prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
           lzv = fmaf(S1[qx][P], sY[ol + 2 * YS], lzv);
         }
       }
-      float* vvp = sV + ((c * 2) * NR + j * Xn + P * ex) * LZ + iz;
+      float* vvp = sV + ((c * 2) * NR + j * XN + P * ex) * LZ + iz;
       float* vzp = vvp + NR * LZ;
 #pragma unroll
       for (int i = 0; i < n1; ++i) {
-        if (i == P && ex != m - 1) break;
+        if (i == P && ex != xb - 1) break;
         float vv = 0.f, vz = 0.f;
 #pragma unroll
         for (int qx = 0; qx < NQ; ++qx) {
@@ -570,28 +592,22 @@ int launch_tp(const float* u, const float* ul, const float* vo,
               const float* jinv, const float* jxw, const float* h,
               const float* S1, const float* D1, const float* wz, float* out,
               int n_p, int m, int nz, int flavor, int consider_dt,
-              int cell_wise, GlsScalars sc, int zs_req, int nzb_req,
+              int cell_wise, GlsScalars sc, int xb, int ZS, int nzb,
               cudaStream_t stream) {
-  constexpr int NQ3 = NQ * NQ * NQ;
-  const int Xn = P * m + 1;
-  if (4 * (P + 1) * Xn > kMaxCols * kThreads)
+  if (n_p < 0 || m < 1 || nz < 1 || xb < 1 || m % xb != 0 || ZS < 1 ||
+      ZS > nz || nzb < 1 || nzb > nz)
     return (int)cudaErrorInvalidValue;
-  int ZS = zs_req > 0 ? zs_req : kSlabQ / (m * NQ3);
-  ZS = ZS < 1 ? 1 : (ZS > nz ? nz : ZS);
-  // z chunks: each column in two halves when each half still holds two
-  // slabs (the measured best at m = 4 and 8; the coarser levels walk one
-  // or two slabs and keep their columns whole)
-  int nzb = nzb_req > 0 ? nzb_req : (nz >= 4 * ZS ? 2 : 1);
-  nzb = nzb > nz ? nz : nzb;
+  if (4 * (P + 1) * (P * xb + 1) > kMaxCols * kThreads)
+    return (int)cudaErrorInvalidValue;
   const int ZC = (nz + nzb - 1) / nzb;
-  nzb = (nz + ZC - 1) / ZC;
+  if ((nzb - 1) * ZC >= nz) return (int)cudaErrorInvalidValue;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
       consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
   const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
   const int NG = incr ? 8 : 4;
   const size_t bytes =
-      prism_smem(P, NQ, m, ZS, NF, NG).total() * sizeof(float);
+      prism_smem(P, NQ, xb, ZS, NF, NG).total() * sizeof(float);
   // the opt-in limit and the kernel's dynamic shared-memory attribute are
   // looked up and raised once, not at every launch
   static int max_optin = 0;
@@ -615,32 +631,34 @@ int launch_tp(const float* u, const float* ul, const float* vo,
     if (err != cudaSuccess) return (int)err;
     attr_bytes = bytes;
   }
-  if (n_p == 0 || nz == 0) return 0;
-  PrismDims dm{n_p, m, nz, ZS, ZC, nzb};
-  prism_kernel<P, NQ><<<n_p * m * nzb, kThreads, bytes, stream>>>(
-      u, ul, vo, jinv, jxw, h, S1, D1, wz, out, dm, flavor, consider_dt,
-      cell_wise, sc);
+  if (n_p == 0) return 0;
+  PrismDims dm{n_p, m, nz, xb, m / xb, ZS, ZC, nzb};
+  prism_kernel<P, NQ><<<n_p * m * (m / xb) * nzb, kThreads, bytes,
+                        stream>>>(u, ul, vo, jinv, jxw, h, S1, D1, wz, out,
+                                  dm, flavor, consider_dt, cell_wise, sc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---- host launcher (plain C interface, bound with ctypes) -------------
-// zs_req / nzb_req: cell layers per slab and z chunks per column, 0 for
-// the launcher's choice.  Degrees 1-4 with NQ = P + 1 Gauss points.
+// xb, zs, nzb: cells per x brick (a divisor of m), cell layers per slab and
+// z chunks per column (ops/prism.py prism_plan).  Degrees 1-4 with NQ =
+// P + 1 Gauss points.  Returns 0, a CUDA error code, or 1
+// (cudaErrorInvalidValue) for a degree, plan or input it does not take.
 extern "C" int prism_sweep_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
     const float* wz, float* out, int n_p, int P, int NQ, int m, int nz,
     int flavor, int consider_dt, int cell_wise, float weight, float stau,
-    float nu, float c1, float c2, int zs_req, int nzb_req, void* stream) {
+    float nu, float c1, float c2, int xb, int zs, int nzb, void* stream) {
   GlsScalars sc{weight, stau, nu, c1, c2};
   cudaStream_t st = (cudaStream_t)stream;
 #define PRISM_CASE(PP)                                                      \
   if (P == PP && NQ == PP + 1)                                              \
     return launch_tp<PP, PP + 1>(u, ul, vo, jinv, jxw, h, S1, D1, wz, out,  \
                                  n_p, m, nz, flavor, consider_dt, cell_wise, \
-                                 sc, zs_req, nzb_req, st);
+                                 sc, xb, zs, nzb, st);
   PRISM_CASE(1)
   PRISM_CASE(2)
   PRISM_CASE(3)

@@ -53,8 +53,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ns_gls_tpu_torch.ops.prism import band_1d
-from ns_gls_tpu_torch.ops.structured import _delta, _physics
+from ns_gls_tpu_torch.ops.prism import band_1d, tile_nodes
+from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
 
 FLAVORS = ("fixed", "increment", "residual")
@@ -130,8 +130,7 @@ def patch2d_plan(P: int, m: int, n_patches: int) -> Patch2DPlan:
     its q-points); ties go to fewer blocks, then longer bricks, then
     deeper slabs.  Raises for a degree the kernel does not take or a
     shape nothing fits."""
-    if not 1 <= P <= 4:
-        raise ValueError(f"the patch-2D kernel takes degrees 1-4, not {P}")
+    check_degree("patch-2D", P)
     nq2 = (P + 1) ** 2
     best = None
     for xb in (d for d in range(m, 0, -1) if m % d == 0):
@@ -178,16 +177,6 @@ class Patch2DTables(NamedTuple):
     h: torch.Tensor         # (n_patches, 2, m, m)  (h_min_vertex, hq)
     patch_nodes: torch.Tensor   # (n_patches, Yn, Xn) int32 node ids
     seams: SeamSums         # cell-row tile rows -> nodes
-
-
-def tile_nodes(pn: np.ndarray, P: int, m: int, xb: int) -> np.ndarray:
-    """(n_p, m, nbx, P+1, P*xb+1) node of every tile row: row (p, ey, bx,
-    j, x) holds lattice node pn[p, P*ey + j, P*xb*bx + x]."""
-    ey = np.arange(m)[:, None, None, None]
-    bx = np.arange(m // xb)[None, :, None, None]
-    j = np.arange(P + 1)[None, None, :, None]
-    x = np.arange(P * xb + 1)[None, None, None, :]
-    return pn[:, P * ey + j, P * xb * bx + x]
 
 
 def replan(tables: Patch2DTables, plan: Patch2DPlan) -> Patch2DTables:

@@ -19,25 +19,30 @@ Layout (per patch, no TPU grouping or padding):
   the kernel reads them through the patch lattices ``patch_nodes
   (n_patches, Yn, Xn, Zn)`` (int32 node ids, Xn = Yn = Zn = P*m + 1, z
   fastest), one 16-byte word a node, so no tile is gathered per apply,
-- geometry per patch cell row ey: ``jinv (n_patches, m, 9, QB)`` (entry
-  r*3 + x of J^-1 = dxi_r/dx_x), ``jxw (n_patches, m, QB)``, with the QB =
-  m*NQ^3*m q-points of the row in the order
-  ``(((ez*NQ + qz)*NQ + qy)*m + ex)*NQ + qx``, and ``h (n_patches, m, 2,
-  m*m)`` (h_min_vertex, measure-based h) per cell ez*m + ex of the row,
-- output CELL-ROW tiles ``(n_patches, m, Zn, P+1, Xn, 4)``: cell row ey,
-  node plane z, its node row j (patch node row P*ey + j), node x, the
-  four components: the integrals over the cells of cell row ey only.
-  Node rows shared by two cell rows appear in both; one seam-sum launch
-  (``utils/segment.py`` ``seam_sum``, a fixed order per node) adds them
-  together with the patch seams, so the sweep needs no cross-row
-  reduction.
+- geometry per patch cell row ey and x brick bx of ``xb`` cells (the
+  plan's; the whole row where it fits): ``jinv (n_patches, m, nbx, 9,
+  QB)`` (entry r*3 + x of J^-1 = dxi_r/dx_x), ``jxw (n_patches, m, nbx,
+  QB)``, with the QB = m*NQ^3*xb q-points of the brick's row in the order
+  ``(((ez*NQ + qz)*NQ + qy)*xb + ex)*NQ + qx`` (ex within the brick), and
+  ``h (n_patches, m, nbx, 2, m*xb)`` (h_min_vertex, measure-based h) per
+  cell ez*xb + ex of the brick's row,
+- output CELL-ROW tiles ``(n_patches, m, nbx, Zn, P+1, XN, 4)``: cell row
+  ey, x brick bx (XN = P*xb + 1 nodes), node plane z, its node row j
+  (patch node row P*ey + j), node P*xb*bx + x, the four components: the
+  integrals over the cells of cell row ey in brick bx only.  Node rows
+  shared by two cell rows and node columns shared by two bricks appear in
+  both; one seam-sum launch (``utils/segment.py`` ``seam_sum``, a fixed
+  order per node) adds them together with the patch seams, so the sweep
+  needs no cross-row or cross-brick reduction.
 
 The sweep is the CUDA kernel ``csrc/patch3d.cu`` for tensors on the card
 and :func:`patch3d_sweep_plain` (its plain PyTorch version, the same
 arithmetic with dense 1D band matrices) for tensors on the CPU;
-:func:`patch3d_plan` splits the work into the kernel's thread blocks.
+:func:`patch3d_brick` and :func:`patch3d_plan` split the work into the
+kernel's thread blocks when the tables are built.
 
-Supported: dim 3, any degree (the kernel: 1-4), curved cells,
+Supported: dim 3, degrees 1-4 (the kernel's; the tables refuse others),
+any m, curved cells,
 BDF/stationary (theta = 1), cell- or q-wise stabilization,
 fixed/increment/residual flavors, f32.  The operator uses the general
 sweep for anything else (f64, the theta method, iso-Q1 spaces, which
@@ -57,12 +62,119 @@ from ns_gls_tpu_torch.ops.prism import (
     FLAVORS,
     _lead_ul,
     band_1d,
-    cell_row_index,
     evaluate_tiles,
     integrate_tiles,
+    tile_nodes,
 )
-from ns_gls_tpu_torch.ops.structured import _delta, _physics
+from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split into thread blocks
+# ---------------------------------------------------------------------------
+class Patch3DPlan(NamedTuple):
+    """One block per (patch, cell row, x brick of ``xb`` cells, z chunk of
+    ``zc`` cell layers), walking its chunk in slabs of ``zs`` layers.  The
+    brick sets the geometry's and the output tiles' layout; slabs and
+    chunks do not change a bit of the output."""
+
+    xb: int     # cells per x brick (divides m)
+    nbx: int    # bricks per cell row
+    zs: int     # cell layers per slab
+    zc: int     # cell layers per z chunk
+    nzb: int    # z chunks per column
+
+
+# SMs of an H100 SXM; the kernel's blocks of 256 threads (at most 128
+# registers) fit two to an SM when their shared memory does
+N_SM = 132
+SMEM_PER_SM = 233472           # bytes; each block also reserves 1 KB
+SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
+THREADS = 256
+MAX_COLS = 2                   # I1 columns (component, node) per thread
+
+
+def smem_bytes(P: int, xb: int, zs: int, walk: int, flavor: str,
+               consider_dt: bool) -> int:
+    """Dynamic shared memory of one block (``csrc/patch3d.cu`` p3_smem):
+    slabs of ``zs`` layers of a brick of ``xb`` cells, walks of at most
+    ``walk`` layers."""
+    incr = flavor == "increment"
+    dt_old = consider_dt and flavor in ("increment", "residual")
+    nk = 3 if dt_old else 2
+    nf = 4 + _lead_ul(flavor) + (3 if dt_old else 0)
+    ng = 8 if incr else 4
+    n1 = nq = P + 1
+    xn, lx = P * xb + 1, nq * xb
+    zn, lz = P * zs + 1, nq * zs
+    pl = n1 * xn
+    qs, xf = lz * nq * lx, lz * n1 * lx
+
+    def r4(a):
+        return -(-a // 4) * 4
+
+    words = (2 * nk * 4 * zn * pl + r4(10 * qs)
+             + r4(max((nf + ng) * lz * pl, 16 * qs, 8 * lz * pl))
+             + r4(max((nf + 2 * ng) * xf, 12 * xf)) + r4(zs * xb)
+             + (P * walk + 1) * pl)
+    return 4 * words
+
+
+def _z_plans(P: int, m: int, xb: int, n_patches: int, flavor: str,
+             consider_dt: bool):
+    """(estimated cost, plan) of every slab depth and z chunking that fits
+    a brick of ``xb`` cells."""
+    nq3 = (P + 1) ** 3
+    for zs0 in range(1, m + 1):
+        nzb = 1
+        while nzb <= m:
+            zc = -(-m // nzb)
+            n_chunks = -(-m // zc)
+            walk = zc + (1 if n_chunks > 1 else 0)
+            zs = min(zs0, walk)
+            smem = smem_bytes(P, xb, zs, walk, flavor, consider_dt)
+            if smem <= SMEM_PER_BLOCK:
+                per_sm = 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1
+                blocks = n_patches * (m // xb) * m * n_chunks
+                cost = (-(-blocks // (N_SM * per_sm)) * -(-walk // zs)
+                        * (256 + zs * xb * nq3), blocks, -zs)
+                yield cost, Patch3DPlan(xb, m // xb, zs, zc, n_chunks)
+            nzb *= 2
+
+
+@functools.lru_cache(maxsize=64)
+def patch3d_brick(P: int, m: int, n_patches: int) -> int:
+    """The x brick of patches of m^3 cells of degree P: the whole cell row
+    where it fits, else the longest divisor of m with at most ``MAX_COLS``
+    I1 columns per thread and a plan for every flavor x consider_dt.
+    Raises for a degree the kernel does not take or a shape nothing
+    fits."""
+    check_degree("patch-3D", P)
+    for xb in (d for d in range(m, 0, -1) if m % d == 0):
+        if 4 * (P + 1) * (P * xb + 1) > MAX_COLS * THREADS:
+            continue
+        if all(any(True for _ in _z_plans(P, m, xb, n_patches, f, c))
+               for f in FLAVORS for c in (True, False)):
+            return xb
+    raise ValueError(f"no patch-3D plan fits: P={P}, m={m}")
+
+
+@functools.lru_cache(maxsize=64)
+def patch3d_plan(P: int, m: int, n_patches: int, flavor: str,
+                 consider_dt: bool, xb: int | None = None) -> Patch3DPlan:
+    """The kernel's blocks for ``n_patches`` patches of m^3 cells of degree
+    P in ``flavor``: the brick ``xb`` (the tests' and tools' override), by
+    default :func:`patch3d_brick`'s, and of the slab
+    depths and z chunkings (a chunk recomputes the layer below it for its
+    carry), the one of least estimated time, waves of resident blocks (two
+    per SM where the shared memory allows, else one) x slabs per block x a
+    slab's time (a fixed part as long as 256 q-points, plus its q-points);
+    ties go to fewer blocks, then deeper slabs.  A slab is no deeper than
+    the chunk's walk."""
+    if xb is None:
+        xb = patch3d_brick(P, m, n_patches)
+    return min(_z_plans(P, m, xb, n_patches, flavor, consider_dt))[1]
 
 
 class Patch3DTables(NamedTuple):
@@ -72,34 +184,39 @@ class Patch3DTables(NamedTuple):
     NQ: int
     m: int
     n_nodes: int
+    plans: dict             # (flavor, consider_dt) -> Patch3DPlan
     S1: torch.Tensor        # (NQ, P+1) 1D values at the Gauss points
     D1: torch.Tensor        # (NQ, P+1) 1D derivatives
     bS: torch.Tensor        # (Lq, Xn) patch band: bS[e*NQ+q, P*e+l] = S1[q, l]
     bD: torch.Tensor        # (Lq, Xn)
-    jinv: torch.Tensor      # (n_patches, m, 9, QB)
-    jxw: torch.Tensor       # (n_patches, m, QB)
-    h: torch.Tensor         # (n_patches, m, 2, m*m)  (h_min_vertex, hq)
+    xS: torch.Tensor        # (NQ*xb, P*xb+1) the band of one x brick
+    xD: torch.Tensor
+    jinv: torch.Tensor      # (n_patches, m, nbx, 9, QB)
+    jxw: torch.Tensor       # (n_patches, m, nbx, QB)
+    h: torch.Tensor         # (n_patches, m, nbx, 2, m*xb)  (h_min_vertex, hq)
     patch_nodes: torch.Tensor   # (n_patches, Yn, Xn, Zn) int32 node ids
     seams: SeamSums         # cell-row tile rows -> nodes
 
+    @property
+    def xb(self) -> int:
+        return next(iter(self.plans.values())).xb
 
-def build_patch3d_tables(op):
+
+def build_patch3d_tables(op, xb=None):
     """Host-side packing; None when the operator/space is unsupported
-    (the JAX package's gates: a patch-3D space, theta = 1, f32)."""
+    (the JAX package's gates: a patch-3D space, theta = 1, f32).  ``xb``
+    overrides the x brick (tests, tools)."""
     space = op.space
     if not getattr(space, "patch3d", False):
         return None
     if op.theta != 1.0 or op.dtype != torch.float32:
         return None
-    dev = op.device
     P = space.degree
     NQ = space.n_q1d
     m = int(space.patch_cells)
     pn3 = np.asarray(space.patch_nodes3, np.int64)     # (n_p, z, y, x)
     n_p = pn3.shape[0]
     pn = np.ascontiguousarray(pn3.transpose(0, 2, 3, 1))  # (n_p, y, x, z)
-
-    S1, D1, _, bS, bD = band_1d(P, NQ, m)
 
     patch = np.asarray(space.patch_of_cell3)
     lat = np.asarray(space.lattice_of_cell3)           # (c, 3) = (ex, ey, ez)
@@ -116,104 +233,52 @@ def build_patch3d_tables(op):
     h_t = np.ones((n_p, m, 2, m, m))
     h_t[patch, ey, 0, ez, ex] = space.cell_h_min_vertex
     h_t[patch, ey, 1, ez, ex] = np.cbrt(6.0 * space.cell_measure / np.pi) / P
+    return make_patch3d_tables(P, NQ, m, space.n_nodes, pn, jinv_t, jxw_t,
+                               h_t, op.device, xb)
 
-    # tile row (p, ey, z, j, x) holds node pn[p, P*ey + j, x, z]
-    rows = pn[:, cell_row_index(P, m)].transpose(0, 1, 4, 2, 3)
 
-    def f32(a, shape=None):
-        a = np.asarray(a, np.float32)
-        return torch.as_tensor(a if shape is None else a.reshape(shape),
+def make_patch3d_tables(P, NQ, m, n_nodes, pn, jinv_t, jxw_t, h_t, dev,
+                        xb=None):
+    """The tables from the per-patch arrays in the patch's own order
+    (``jinv_t`` (n_p, ey, 9, ez, qz, qy, ex, qx), ``jxw_t`` (n_p, ey, ez,
+    qz, qy, ex, qx), ``h_t`` (n_p, ey, 2, ez, ex), the lattices ``pn``
+    (n_p, y, x, z) of node ids): the plans of every flavor x consider_dt,
+    made here so that a shape the kernel cannot take raises before any
+    launch, and the geometry split into the plans' x bricks (``xb``: the
+    tests' and tools' override of :func:`patch3d_brick`)."""
+    n_p = pn.shape[0]
+    if xb is None:
+        xb = patch3d_brick(P, m, n_p)
+    nbx = m // xb
+    plans = {(f, c): patch3d_plan(P, m, n_p, f, c, xb)
+             for f in FLAVORS for c in (True, False)}
+    S1, D1, _, bS, bD = band_1d(P, NQ, m)
+    _, _, _, xS, xD = band_1d(P, NQ, xb)
+    # ex = bx*xb + exl: the brick axis goes ahead of the entries
+    jinv_b = (np.asarray(jinv_t).reshape(n_p, m, 9, m, NQ, NQ, nbx, xb, NQ)
+              .transpose(0, 1, 6, 2, 3, 4, 5, 7, 8))
+    jxw_b = (np.asarray(jxw_t).reshape(n_p, m, m, NQ, NQ, nbx, xb, NQ)
+             .transpose(0, 1, 5, 2, 3, 4, 6, 7))
+    h_b = (np.asarray(h_t).reshape(n_p, m, 2, m, nbx, xb)
+           .transpose(0, 1, 4, 2, 3, 5))
+    # tile row (p, ey, bx, z, j, x) holds node pn[p, P*ey + j, P*xb*bx + x, z]
+    rows = tile_nodes(pn, P, m, xb).transpose(0, 1, 2, 5, 3, 4)
+
+    def f32(a, shape):
+        return torch.as_tensor(np.asarray(a, np.float32).reshape(shape),
                                device=dev)
 
-    QB = m * NQ ** 3 * m
+    QB = m * NQ ** 3 * xb
     return Patch3DTables(
-        P=P, NQ=NQ, m=m, n_nodes=space.n_nodes,
-        S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD),
-        jinv=f32(jinv_t, (n_p, m, 9, QB)), jxw=f32(jxw_t, (n_p, m, QB)),
-        h=f32(h_t, (n_p, m, 2, m * m)),
+        P=P, NQ=NQ, m=m, n_nodes=n_nodes, plans=plans,
+        S1=f32(S1, S1.shape), D1=f32(D1, D1.shape), bS=f32(bS, bS.shape),
+        bD=f32(bD, bD.shape), xS=f32(xS, xS.shape), xD=f32(xD, xD.shape),
+        jinv=f32(jinv_b, (n_p, m, nbx, 9, QB)),
+        jxw=f32(jxw_b, (n_p, m, nbx, QB)),
+        h=f32(h_b, (n_p, m, nbx, 2, m * xb)),
         patch_nodes=torch.as_tensor(pn.astype(np.int32), device=dev),
-        seams=seam_sums(rows, space.n_nodes, dev),
+        seams=seam_sums(rows, n_nodes, dev),
     )
-
-
-# ---------------------------------------------------------------------------
-# the kernel's split into thread blocks
-# ---------------------------------------------------------------------------
-class Patch3DPlan(NamedTuple):
-    """One block per (patch, cell row, z chunk of ``zc`` cell layers),
-    walking its chunk in slabs of ``zs`` layers."""
-
-    zs: int     # cell layers per slab
-    zc: int     # cell layers per z chunk
-    nzb: int    # z chunks per column
-
-
-# SMs of an H100 SXM; the kernel's blocks of 256 threads (at most 128
-# registers) fit two to an SM when their shared memory does
-N_SM = 132
-SMEM_PER_SM = 233472           # bytes; each block also reserves 1 KB
-SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
-
-
-def smem_bytes(P: int, m: int, zs: int, walk: int, flavor: str,
-               consider_dt: bool) -> int:
-    """Dynamic shared memory of one block (``csrc/patch3d.cu`` p3_smem):
-    slabs of ``zs`` layers, walks of at most ``walk`` layers."""
-    incr = flavor == "increment"
-    dt_old = consider_dt and flavor in ("increment", "residual")
-    nk = 3 if dt_old else 2
-    nf = 4 + _lead_ul(flavor) + (3 if dt_old else 0)
-    ng = 8 if incr else 4
-    n1 = nq = P + 1
-    xn, lx = P * m + 1, nq * m
-    zn, lz = P * zs + 1, nq * zs
-    pl = n1 * xn
-    qs, xf = lz * nq * lx, lz * n1 * lx
-
-    def r4(a):
-        return -(-a // 4) * 4
-
-    words = (2 * nk * 4 * zn * pl + r4(10 * qs)
-             + r4(max((nf + ng) * lz * pl, 16 * qs, 8 * lz * pl))
-             + r4(max((nf + 2 * ng) * xf, 12 * xf)) + r4(zs * m)
-             + (P * walk + 1) * pl)
-    return 4 * words
-
-
-@functools.lru_cache(maxsize=64)
-def patch3d_plan(P: int, m: int, n_patches: int, flavor: str,
-                 consider_dt: bool) -> Patch3DPlan:
-    """The kernel's blocks for ``n_patches`` patches of m^3 cells of degree
-    P: of the slab depths and z chunkings (a chunk recomputes the layer
-    below it for its carry), the one of least estimated time, waves of
-    resident blocks (two per SM where the shared memory allows, else one)
-    x slabs per block x a slab's time (a fixed part as long as 256
-    q-points, plus its q-points); ties go to fewer blocks, then deeper
-    slabs.  A slab is no deeper than the chunk's walk."""
-    if 4 * (P + 1) * (P * m + 1) > 2 * 256:
-        raise ValueError(f"patch-3D kernel: P={P}, m={m} has more I1 "
-                         "columns than two per thread")
-    nq3 = (P + 1) ** 3
-    best = None
-    for zs0 in range(1, m + 1):
-        nzb = 1
-        while nzb <= m:
-            zc = -(-m // nzb)
-            n_chunks = -(-m // zc)
-            walk = zc + (1 if n_chunks > 1 else 0)
-            zs = min(zs0, walk)
-            smem = smem_bytes(P, m, zs, walk, flavor, consider_dt)
-            if smem <= SMEM_PER_BLOCK:
-                per_sm = 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1
-                blocks = n_patches * m * n_chunks
-                cost = (-(-blocks // (N_SM * per_sm)) * -(-walk // zs)
-                        * (256 + zs * m * nq3), blocks, -zs)
-                if best is None or cost < best[0]:
-                    best = (cost, Patch3DPlan(zs, zc, n_chunks))
-            nzb *= 2
-    if best is None:
-        raise ValueError(f"no patch-3D plan fits: P={P}, m={m}")
-    return best[1]
 
 
 # ---------------------------------------------------------------------------
@@ -224,14 +289,15 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
     """Plain PyTorch version of the patch-3D kernel (its reference).
     ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).  u, ul, vo:
     node-major (n_nodes, 4) (ul: the first 4 components read in
-    increment, 3 otherwise; vo: 3) -> cell-row tiles (n_p, m, Zn, P+1,
-    Xn, 4)."""
+    increment, 3 otherwise; vo: 3) -> cell-row tiles (n_p, m, nbx, Zn,
+    P+1, XN, 4) of the tables' x bricks."""
     d, C = 3, 4
     dev = u.device
     sc = {k: torch.tensor(v, dtype=torch.float32, device=dev)
           for k, v in sc.items()}
     bS, bD = tables.bS, tables.bD
-    NQ, m = tables.NQ, tables.m
+    NQ, m, xb = tables.NQ, tables.m, tables.xb
+    nbx = m // xb
     pn = tables.patch_nodes.long()
     n_p = pn.shape[0]
     Lq = NQ * m
@@ -252,14 +318,16 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
     usq = ustar[0] * ustar[0] + ustar[1] * ustar[1] + ustar[2] * ustar[2]
 
     def per_q(t):
-        # (n_p, ey, m*m) per cell (ez, ex) -> (n_p, Lq_y, Lq_x, Lq_z)
-        t = t.reshape(n_p, m, m, m).permute(0, 1, 3, 2)   # (p, ey, ex, ez)
+        # (n_p, ey, nbx, m*xb) per cell (ez, ex within the brick) ->
+        # (n_p, Lq_y, Lq_x, Lq_z)
+        t = (t.reshape(n_p, m, nbx, m, xb).permute(0, 1, 2, 4, 3)
+             .reshape(n_p, m, m, m))                      # (p, ey, ex, ez)
         for dim in (1, 2, 3):
             t = t.repeat_interleave(NQ, dim)
         return t
 
-    h1 = per_q(tables.h[:, :, 0])
-    hq = per_q(tables.h[:, :, 1])
+    h1 = per_q(tables.h[:, :, :, 0])
+    hq = per_q(tables.h[:, :, :, 1])
     if cell_wise:
         msq = usq.reshape(n_p, m, NQ, m, NQ, m, NQ).amax(dim=(2, 4, 6))
         for dim in (1, 2, 3):
@@ -268,11 +336,12 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
     else:
         d1_q, d2_q = _delta(sc, h1, hq, None, usq, False)
 
-    # geometry (n_p, ey, e, ez, qz, qy, ex, qx) -> e, (n_p, Lq_y, Lq_x, Lq_z)
-    ji = (tables.jinv.reshape(n_p, m, 9, m, NQ, NQ, m, NQ)
-          .permute(2, 0, 1, 5, 6, 7, 3, 4).reshape(9, n_p, Lq, Lq, Lq))
-    jxw = (tables.jxw.reshape(n_p, m, m, NQ, NQ, m, NQ)
-           .permute(0, 1, 4, 5, 6, 2, 3).reshape(n_p, Lq, Lq, Lq))
+    # geometry (n_p, ey, bx, e, ez, qz, qy, ex, qx) -> e, (n_p, Lq_y,
+    # Lq_x, Lq_z)
+    ji = (tables.jinv.reshape(n_p, m, nbx, 9, m, NQ, NQ, xb, NQ)
+          .permute(3, 0, 1, 6, 2, 7, 8, 4, 5).reshape(9, n_p, Lq, Lq, Lq))
+    jxw = (tables.jxw.reshape(n_p, m, nbx, m, NQ, NQ, xb, NQ)
+           .permute(0, 1, 5, 2, 6, 7, 3, 4).reshape(n_p, Lq, Lq, Lq))
 
     def to_phys(rx, ry, rz):
         return [rx * ji[x] + ry * ji[3 + x] + rz * ji[6 + x]
@@ -296,10 +365,12 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
         # value weights, then the reference x, y, z gradient weights
         gx, gy, gz = ((g0 * ji[3 * r] + g1 * ji[3 * r + 1]
                        + g2 * ji[3 * r + 2]) * jxw for r in range(3))
-        out.append(integrate_tiles(val_res[c] * jxw, gx, gy, gz, bS, bD,
-                                   bS, bD, tables.S1, tables.D1, m))
-    # (n_p, m, P+1, Xn, Zn, C) -> (n_p, m, Zn, P+1, Xn, C)
-    return torch.stack(out, dim=-1).permute(0, 1, 4, 2, 3, 5).contiguous()
+        out.append(integrate_tiles(val_res[c] * jxw, gx, gy, gz, tables.xS,
+                                   tables.xD, bS, bD, tables.S1, tables.D1,
+                                   m))
+    # (n_p, m, nbx, P+1, XN, Zn, C) -> (n_p, m, nbx, Zn, P+1, XN, C)
+    return (torch.stack(out, dim=-1).permute(0, 1, 2, 5, 3, 4, 6)
+            .contiguous())
 
 
 class Patch3DKernel:
@@ -319,11 +390,11 @@ class Patch3DKernel:
             lib = load_library("patch3d")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn = lib.patch3d_sweep_launch
-            fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci, ci, vp]
+            fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
             at = lib.patch3d_attributes
             ip = ctypes.POINTER(ci)
-            at.argtypes = [ci] * 6 + [ip, ip, ip,
+            at.argtypes = [ci] * 7 + [ip, ip, ip,
                                       ctypes.POINTER(ctypes.c_longlong)]
             at.restype = ci
             cls._lib = lib
@@ -333,11 +404,16 @@ class Patch3DKernel:
     def launch(cls, tables: Patch3DTables, sc: dict, u, ul, vo,
                flavor: str, consider_dt: bool, cell_wise: bool,
                plan: Patch3DPlan | None = None):
-        """The kernel on node-major u, ul, vo (n_nodes, 4); ``plan``
-        (the tools' override) defaults to :func:`patch3d_plan`'s."""
+        """The kernel on node-major u, ul, vo (n_nodes, 4) under ``plan``
+        (the tools' override of the slab depth and z chunks), by default
+        the tables' plan of the flavor (the brick is the tables': it sets
+        the layouts)."""
         n_p = tables.jinv.shape[0]
         P, NQ, m = tables.P, tables.NQ, tables.m
-        Xn = P * m + 1
+        if plan is None:
+            plan = tables.plans[(flavor, bool(consider_dt))]
+        if plan.xb != tables.xb:
+            raise ValueError("a plan must keep the tables' x brick")
         for name, t in (("u", u), ("u_lin", ul), ("vec_old", vo)):
             if not t.is_cuda or t.dtype != torch.float32:
                 raise TypeError(f"{name}: need a float32 CUDA tensor")
@@ -351,9 +427,8 @@ class Patch3DKernel:
                   tables.patch_nodes):
             if t.device != u.device or not t.is_contiguous():
                 raise ValueError("tables must be contiguous on u's device")
-        if plan is None:
-            plan = patch3d_plan(P, m, n_p, flavor, bool(consider_dt))
-        out = torch.empty((n_p, m, Xn, P + 1, Xn, 4), dtype=torch.float32,
+        out = torch.empty((n_p, m, plan.nbx, P * m + 1, P + 1,
+                           P * plan.xb + 1, 4), dtype=torch.float32,
                           device=u.device)
         err = cls._load().patch3d_sweep_launch(
             u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
@@ -363,7 +438,7 @@ class Patch3DKernel:
             n_p, P, NQ, m, FLAVORS.index(flavor), int(consider_dt),
             int(cell_wise),
             sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
-            plan.zs, plan.nzb,
+            plan.xb, plan.zs, plan.nzb,
             torch.cuda.current_stream(u.device).cuda_stream,
         )
         if err != 0:
@@ -384,7 +459,8 @@ class Patch3DKernel:
         regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         dyn = ctypes.c_longlong()
         err = cls._load().patch3d_attributes(
-            P, m, plan.zs, plan.nzb, FLAVORS.index(flavor), int(consider_dt),
+            P, m, plan.xb, plan.zs, plan.nzb, FLAVORS.index(flavor),
+            int(consider_dt),
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static),
             ctypes.byref(dyn))
         if err != 0:
@@ -436,7 +512,7 @@ class Patch3DSweep:
         return v.contiguous()
 
     def compress(self, tiles):
-        """Cell-row tiles (n_p, m, Zn, P+1, Xn, 4) -> (n_nodes, 4)."""
+        """Cell-row tiles (n_p, m, nbx, Zn, P+1, XN, 4) -> (n_nodes, 4)."""
         return seam_sum(self.tables.seams, tiles.reshape(-1, 4))
 
     def apply(self, weight: float, stau: float, u, ul, vo, flavor: str):

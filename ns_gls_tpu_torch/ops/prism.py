@@ -22,11 +22,13 @@ Layout (per patch, no TPU grouping or padding):
   Lq = NQ*m in natural order (q-point row iy = ey*NQ + qy, column
   ix = ex*NQ + qx), ``h (n_patches, 2, m, m)`` (h_min_vertex,
   measure-based h) per 2D cell,
-- output CELL-ROW tiles ``(C, n_patches, m, P+1, Xn, Nzn)``: row
-  (ey, j) holds the integrals of the test functions of patch node row
-  P*ey + j over the cells of cell row ey only.  Node rows shared by two
-  cell rows appear in both; the seam compress sums them together with
-  the patch seams, so the sweep itself needs no cross-row reduction.
+- output CELL-ROW tiles ``(C, n_patches, m, nbx, P+1, XN, Nzn)``: cell
+  row ey, x brick bx of ``xb`` cells (XN = P*xb + 1 nodes, the plan's),
+  its node row j (patch node row P*ey + j), node P*xb*bx + x: the
+  integrals over the cells of cell row ey in brick bx only.  Node rows
+  shared by two cell rows and node columns shared by two bricks appear in
+  both; the seam compress sums them together with the patch seams, so
+  the sweep itself needs no cross-row or cross-brick reduction.
 
 The seam compress gathers whole z-runs in dense multiplicity classes and
 sums each class in a fixed order (``utils/segment.py``, deterministic on
@@ -34,16 +36,20 @@ the card).
 
 The sweep is the CUDA kernel ``csrc/prism.cu`` for tensors on the card
 and :func:`prism_sweep_plain` (its plain PyTorch version, the same
-arithmetic with dense 1D band matrices) for tensors on the CPU.
+arithmetic with dense 1D band matrices) for tensors on the CPU;
+:func:`prism_plan` splits the work into the kernel's thread blocks when
+the tables are built.
 
-Supported: dim 3, any degree, curved (prismatic) cells, BDF/stationary
-(theta = 1), cell- or q-wise stabilization, fixed/increment/residual
-flavors, f32.  The operator uses the general sweep for anything else.
+Supported: dim 3, degrees 1-4 (the kernel's; the tables refuse others),
+any m, curved (prismatic) cells, BDF/stationary (theta = 1), cell- or
+q-wise stabilization, fixed/increment/residual flavors, f32.  The
+operator uses the general sweep for anything else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -54,10 +60,81 @@ from ns_gls_tpu_torch.fem.lagrange import (
     gauss_lobatto_points_1d,
     gauss_points_1d,
 )
-from ns_gls_tpu_torch.ops.structured import _delta, _physics
+from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
 from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
 
 FLAVORS = ("fixed", "increment", "residual")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split into thread blocks
+# ---------------------------------------------------------------------------
+class PrismPlan(NamedTuple):
+    """One block per (patch, cell row, x brick of ``xb`` cells, z chunk of
+    ``zc`` cell layers), walking its chunk in slabs of ``zs`` layers.  The
+    brick sets the output tiles' layout; slabs and chunks do not change a
+    bit of the output."""
+
+    xb: int     # cells per x brick (divides m)
+    nbx: int    # bricks per cell row
+    zs: int     # cell layers per slab
+    zc: int     # cell layers per z chunk
+    nzb: int    # z chunks per column
+
+
+THREADS = 256
+MAX_COLS = 4                   # I1 columns (component, node) per thread
+SLAB_Q = 512                   # q-points per slab the plan aims for
+SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
+STATIC_SMEM = 11 * 8           # the kernel's field pointer table
+
+
+def smem_bytes(P: int, xb: int, zs: int, flavor: str,
+               consider_dt: bool) -> int:
+    """Dynamic shared memory of one block (``csrc/prism.cu`` prism_smem):
+    two buffers of a slab's node columns of every staged field, region 1
+    (A, Az -> W -> V), region 2 (X, XD, XZ -> Y) and |u*|^2 per q-point."""
+    incr = flavor == "increment"
+    dt_old = consider_dt and flavor in ("increment", "residual")
+    nf = 4 + _lead_ul(flavor) + (3 if dt_old else 0)
+    ng = 8 if incr else 4
+    n1 = nq = P + 1
+    nr, zn, lz = n1 * (P * xb + 1), P * zs + 1, nq * zs
+    qs = nq * nq * xb * lz
+    xs = n1 * nq * xb * lz
+    floats = (2 * nf * nr * zn + max((nf + ng) * nr * lz, 16 * qs,
+                                     8 * nr * lz)
+              + max((nf + 2 * ng) * xs, 12 * xs) + qs)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def prism_plan(P: int, m: int, nz: int) -> PrismPlan:
+    """The kernel's blocks for patch columns of m x m cells and nz layers
+    of degree P: the whole cell row as one brick where it fits, else the
+    longest brick (a divisor of m) within the launcher's limits (I1
+    columns per thread, shared memory of the largest flavor, increment
+    with the history), with slabs of about ``SLAB_Q`` q-points and each
+    column in two z chunks when each still holds two slabs (the measured
+    best on the Turek 3D levels, ``tools/prism_levels.py --sweep``).
+    Raises for a degree the kernel does not take or a shape nothing
+    fits."""
+    check_degree("prism", P)
+    nq3 = (P + 1) ** 3
+    for xb in (d for d in range(m, 0, -1) if m % d == 0):
+        if 4 * (P + 1) * (P * xb + 1) > MAX_COLS * THREADS:
+            continue
+        zs = max(1, min(nz, SLAB_Q // (xb * nq3)))
+        while zs > 1 and (smem_bytes(P, xb, zs, "increment", True)
+                          + STATIC_SMEM > SMEM_PER_BLOCK):
+            zs -= 1
+        if smem_bytes(P, xb, zs, "increment", True) + STATIC_SMEM \
+                > SMEM_PER_BLOCK:
+            continue
+        nzb = min(2 if nz >= 4 * zs else 1, nz)
+        zc = -(-nz // nzb)
+        return PrismPlan(xb, m // xb, zs, zc, -(-nz // zc))
+    raise ValueError(f"no prism plan fits: P={P}, m={m}, nz={nz}")
 
 
 class PrismTables(NamedTuple):
@@ -67,11 +144,14 @@ class PrismTables(NamedTuple):
     NQ: int
     m: int
     nz: int
+    plan: PrismPlan
     S1: torch.Tensor        # (NQ, P+1) 1D values at the Gauss points
     D1: torch.Tensor        # (NQ, P+1) 1D derivatives
     wz: torch.Tensor        # (NQ,) 1D Gauss weights (the z factor of jxw)
     bS: torch.Tensor        # (Lq, Xn) patch band: bS[e*NQ+q, P*e+l] = S1[q, l]
     bD: torch.Tensor        # (Lq, Xn)
+    xS: torch.Tensor        # (NQ*xb, P*xb+1) the band of one x brick
+    xD: torch.Tensor
     zS: torch.Tensor        # (Lz, Nzn) z band, Lz = NQ*nz
     zD: torch.Tensor        # (Lz, Nzn)
     jinv: torch.Tensor      # (n_patches, 5, Lq, Lq)
@@ -140,8 +220,20 @@ def cell_row_index(P: int, m: int) -> np.ndarray:
     return P * np.arange(m)[:, None] + np.arange(P + 1)[None, :]
 
 
-def build_prism_tables(op):
-    """Host-side packing; None when the operator/space is unsupported."""
+def tile_nodes(pn: np.ndarray, P: int, m: int, xb: int) -> np.ndarray:
+    """(n_p, m, nbx, P+1, P*xb+1, ...) node of every tile row: row (p, ey,
+    bx, j, x) holds lattice node pn[p, P*ey + j, P*xb*bx + x] (with pn's
+    trailing axes, if any, after it)."""
+    ey = np.arange(m)[:, None, None, None]
+    bx = np.arange(m // xb)[None, :, None, None]
+    j = np.arange(P + 1)[None, None, :, None]
+    x = np.arange(P * xb + 1)[None, None, None, :]
+    return pn[:, P * ey + j, P * xb * bx + x]
+
+
+def build_prism_tables(op, xb=None):
+    """Host-side packing; None when the operator/space is unsupported.
+    ``xb`` overrides the x brick (tests, tools)."""
     space = op.space
     geo = prism_cell_geometry(op)
     if geo is None:
@@ -154,9 +246,6 @@ def build_prism_tables(op):
     Lq = NQ * m
     pn = np.asarray(space.patch_nodes, np.int64)      # (n_p, Yn, Xn)
     n_p = pn.shape[0]
-
-    S1, D1, qw, bS, bD = band_1d(P, NQ, m)
-    _, _, _, zS, zD = band_1d(P, NQ, nz)
 
     patch = np.asarray(space.patch_of_cell2d)
     lat = np.asarray(space.lattice_of_cell2d)         # (n_c2d, 2) = (ex, ey)
@@ -179,19 +268,35 @@ def build_prism_tables(op):
     h_t[patch, 0, lat[:, 1], lat[:, 0]] = geo["h1"]
     h_t[patch, 1, lat[:, 1], lat[:, 0]] = geo["hq"]
 
-    rows = pn[:, cell_row_index(P, m)]                # (n_p, m, P+1, Xn)
-    compress = class_gather(rows.reshape(-1), space.n2d, dev)
+    return make_prism_tables(P, NQ, m, nz, space.n2d, pn, jinv_t, jxw_t, h_t,
+                             dev, xb)
+
+
+def make_prism_tables(P, NQ, m, nz, n2d, pn, jinv_t, jxw_t, h_t, dev,
+                      xb=None):
+    """The tables from the per-patch arrays (``jinv_t`` (n_p, 5, Lq, Lq),
+    ``jxw_t`` (n_p, Lq, Lq), ``h_t`` (n_p, 2, m, m), the lattices ``pn``
+    (n_p, Yn, Xn) of 2D node ids), under :func:`prism_plan`'s plan, made
+    here so that a shape the kernel cannot take raises before any launch
+    (``xb``: the tests' and tools' override of its brick)."""
+    plan = prism_plan(P, m, nz)
+    if xb is not None:
+        plan = plan._replace(xb=xb, nbx=m // xb)
+    S1, D1, qw, bS, bD = band_1d(P, NQ, m)
+    _, _, _, xS, xD = band_1d(P, NQ, plan.xb)
+    _, _, _, zS, zD = band_1d(P, NQ, nz)
+    rows = tile_nodes(pn, P, m, plan.xb)      # (n_p, m, nbx, P+1, XN)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     return PrismTables(
-        P=P, NQ=NQ, m=m, nz=nz,
+        P=P, NQ=NQ, m=m, nz=nz, plan=plan,
         S1=f32(S1), D1=f32(D1), wz=f32(qw), bS=f32(bS), bD=f32(bD),
-        zS=f32(zS), zD=f32(zD),
+        xS=f32(xS), xD=f32(xD), zS=f32(zS), zD=f32(zD),
         jinv=f32(jinv_t), jxw=f32(jxw_t), h=f32(h_t),
         patch_nodes=torch.as_tensor(pn, device=dev),
-        compress=compress,
+        compress=class_gather(rows.reshape(-1), n2d, dev),
     )
 
 
@@ -222,22 +327,30 @@ def evaluate_tiles(t, bS, bD, zS, zD, grads: bool):
     return val, dx, dy, dz
 
 
-def integrate_tiles(w_val, gx, gy, gz, bS, bD, zS, zD, S1, D1, m: int):
+def integrate_tiles(w_val, gx, gy, gz, xS, xD, zS, zD, S1, D1, m: int):
     """Adjoint of :func:`evaluate_tiles`: the test-function weights at the
     q-points (value, and reference x, y, z gradient weights, each
-    (n_p, Lq_y, Lq_x, Lz)) -> cell-row tiles (n_p, m, P+1, Xn, Zn).  The
-    z then x adjoints of the terms with y-test values (A) and y-test
-    derivatives (B), then y per cell row with the 1D tables."""
+    (n_p, Lq_y, Lq_x, Lz)) -> cell-row tiles (n_p, m, nbx, P+1, XN, Zn)
+    of x bricks (``xS``/``xD``: the band (NQ*xb, P*xb+1) of one brick).
+    The z then x adjoints (within each brick) of the terms with y-test
+    values (A) and y-test derivatives (B), then y per cell row with the
+    1D tables."""
+    n_p, lqy, lqx, lz = w_val.shape
+    nbx = lqx // xS.shape[0]
+
+    def bricks(t):
+        return t.reshape(n_p, lqy, nbx, -1, t.shape[-1])
+
     zs = torch.einsum("az,pkqa->pkqz", zS, w_val)
     zs = zs + torch.einsum("az,pkqa->pkqz", zD, gz)
-    A = (torch.einsum("qx,pkqz->pkxz", bS, zs)
-         + torch.einsum("qx,pkqz->pkxz", bD,
-                        torch.einsum("az,pkqa->pkqz", zS, gx)))
-    B = torch.einsum("qx,pkqz->pkxz", bS,
-                     torch.einsum("az,pkqa->pkqz", zS, gy))
-    Yq = (A.shape[0], m, S1.shape[0]) + tuple(A.shape[2:])
-    return (torch.einsum("qj,peqxz->pejxz", S1, A.reshape(Yq))
-            + torch.einsum("qj,peqxz->pejxz", D1, B.reshape(Yq)))
+    A = (torch.einsum("qx,pkbqz->pkbxz", xS, bricks(zs))
+         + torch.einsum("qx,pkbqz->pkbxz", xD, bricks(
+             torch.einsum("az,pkqa->pkqz", zS, gx))))
+    B = torch.einsum("qx,pkbqz->pkbxz", xS, bricks(
+        torch.einsum("az,pkqa->pkqz", zS, gy)))
+    Yq = (n_p, m, S1.shape[0]) + tuple(A.shape[2:])
+    return (torch.einsum("qj,peqbxz->pebjxz", S1, A.reshape(Yq))
+            + torch.einsum("qj,peqbxz->pebjxz", D1, B.reshape(Yq)))
 
 
 def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
@@ -245,7 +358,8 @@ def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
     """Plain PyTorch version of the prism sweep (the CUDA kernel's
     reference).  ``sc``: weight, stau, nu, c1, c2 (floats, used in f32).
     uP (4, n_p, Yn, Xn, Nzn), ulP (4 or 3, ...), voP (3, ...) ->
-    cell-row tiles (4, n_p, m, P+1, Xn, Nzn)."""
+    cell-row tiles (4, n_p, m, nbx, P+1, XN, Nzn) under the tables'
+    plan."""
     d, C = 3, 4
     dev = uP.device
     sc = {k: torch.tensor(v, dtype=torch.float32, device=dev)
@@ -307,7 +421,7 @@ def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
         out.append(integrate_tiles(
             val_res[c] * jxw, (g0 * a00 + g1 * a01) * jxw,
             (g0 * a10 + g1 * a11) * jxw, (g2 * idz) * jxw,
-            bS, bD, zS, zD, tables.S1, tables.D1, m))
+            tables.xS, tables.xD, zS, zD, tables.S1, tables.D1, m))
     return torch.stack(out)
 
 
@@ -328,23 +442,29 @@ class PrismKernel:
             lib = load_library("prism")
             fn = lib.prism_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 2 + [vp]
+            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
             cls._fn = fn
         return cls._fn
 
     @classmethod
     def launch(cls, tables: PrismTables, sc: dict, uP, ulP, voP,
-               flavor: str, consider_dt: bool, cell_wise: bool):
+               flavor: str, consider_dt: bool, cell_wise: bool,
+               plan: PrismPlan | None = None):
+        """The kernel on the patch tiles under ``plan`` (the tools'
+        override of the slab depth and z chunks), by default the tables'
+        (the brick is the tables': it sets the output layout)."""
         n_p = tables.jinv.shape[0]
         P, NQ, m, nz = tables.P, tables.NQ, tables.m, tables.nz
+        plan = tables.plan if plan is None else plan
+        if plan.xb != tables.plan.xb:
+            raise ValueError("a plan must keep the tables' x brick")
         Xn = P * m + 1
         Nzn = P * nz + 1
         C = 4
-        if not (1 <= P <= 4 and NQ == P + 1):
+        if NQ != P + 1:
             raise ValueError(f"prism kernel: degree {P} with {NQ} Gauss "
-                             "points; it is built for degrees 1-4 with "
-                             "degree + 1 points")
+                             "points; it is built for degree + 1 points")
         lead_ul = _lead_ul(flavor)
         for name, t, lead in (("u", uP, C), ("u_lin", ulP, lead_ul),
                               ("vec_old", voP, 3)):
@@ -361,8 +481,8 @@ class PrismKernel:
                   tables.wz):
             if t.device != uP.device or not t.is_contiguous():
                 raise ValueError("tables must be contiguous on u's device")
-        out = torch.empty((C, n_p, m, P + 1, Xn, Nzn), dtype=torch.float32,
-                          device=uP.device)
+        out = torch.empty((C, n_p, m, plan.nbx, P + 1, P * plan.xb + 1,
+                           Nzn), dtype=torch.float32, device=uP.device)
         fn = cls._load()
         err = fn(
             uP.data_ptr(), ulP.data_ptr(), voP.data_ptr(),
@@ -372,13 +492,12 @@ class PrismKernel:
             n_p, P, NQ, m, nz, FLAVORS.index(flavor), int(consider_dt),
             int(cell_wise),
             sc["weight"], sc["stau"], sc["nu"], sc["c1"], sc["c2"],
-            0, 0,      # slab depth and z chunks: the launcher's choice
+            plan.xb, plan.zs, plan.nzb,
             torch.cuda.current_stream(uP.device).cuda_stream,
         )
         if err != 0:
-            hint = (" (the slab's shared-memory tiles exceed the card's "
-                    "per-block limit, or the block has too few threads for "
-                    "its node columns)" if err == 1 else "")
+            hint = (" (a degree, plan or input the kernel does not take)"
+                    if err == 1 else "")
             raise RuntimeError(
                 f"prism kernel launch failed: CUDA error {err}{hint}"
             )
@@ -433,7 +552,7 @@ class PrismSweep:
         return v2d[:, self.tables.patch_nodes]
 
     def compress(self, rows):
-        """Cell-row tiles (C, n_p, m, P+1, Xn, Nzn) -> (C, n2d, Nzn)."""
+        """Cell-row tiles (C, n_p, m, nbx, P+1, XN, Nzn) -> (C, n2d, Nzn)."""
         flat = rows.reshape(rows.shape[0], -1, self.Nzn)
         return class_sum(self.tables.compress, flat, dim=1)
 

@@ -43,7 +43,8 @@ stacked schedules, the bf16-split precision modes and the diagonal- and
 uniform-geometry compile-time variants.  The port is exact f32 with the
 full per-cell ``jinv``.
 
-Supported: dim 2/3, any degree, affine cells, BDF/stationary (theta = 1),
+Supported: dim 2/3, degrees 1-4 (every fused kernel's; the tables refuse
+others, :func:`check_degree`), affine cells, BDF/stationary (theta = 1),
 cell- or q-wise stabilization, fixed-point / Newton-increment / residual
 flavors, f32.  The operator uses another sweep for anything else.
 """
@@ -58,6 +59,19 @@ import numpy as np
 import torch
 
 FLAVORS = ("fixed", "increment", "residual")
+# the degrees every fused CUDA kernel of the port is built for (template
+# instances); the JAX package's Pallas kernels have no such limit
+KERNEL_DEGREES = (1, 2, 3, 4)
+
+
+def check_degree(kernel: str, P: int):
+    """Raise, when the tables are built and before any launch, for a
+    degree the port's kernels are not built for."""
+    if P not in KERNEL_DEGREES:
+        raise ValueError(
+            f"the port's {kernel} kernel takes degrees "
+            f"{KERNEL_DEGREES[0]}-{KERNEL_DEGREES[-1]}, not {P} (a limit "
+            "of the port; the JAX package has none)")
 
 
 def _physics(d, flavor, sc, u_val, u_grad, p_val, p_grad,
@@ -216,6 +230,7 @@ def build_structured_tables(op):
     )
 
     P = space.degree
+    check_degree(f"structured {d}D", P)
     NQ = space.n_q1d
     nodes = gauss_lobatto_points_1d(P + 1)
     qpts, _ = gauss_points_1d(NQ)

@@ -211,30 +211,102 @@ def test_patch3d_gates_and_dispatch():
     assert isinstance(opc._fast, tst.StructuredSweep)
 
 
+# the largest patch the JAX package's FESpace merges at each degree
+# (``ns_gls_tpu/fem/space.py:482-484``)
+M_CAP = {1: 64, 2: 32, 3: 32, 4: 16}
+
+
+def covers_once(n: int, chunk: int, n_chunks: int) -> bool:
+    """Chunks [k*chunk, min((k+1)*chunk, n)) own each of 0 .. n-1 once."""
+    owned = []
+    for k in range(n_chunks):
+        lo, hi = k * chunk, min((k + 1) * chunk, n)
+        if hi <= lo:
+            return False
+        owned += range(lo, hi)
+    return owned == list(range(n))
+
+
 @pytest.mark.parametrize("P", [1, 2, 3, 4])
 def test_patch3d_plan_covers_every_layer_once(P):
     """The CUDA kernel's split (``ops/patch3d.py`` ``patch3d_plan``: one
-    block per patch, cell row and z chunk; a chunk that does not start
-    the column also walks the layer below it) at every patch size the
-    kernel takes at this degree, in every flavor: the chunks own each
-    cell layer once, a slab is no deeper than a walk, and a block's
-    shared memory fits the card.  Sizes with more I1 columns than two
-    per thread are refused."""
-    for m in (1, 2, 4, 8, 16):
-        if 4 * (P + 1) * (P * m + 1) > 2 * 256:
-            with pytest.raises(ValueError):
-                tp3.patch3d_plan(P, m, 48, "increment", True)
-            continue
+    block per patch, cell row, x brick and z chunk; a chunk that does not
+    start the column also walks the layer below it) at every patch size
+    the JAX package builds at this degree, in every flavor x consider_dt:
+    a plan exists; one brick for every flavor, the whole row where it
+    fits; the bricks own each cell column once and the chunks each cell
+    layer once; a block owns at most two I1 columns a thread, a slab is no
+    deeper than a walk and a block's shared memory fits the card."""
+    m = 1
+    while m <= M_CAP[P]:
+        xb = tp3.patch3d_brick(P, m, 48)
         for flavor in tp3.FLAVORS:
             for cdt in (True, False):
                 plan = tp3.patch3d_plan(P, m, 48, flavor, cdt)
-                owned = []
-                for kz in range(plan.nzb):
-                    zb, ze = kz * plan.zc, min((kz + 1) * plan.zc, m)
-                    assert ze > zb
-                    owned += range(zb, ze)
-                assert owned == list(range(m))
+                assert (plan.xb, plan.nbx) == (xb, m // xb)
+                assert covers_once(m, plan.xb, plan.nbx)
+                assert 4 * (P + 1) * (P * plan.xb + 1) <= 2 * 256
+                assert covers_once(m, plan.zc, plan.nzb)
                 walk = plan.zc + (1 if plan.nzb > 1 else 0)
                 assert 1 <= plan.zs <= walk
-                assert tp3.smem_bytes(P, m, plan.zs, walk, flavor,
+                assert tp3.smem_bytes(P, plan.xb, plan.zs, walk, flavor,
                                       cdt) <= tp3.SMEM_PER_BLOCK
+        if 4 * (P + 1) * (P * m + 1) <= 2 * 256 and (P, m) != (2, 32):
+            assert xb == m
+        m *= 2
+
+
+def test_patch3d_bricks_match_whole_rows():
+    """The plain sweep on tables split into x bricks of one cell (the
+    layout the kernel writes at large patches), seam-summed, gives the
+    nodes what the whole-row tables give, in every flavor."""
+    from ns_gls_tpu_torch.utils.segment import seam_sum
+
+    _, opt, u, v = _setup(general3d_mesh(jgen), general3d_mesh(tgen), 1,
+                          True, False, True, False, 2)
+    whole = opt._fast.tables
+    bricks = tp3.build_patch3d_tables(opt, xb=1)
+    assert whole.xb == 2 and bricks.xb == 1
+    assert bricks.plans[("increment", True)].nbx == 2
+    sc = dict(weight=18.75, stau=12.5, nu=0.02, c1=4.0, c2=2.0)
+    rng = np.random.default_rng(3)
+    u, ul, vo = (torch.as_tensor(rng.standard_normal((whole.n_nodes, 4)),
+                                 dtype=F32) for _ in range(3))
+    for flavor in tp3.FLAVORS:
+        for cell_wise in (True, False):
+            args = (sc, u, ul, vo, flavor, True, cell_wise)
+            ref = seam_sum(whole.seams,
+                           tp3.patch3d_sweep_plain(whole, *args).reshape(-1, 4))
+            got = seam_sum(bricks.seams,
+                           tp3.patch3d_sweep_plain(bricks, *args)
+                           .reshape(-1, 4))
+            _close(got.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("kind", ["patch3d", "prism", "patch2d",
+                                  "structured"])
+def test_degree_5_raises_at_table_build(kind):
+    """The port's kernels are built for degrees 1-4; an f32 operator of
+    degree 5 on any fused-sweep space raises when its tables are built,
+    before any launch, naming that limit (on the CPU too)."""
+    from ns_gls_tpu_torch.models.channel import SimulationChannel
+
+    if kind == "patch3d":
+        mesh = general3d_mesh(tgen, 0)
+    elif kind == "prism":
+        m2 = tgen.subdivided_hyper_rectangle((2, 2), (0.0, 0.0), (1.1, 0.9))
+        m2.lattice = None
+        mesh = tgen.extrude(m2, 2, 0.7)
+    elif kind == "patch2d":
+        mesh = tgen.subdivided_hyper_rectangle((1, 1), (0.0, 0.0),
+                                               (1.1, 0.9))
+        mesh.lattice = None
+    else:
+        mesh = SimulationChannel(2).create_mesh(-2)
+    space = TSpace(mesh, 5)
+    ti = TBDF(1)
+    ti.update_dt(0.1)
+    ca = TAff(space.n_nodes, space.dim + 1).close(F32, "cpu")
+    with pytest.raises(ValueError, match="degrees 1-4, not 5"):
+        TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
+            dtype=F32, device="cpu")

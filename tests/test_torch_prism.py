@@ -199,3 +199,73 @@ def test_seam_compress_is_multiplicity(degree):
     jmult = np.concatenate([np.full(len(idx), idx.shape[1])
                             for idx in jt.compress])
     assert np.array_equal(jmult, st.node2d_mult)
+
+
+# the largest patch the JAX package's FESpace merges at each degree
+# (``ns_gls_tpu/fem/space.py:482-484``)
+M_CAP = {1: 64, 2: 32, 3: 32, 4: 16}
+
+
+def covers_once(n: int, chunk: int, n_chunks: int) -> bool:
+    """Chunks [k*chunk, min((k+1)*chunk, n)) own each of 0 .. n-1 once."""
+    owned = []
+    for k in range(n_chunks):
+        lo, hi = k * chunk, min((k + 1) * chunk, n)
+        if hi <= lo:
+            return False
+        owned += range(lo, hi)
+    return owned == list(range(n))
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_prism_plan_covers_every_layer_once(P):
+    """The CUDA kernel's split (``ops/prism.py`` ``prism_plan``: one block
+    per patch, cell row, x brick and z chunk) at every patch size the JAX
+    package builds at this degree and a range of column heights: the
+    whole row as one brick where it fits; the bricks own each cell column
+    once and the chunks each cell layer once; a block owns at most four
+    I1 columns a thread and its shared memory fits the card in every
+    flavor x consider_dt."""
+    m = 1
+    while m <= M_CAP[P]:
+        for nz in (1, 2, 3, 8, 32, 64):
+            plan = tp.prism_plan(P, m, nz)
+            assert plan.nbx * plan.xb == m
+            assert covers_once(m, plan.xb, plan.nbx)
+            assert 4 * (P + 1) * (P * plan.xb + 1) <= 4 * 256
+            assert 1 <= plan.zs <= nz
+            assert covers_once(nz, plan.zc, plan.nzb)
+            for flavor in tp.FLAVORS:
+                for cdt in (True, False):
+                    assert (tp.smem_bytes(P, plan.xb, plan.zs, flavor, cdt)
+                            + tp.STATIC_SMEM) <= tp.SMEM_PER_BLOCK
+            if P <= 2:
+                assert plan.xb == m
+        m *= 2
+
+
+def test_prism_bricks_match_whole_rows():
+    """The plain sweep on tables split into x bricks of one cell (the
+    layout the kernel writes at large patches), seam-compressed, gives the
+    nodes what the whole-row tables give, in every flavor."""
+    from ns_gls_tpu_torch.utils.segment import class_sum
+
+    _, opt, _, _ = _setup(1, True, False, True, False)
+    sw = opt._fast
+    whole = sw.tables
+    bricks = tp.build_prism_tables(opt, xb=1)
+    assert whole.plan.xb == 2 and (bricks.plan.xb, bricks.plan.nbx) == (1, 2)
+    sc = dict(weight=18.75, stau=12.5, nu=0.02, c1=4.0, c2=2.0)
+    shape = tuple(whole.patch_nodes.shape) + (sw.Nzn,)
+    rng = np.random.default_rng(3)
+    uP, ulP, voP = (torch.as_tensor(rng.standard_normal((lead,) + shape),
+                                    dtype=F32) for lead in (4, 4, 3))
+    for flavor in tp.FLAVORS:
+        ul = ulP if flavor == "increment" else ulP[:3]
+        for cell_wise in (True, False):
+            args = (sc, uP, ul, voP, flavor, True, cell_wise)
+            ref = sw.compress(tp.prism_sweep_plain(whole, *args))
+            rows = tp.prism_sweep_plain(bricks, *args)
+            got = class_sum(bricks.compress, rows.reshape(4, -1, sw.Nzn),
+                            dim=1)
+            _close(got.numpy(), ref.numpy())

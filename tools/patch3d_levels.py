@@ -19,11 +19,14 @@ scalars; random node-major vectors from ``numpy.random.default_rng(1)``):
   and seam sums, ``csrc/seam_sum.cu``): ``sweep_us`` by events,
   ``sweep_device_us`` the device time of all its kernels,
 - with ``--baseline FILE.cu``: builds FILE (a revision of
-  ``csrc/patch3d.cu`` that takes gathered node tiles, e.g. ``git show
-  <commit>:ns_gls_tpu_torch/csrc/patch3d.cu``), holds it to the plain
-  version and times it on the same inputs in the same process: the
-  kernel alone, and its sweep as that revision ran it (the gather of u
-  into tiles, the kernel, the class sums of ``utils/segment.py``),
+  ``csrc/patch3d.cu`` whose launcher reads the node-major vectors and
+  takes a slab depth and z chunks but no x brick, e.g. ``git show
+  <commit>:ns_gls_tpu_torch/csrc/patch3d.cu`` of the commit before the
+  bricks), holds it to the plain version and times it on the same inputs
+  in the same process under the same slab depth and z chunks: the kernel
+  alone, and its sweep (the kernel and the seam sums); only at levels
+  whose plan takes the whole cell row as one brick, the layout that
+  revision writes,
 - with ``--sweep``: also times the kernel under other plans (slab depth,
   z chunks) than ``ops/patch3d.py`` ``patch3d_plan``'s.
 
@@ -68,64 +71,33 @@ def build_baseline(path: str):
                 print(f"baseline: {line.strip()}", flush=True)
     fn = ctypes.CDLL(so).patch3d_sweep_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 9 + [ci] * 7 + [cf] * 5 + [vp]
+    fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci, ci, vp]
     fn.restype = ci
     return fn
 
 
-class Baseline:
-    """The previous revision's sweep on this level: node tiles (C, n_p,
-    Yn, Xn, Zn) gathered from the node-major vectors, the kernel's cell-
-    row tiles (C, n_p, m, P+1, Xn, Zn), class sums back to the nodes."""
+def baseline_kernel(fn, tables, plan, sc, u, ul, vo, flavor, cdt, cw):
+    """The previous revision's kernel on the node-major vectors under the
+    slab depth and z chunks of ``plan`` (whose brick is the whole row):
+    cell-row tiles in the layout of the tables' one brick."""
+    import torch
 
-    def __init__(self, fn, tables):
-        import numpy as np
+    from ns_gls_tpu_torch.ops.patch3d import FLAVORS
 
-        from ns_gls_tpu_torch.ops.prism import cell_row_index
-        from ns_gls_tpu_torch.utils.segment import class_gather
-
-        self.fn, self.tables = fn, tables
-        self.pn = tables.patch_nodes.long()
-        rows = tables.patch_nodes.cpu().numpy().astype(np.int64)[
-            :, cell_row_index(tables.P, tables.m)]
-        self.compress = class_gather(rows.reshape(-1), tables.n_nodes,
-                                     tables.jinv.device)
-
-    def gather(self, v, lead):
-        return v[:, :lead].T[:, self.pn].contiguous()
-
-    def kernel(self, sc, uP, ulP, voP, flavor, cdt, cw):
-        import torch
-
-        from ns_gls_tpu_torch.ops.patch3d import FLAVORS
-
-        t = self.tables
-        P, m = t.P, t.m
-        Xn = P * m + 1
-        out = torch.empty((4, t.jinv.shape[0], m, P + 1, Xn, Xn),
-                          dtype=torch.float32, device=uP.device)
-        err = self.fn(
-            uP.data_ptr(), ulP.data_ptr(), voP.data_ptr(),
-            t.jinv.data_ptr(), t.jxw.data_ptr(), t.h.data_ptr(),
-            t.S1.data_ptr(), t.D1.data_ptr(), out.data_ptr(),
-            t.jinv.shape[0], P, t.NQ, m, FLAVORS.index(flavor), int(cdt),
-            int(cw), *(sc[k] for k in ("weight", "stau", "nu", "c1", "c2")),
-            torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"baseline launch failed: CUDA error {err}")
-        return out
-
-    def sweep(self, sc, u, ulP, voP, flavor, cdt, cw):
-        from ns_gls_tpu_torch.utils.segment import class_sum
-
-        rows = self.kernel(sc, self.gather(u, 4), ulP, voP, flavor, cdt, cw)
-        return class_sum(self.compress, rows.reshape(4, -1), dim=1).T
-
-    @staticmethod
-    def as_new_tiles(rows):
-        """(C, n_p, m, P+1, Xn, Zn) -> the new layout (n_p, m, Zn, P+1,
-        Xn, C)."""
-        return rows.permute(1, 2, 5, 3, 4, 0)
+    t = tables
+    P, m = t.P, t.m
+    out = torch.empty((t.jinv.shape[0], m, 1, P * m + 1, P + 1, P * m + 1,
+                       4), dtype=torch.float32, device=u.device)
+    err = fn(
+        u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
+        t.patch_nodes.data_ptr(), t.jinv.data_ptr(), t.jxw.data_ptr(),
+        t.h.data_ptr(), t.S1.data_ptr(), t.D1.data_ptr(), out.data_ptr(),
+        t.jinv.shape[0], P, t.NQ, m, FLAVORS.index(flavor), int(cdt),
+        int(cw), *(sc[k] for k in ("weight", "stau", "nu", "c1", "c2")),
+        plan.zs, plan.nzb, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"baseline launch failed: CUDA error {err}")
+    return out
 
 
 def rel_err(a, ref):
@@ -215,7 +187,7 @@ def main(argv=None) -> int:
         a = p3.Patch3DKernel.launch(*case)
         b = p3.Patch3DKernel.launch(*case)
         torch.cuda.synchronize()
-        plan = p3.patch3d_plan(tables.P, tables.m, n_p, "increment", cdt)
+        plan = tables.plans[("increment", cdt)]
         rec = dict(card=card, level=label, P=tables.P, m=tables.m, n_p=n_p,
                    cells=n_p * tables.m ** 3, plan=list(plan),
                    max_rel_err=rel_err(a, ref),
@@ -243,22 +215,19 @@ def main(argv=None) -> int:
         nbytes, flops = patch3d_cost(tables, "increment", cdt, cw)
         bms, by = bound(nbytes, flops)
         rec.update(bound_us=1e3 * bms, bound_by=by, bound_bytes=nbytes)
-        if base_fn is not None:
-            base = Baseline(base_fn, tables)
-            ulP, voP = base.gather(ul, 4), base.gather(vo, 3)
-            uP = base.gather(u, 4)
-            old = base.kernel(sc, uP, ulP, voP, "increment", cdt, cw)
-            rec["baseline_max_rel_err"] = rel_err(
-                Baseline.as_new_tiles(old), ref)
-            rec["baseline_sweep_max_rel_err"] = rel_err(
-                base.sweep(sc, u, ulP, voP, "increment", cdt, cw),
-                nodes_ref)
-
+        if base_fn is not None and plan.nbx == 1:
             def old_kernel():
-                return base.kernel(sc, uP, ulP, voP, "increment", cdt, cw)
+                return baseline_kernel(base_fn, tables, plan, sc, u, ul, vo,
+                                       "increment", cdt, cw)
 
             def old_sweep():
-                return base.sweep(sc, u, ulP, voP, "increment", cdt, cw)
+                return sg.seam_sum(tables.seams, old_kernel().reshape(-1, 4))
+
+            old = old_kernel()
+            rec["baseline_max_rel_err"] = rel_err(old, ref)
+            rec["baseline_bit_identical"] = bool(torch.equal(old, a))
+            rec["baseline_sweep_max_rel_err"] = rel_err(old_sweep(),
+                                                        nodes_ref)
 
             rec["baseline_us"] = 1e3 * time_cuda(old_kernel, args.reps,
                                                  warmup=5)
@@ -269,14 +238,15 @@ def main(argv=None) -> int:
             rec["baseline_sweep_device_us"] = device_kernels_us(
                 old_sweep)[0]
             rec["device_us_again"] = device_time_us(kernel, "patch3d_kernel")
-            del old, uP, ulP, voP
+            del old
         if args.sweep:
             rec["sweep"] = {}
             for zs in (1, 2, 3, 4, 8):
                 for nzb in (1, 2, 4):
                     if zs > tables.m or nzb > tables.m:
                         continue
-                    alt = p3.Patch3DPlan(zs, -(-tables.m // nzb), nzb)
+                    alt = plan._replace(zs=zs, zc=-(-tables.m // nzb),
+                                        nzb=nzb)
                     try:
                         t = device_time_us(
                             lambda: p3.Patch3DKernel.launch(*case, plan=alt),

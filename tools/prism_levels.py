@@ -17,11 +17,14 @@ random tiles from ``numpy.random.default_rng(1)``):
   device time of the kernel alone (``device_us``), beside the sweep's
   bound (``utils/roofline.py`` ``prism_cost``),
 - with ``--baseline FILE.cu``: builds FILE (another revision of
-  ``csrc/prism.cu`` whose launcher has no slab or chunk arguments, e.g.
-  from ``git show <commit>:ns_gls_tpu_torch/csrc/prism.cu``), holds it to
-  the plain version and times it on the same inputs in the same process,
+  ``csrc/prism.cu`` whose launcher takes a slab depth and z chunks, 0 for
+  its own choice, but no x brick, e.g. from ``git show
+  <commit>:ns_gls_tpu_torch/csrc/prism.cu`` of the commit before the
+  bricks), holds it to the plain version and times it on the same inputs
+  in the same process, at levels whose plan takes the whole cell row as
+  one brick (the layout that revision writes),
 - with ``--sweep``: also times the kernel at other slab depths and z-chunk
-  counts than the launcher's own choice.
+  counts than ``ops/prism.py`` ``prism_plan``'s.
 
 Prints the card's name and power limit, the kernel's register use, and one
 JSON line per level.  Needs a CUDA device.
@@ -65,7 +68,7 @@ def build_baseline(path: str):
                 print(f"baseline: {line.strip()}", flush=True)
     fn = ctypes.CDLL(so).prism_sweep_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [vp]
+    fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 2 + [vp]
     fn.restype = ci
     return fn
 
@@ -76,7 +79,7 @@ def baseline_launch(fn, tables, sc, u, ul, vo, flavor, cdt, cw):
     from ns_gls_tpu_torch.ops.prism import FLAVORS
 
     P, m = tables.P, tables.m
-    out = torch.empty((4, tables.jinv.shape[0], m, P + 1, P * m + 1,
+    out = torch.empty((4, tables.jinv.shape[0], m, 1, P + 1, P * m + 1,
                        P * tables.nz + 1), dtype=torch.float32,
                       device=u.device)
     err = fn(u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
@@ -85,7 +88,7 @@ def baseline_launch(fn, tables, sc, u, ul, vo, flavor, cdt, cw):
              tables.wz.data_ptr(), out.data_ptr(), tables.jinv.shape[0], P,
              tables.NQ, m, tables.nz, FLAVORS.index(flavor), int(cdt),
              int(cw), *(sc[k] for k in ("weight", "stau", "nu", "c1", "c2")),
-             torch.cuda.current_stream().cuda_stream)
+             0, 0, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"baseline launch failed: CUDA error {err}")
     return out
@@ -93,28 +96,14 @@ def baseline_launch(fn, tables, sc, u, ul, vo, flavor, cdt, cw):
 
 def launch_split(tables, sc, u, ul, vo, flavor, cdt, cw, zs, nzb):
     """The port's kernel with ``zs`` cell layers per slab and ``nzb`` z
-    chunks per column in place of the launcher's choice (the result does
-    not depend on them)."""
-    import torch
+    chunks per column in place of the plan's (the result does not depend
+    on them)."""
+    from ns_gls_tpu_torch.ops.prism import PrismKernel
 
-    from ns_gls_tpu_torch.ops.prism import FLAVORS, PrismKernel
-
-    P, m = tables.P, tables.m
-    out = torch.empty((4, tables.jinv.shape[0], m, P + 1, P * m + 1,
-                       P * tables.nz + 1), dtype=torch.float32,
-                      device=u.device)
-    err = PrismKernel._load()(
-        u.data_ptr(), ul.data_ptr(), vo.data_ptr(), tables.jinv.data_ptr(),
-        tables.jxw.data_ptr(), tables.h.data_ptr(), tables.S1.data_ptr(),
-        tables.D1.data_ptr(), tables.wz.data_ptr(), out.data_ptr(),
-        tables.jinv.shape[0], P, tables.NQ, m, tables.nz,
-        FLAVORS.index(flavor), int(cdt), int(cw),
-        *(sc[k] for k in ("weight", "stau", "nu", "c1", "c2")), zs, nzb,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch with {zs} layers per slab and {nzb} z "
-                           f"chunks failed: CUDA error {err}")
-    return out
+    zc = -(-tables.nz // nzb)
+    plan = tables.plan._replace(zs=zs, zc=zc, nzb=-(-tables.nz // zc))
+    return PrismKernel.launch(tables, sc, u, ul, vo, flavor, cdt, cw,
+                              plan=plan)
 
 
 def rel_err(a, ref):
@@ -181,6 +170,7 @@ def main(argv=None) -> int:
         b = pr.PrismKernel.launch(*case)
         torch.cuda.synchronize()
         rec = dict(card=card, m=tables.m, nz=tables.nz, n_p=n_p,
+                   plan=list(tables.plan),
                    cells=n_p * tables.m ** 2 * tables.nz,
                    max_rel_err=rel_err(a, ref),
                    bit_identical=bool(torch.equal(a, b)))
@@ -195,9 +185,10 @@ def main(argv=None) -> int:
         nbytes, flops = prism_cost(tables, "increment", True, False)
         bms, by = bound(nbytes, flops)
         rec.update(bound_us=1e3 * bms, bound_by=by)
-        if base is not None:
+        if base is not None and tables.plan.nbx == 1:
             c = baseline_launch(base, *case)
             rec["baseline_max_rel_err"] = rel_err(c, ref)
+            rec["baseline_bit_identical"] = bool(torch.equal(c, a))
             rec["baseline_us"] = 1e3 * time_cuda(
                 lambda: baseline_launch(base, *case), args.reps, warmup=5)
             rec["baseline_device_us"] = device_time_us(

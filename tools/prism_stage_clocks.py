@@ -109,7 +109,7 @@ def main(argv=None) -> int:
     lib = ctypes.CDLL(so)
     fn = lib.prism_sweep_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 2 + [vp]
+    fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
     fn.restype = ci
 
     card = subprocess.run(
@@ -136,8 +136,9 @@ def main(argv=None) -> int:
                 dtype=torch.float32, device="cuda")
 
         u, ul, vo = tile(4), tile(4), tile(3)
-        out = torch.empty((4, n_p, T.m, T.P + 1, Xn, Nzn),
-                          dtype=torch.float32, device="cuda")
+        pl = T.plan
+        out = torch.empty((4, n_p, T.m, pl.nbx, T.P + 1, T.P * pl.xb + 1,
+                           Nzn), dtype=torch.float32, device="cuda")
         for cw in (False, True):
             lib.stage_zero()
             err = fn(u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
@@ -146,7 +147,8 @@ def main(argv=None) -> int:
                      out.data_ptr(), n_p, T.P, T.NQ, T.m, T.nz,
                      pr.FLAVORS.index("increment"), 1, int(cw),
                      *(SC[k] for k in ("weight", "stau", "nu", "c1", "c2")),
-                     0, 0, torch.cuda.current_stream().cuda_stream)
+                     pl.xb, pl.zs, pl.nzb,
+                     torch.cuda.current_stream().cuda_stream)
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"instrumented launch failed: {err}")

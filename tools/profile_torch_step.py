@@ -1,7 +1,7 @@
 """Where a time step of the PyTorch port goes on the GPU.
 
     python tools/profile_torch_step.py [config] [--warmup 2] [--steps 2]
-        [--dim D] [--degree P] [--refinements R]
+        [--dim D] [--degree P] [--refinements R] [--sample N [--skip K]]
 
 Runs the config (default ``input/turek_2d_re100.json``, output off;
 ``--dim``, ``--degree`` and ``--refinements`` override its "dim", "fe
@@ -15,7 +15,16 @@ kernel time over the profiled steps' seconds, and over the profiled wall,
 which also holds the profiler's start and stop), the top device operations
 by total time, for each fused kernel its launches, device time, and time
 above its bound per step (each apply's bound at its level's shape,
-``utils/roofline.py``), and the driver's scope timers.
+``utils/roofline.py``), the weak-outflow face sweep's calls, host and
+device time where the config has outflow faces (a ``face_sweep``
+profiler scope around each call), and the driver's scope timers.
+
+A step of thousands of GMRES iterations (``input/hoffmann_2d_reinf.json``:
+~1,800) holds millions of operations, more events than the profiler can
+hold in a 96 GiB host: ``--sample N`` records only a window of N
+preconditioner applications (one per outer GMRES iteration) of the
+profiled steps, after ``--skip K`` of them, and prints the same shares
+over the window's wall time (the step's own totals from the driver).
 """
 
 from __future__ import annotations
@@ -72,6 +81,55 @@ def count_sweeps(drv):
     return tally
 
 
+def annotate_face_sweeps(drv, counting):
+    """Put every operator's weak-outflow face sweep in a ``face_sweep``
+    profiler scope, and add its calls and host seconds to a tally while
+    ``counting()`` holds; returns the tally, or None where no operator
+    has outflow faces."""
+    from torch.profiler import record_function
+
+    tally = None
+    for op in [drv.op] + list(drv.mg_ops):
+        if not op.needs_face_integrals:
+            continue
+        tally = tally or {"calls": 0, "host_s": 0.0}
+
+        def scoped(u, r, residual_form, sweep=op._boundary_sweep,
+                   tally=tally):
+            t0 = time.perf_counter()
+            with record_function("face_sweep"):
+                out = sweep(u, r, residual_form)
+            if counting():
+                tally["calls"] += 1
+                tally["host_s"] += time.perf_counter() - t0
+            return out
+
+        op._boundary_sweep = scoped
+    return tally
+
+
+def kernels_in_scope(prof, name: str) -> float:
+    """Seconds of device time of the kernels that ran inside the device
+    ranges of the profiler scope ``name`` (the scope's own device time
+    also counts the idle gaps between them)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name == name and e.device_type == DeviceType.CUDA)
+    starts = [a for a, _ in spans]
+    total = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.end <= spans[i][1]:
+            total += e.time_range.end - e.time_range.start
+    return total / 1e6
+
+
 def main():
     import torch
     from torch.autograd import DeviceType
@@ -91,8 +149,15 @@ def main():
     ap.add_argument("--dim", type=int, default=None)
     ap.add_argument("--degree", type=int, default=None)
     ap.add_argument("--refinements", type=int, default=None)
+    ap.add_argument("--sample", type=int, default=0,
+                    help="profile a window of this many preconditioner "
+                    "applications only")
+    ap.add_argument("--skip", type=int, default=50,
+                    help="preconditioner applications before the window")
     args = ap.parse_args()
 
+    # the window: preconditioner applications after --skip, --sample long
+    marks = (args.skip + 1, args.skip + 1 + args.sample)
     raw = _load_json(args.config)
     raw.update({"paraview prefix": "", "output granularity": 0.0})
     for key, value in (("dim", args.dim), ("fe degree", args.degree),
@@ -115,15 +180,45 @@ def main():
     drv.restart_from(sol, dts, t, counter)
     get_collection().reset()
     tally = count_sweeps(drv)
+    window = {}
+    faces = annotate_face_sweeps(
+        drv, lambda: not args.sample
+        or marks[0] <= window.get("n", 0) < marks[1])
     torch.cuda.synchronize()
     n0 = len(drv.step_stats)
+    sched = None
+    if args.sample:
+        sched = torch.profiler.schedule(wait=args.skip, warmup=1,
+                                        active=args.sample, repeat=1)
+        apply = drv.preconditioner.vmult
+
+        def sampled(src):
+            out = apply(src)
+            window["n"] = n = window.get("n", 0) + 1
+            prof.step()
+            if n in marks:
+                torch.cuda.synchronize()
+                window[n] = time.perf_counter()
+            return out
+
+        drv.preconditioner.vmult = sampled
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
         drv.run(max_steps=counter - 1 + args.steps)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = drv.step_stats[n0:]
+    if args.sample:
+        if not all(m in window for m in marks):
+            raise SystemExit(f"the profiled steps made {window.get('n', 0)} "
+                             f"preconditioner applications, fewer than "
+                             f"--skip {args.skip} + --sample {args.sample}")
+        wall = window[marks[1]] - window[marks[0]]
+        print(f"sampled window: preconditioner applications "
+              f"{marks[0] + 1}-{marks[1]} of the profiled steps' "
+              f"{window['n']}, {wall:.4f} s of wall time; the shares below "
+              f"are over the window")
 
     events = prof.key_averages()
 
@@ -140,34 +235,47 @@ def main():
     print(f"{drv.mesh.n_cells} cells, "
           f"{drv.space.n_nodes * (drv.params.dim + 1)} DoFs, "
           f"{len(drv.mg_ops)} GMG levels")
-    print(f"profiled steps: {len(stats)}, wall {wall:.3f} s "
-          f"({wall / max(len(stats), 1):.4f} s/step, profiler on; "
-          f"{[round(s['seconds'], 4) for s in stats]} s per step); "
-          f"Newton {[s['newton'] for s in stats]}, "
+    print(f"profiled steps: {len(stats)}, "
+          + ("" if args.sample else
+             f"wall {wall:.3f} s ({wall / max(len(stats), 1):.4f} s/step), ")
+          + f"{[round(s['seconds'], 4) for s in stats]} s per step with the "
+          f"profiler on; Newton {[s['newton'] for s in stats]}, "
           f"GMRES {[s['gmres'] for s in stats]}")
     # both shares: ``wall`` also holds the profiler's start and stop,
     # which dwarf a short window; the steps' own seconds do not
-    step_s = sum(s["seconds"] for s in stats)
+    step_s = wall if args.sample else sum(s["seconds"] for s in stats)
     busy_s = busy_us / 1e6
     print(f"device busy: {busy_s:.4f} s = "
           f"{100 * busy_s / max(step_s, 1e-9):.1f}% of the profiled "
-          f"steps' {step_s:.3f} s, {100 * busy_s / wall:.1f}% of the "
-          f"profiled wall {wall:.3f} s")
+          f"{'window' if args.sample else 'steps'}' {step_s:.3f} s, "
+          f"{100 * busy_s / wall:.1f}% of the profiled wall {wall:.3f} s")
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
     # the fused kernels against their bounds: device time over the
-    # profiled steps less the summed bound of their launches, per step
+    # profiled steps (or the window) less the summed bound of their
+    # launches (each at the average bound of the profiled steps' applies)
+    span = "the window" if args.sample else f"{len(stats)} profiled step(s)"
     for name, (applies, bound_ms) in tally.items():
         rows = [e for e in events if e.device_type == DeviceType.CUDA
                 and (f"{name}(" in e.key or f"{name}<" in e.key)]
         dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
         n = sum(e.count for e in rows)
-        print(f"fused kernel {name}: {n} launches ({applies} sweep "
-              f"applies) in {len(stats)} profiled step(s), {dev_ms:.3f} ms "
-              f"of device time, {1e3 * dev_ms / max(n, 1):.1f} us per "
-              f"launch on average; summed bound {bound_ms:.3f} ms "
-              f"({1e3 * bound_ms / max(applies, 1):.2f} us per launch on "
-              f"average); above the bound "
-              f"{(dev_ms - bound_ms) / max(len(stats), 1):.3f} ms per step")
+        per_launch = bound_ms / max(applies, 1)
+        above = dev_ms - n * per_launch
+        print(f"fused kernel {name}: {n} launches in {span} ({applies} "
+              f"sweep applies in the profiled steps), {dev_ms:.3f} ms of "
+              f"device time, {1e3 * dev_ms / max(n, 1):.1f} us per launch "
+              f"on average; bound {1e3 * per_launch:.2f} us per launch on "
+              f"average; above the bound {above:.3f} ms in {span}"
+              + ("" if args.sample else
+                 f" ({above / max(len(stats), 1):.3f} ms per step)"))
+    if faces is not None:
+        dev_s = kernels_in_scope(prof, "face_sweep")
+        print(f"face sweep: {faces['calls']} calls in {span}, host "
+              f"{faces['host_s']:.4f} s "
+              f"({100 * faces['host_s'] / max(step_s, 1e-9):.1f}% of the "
+              f"wall time), kernels {dev_s:.4f} s of device time "
+              f"({100 * dev_s / max(busy_s, 1e-12):.1f}% of the device busy "
+              f"time)")
     get_collection().print_all()
 
 
