@@ -106,8 +106,25 @@ Phases (any failure exits non-zero and prints no result line):
     series ``validation/hoffmann_2d_reinf_ref1_q1_series.json``; the face
     sweep's scatter twice on equal inputs, bit for bit (phase 7 does the
     same for the f64 general sweep on the Turek 3D fine level),
-17. the kernel line (JSON) with launches, errors, times and bounds,
-18. the result line (JSON).
+17. rotation: the patch-2D kernel against its plain version on
+    several-family tables (the rotation mesh's finest GMG level at
+    refinements 3 and 6, m = 1-16, and a Q2 adaptive rectangle, m = 1,
+    2, 4) in every flavor x delta mode x consider_dt, two launches
+    bit-identical; the whole several-family sweep (one kernel launch a
+    family into one tile buffer, then one seam sum) against the plain
+    sweep, its launches counted; ``input/rotation.json`` as given (Q1,
+    refinement 3, BDF-1, GMG-LS with the direct coarse solve and the
+    pressure pin) for 5 steps and at refinement 6 (18,688 nodes, 8 forest
+    levels) for 3, through ``Driver.run``: every Newton solve converges,
+    the inner ring rotates rigidly (u_theta = r to 1e-8), every applied
+    f32 forest level launched the patch-2D kernel and no f32 operator ran
+    the general sweep; the kernel's time and bound at the m = 1 forest
+    level of refinement 6 (16,384 patches); the same config under GMG for
+    3 steps, n_families + 1 launches an apply on its finest f32 level;
+    stationary Couette flow (Q2, refinement 1) under GMG-LS and GMG
+    against the analytic u_theta within 5e-3,
+18. the kernel line (JSON) with launches, errors, times and bounds,
+19. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -245,7 +262,8 @@ def patch2d_operator(mesh, degree, device):
 
 
 def patch2d_level_sets(device):
-    """(label, patch-2D tables) of every level phase 3 checks."""
+    """(label, patch-2D tables) of every level phase 3 checks: one patch
+    family each."""
     from ns_gls_tpu_torch.models.cylinder import SimulationCylinder
 
     sim = SimulationCylinder(2)
@@ -270,8 +288,7 @@ def patch2d_inputs(tables, seed=0):
 
     rng = np.random.default_rng(seed)
     return tuple(torch.as_tensor(rng.standard_normal((tables.n_nodes, 3)),
-                                 dtype=torch.float32,
-                                 device=tables.jinv.device)
+                                 dtype=torch.float32, device="cuda")
                  for _ in range(3))
 
 
@@ -304,11 +321,11 @@ def compare_cases(name, launch, plain, cases):
     return worst_abs, worst_rel
 
 
-def phase_kernel_vs_plain(level_sets):
-    """The patch-2D kernel against its plain version on every level of
-    ``level_sets`` in every flavor x delta mode x consider_dt; two launches
-    on the same inputs give the same bits.  Returns (max abs err, max rel
-    err)."""
+def phase_kernel_vs_plain(level_sets, tag=3):
+    """The patch-2D kernel against its plain version on every patch family
+    of every level of ``level_sets`` in every flavor x delta mode x
+    consider_dt; two launches on the same inputs give the same bits.
+    Returns (max abs err, max rel err)."""
     import torch
 
     from ns_gls_tpu_torch.ops import patch2d as p2
@@ -316,7 +333,9 @@ def phase_kernel_vs_plain(level_sets):
     worst_rel = 0.0
     worst_abs = 0.0
     n_cases = 0
-    for label, tables in level_sets:
+    for label, tables in ((f"{label} family m={t.m}" if len(ft.fams) > 1
+                           else label, t)
+                          for label, ft in level_sets for t in ft.fams):
         u, ul, vo = patch2d_inputs(tables)
         cases = [(tables, SC, u, ul, vo, flavor, cdt, cell_wise)
                  for flavor in p2.FLAVORS for cell_wise in (True, False)
@@ -332,10 +351,11 @@ def phase_kernel_vs_plain(level_sets):
             if not torch.equal(x, y):
                 raise AssertionError(f"two patch-2D launches on the same "
                                      f"inputs differ ({label})")
-        log(f"[3] {label}: P={tables.P} m={tables.m} "
+        log(f"[{tag}] {label}: P={tables.P} m={tables.m} "
             f"patches={tables.jinv.shape[0]} plan {tuple(tables.plan)}: "
             f"{len(cases)} cases ok, max rel err {r:.3e}")
-    log(f"[3] kernel vs plain: {n_cases} cases, max abs err {worst_abs:.3e}, "
+    log(f"[{tag}] kernel vs plain: {n_cases} cases, max abs err "
+        f"{worst_abs:.3e}, "
         f"max rel err {worst_rel:.3e} (tol {KERNEL_REL_TOL}); relaunches "
         f"bit-identical")
     return worst_abs, worst_rel
@@ -348,7 +368,7 @@ def log_patch2d_build(level_sets, flavor, consider_dt):
     from ns_gls_tpu_torch.ops import patch2d as p2
 
     finest = {}
-    for _, t in level_sets:
+    for t in (t for _, ft in level_sets for t in ft.fams):
         if t.m >= finest.get(t.P, t).m:
             finest[t.P] = t
     for P, t in sorted(finest.items()):
@@ -360,27 +380,29 @@ def log_patch2d_build(level_sets, flavor, consider_dt):
             f"consider_dt {consider_dt})")
 
 
-def phase_patch2d_sweep(tables, flavor, consider_dt, cell_wise):
-    """The whole sweep at ``tables``' shape (kernel, one seam-sum launch)
-    against the plain kernel and plain seam sums; the seam sums bit-equal
-    to their plain version on the kernel's own tiles, twice; times by the
-    profiler's device time: the kernel, and the sweep with its seam sum
-    and the kernels it launches; the plain version by events and the
-    bound.  Returns the kernel line's numbers."""
+def phase_patch2d_sweep(ft, flavor, consider_dt, cell_wise, tag=3):
+    """The whole sweep on the one-family tables ``ft`` (kernel, one
+    seam-sum launch) against the plain kernel and plain seam sums; the
+    seam sums bit-equal to their plain version on the kernel's own tiles,
+    twice; its launches counted by the wrappers; times by the profiler's
+    device time: the kernel, and the sweep as its kernels' mean times
+    within it; the plain version by events and the bound.  Returns the
+    kernel line's numbers."""
     import torch
 
     from ns_gls_tpu_torch.ops import patch2d as p2
     from ns_gls_tpu_torch.utils import segment as sg
     from ns_gls_tpu_torch.utils.roofline import bound, patch2d_cost
-    from ns_gls_tpu_torch.utils.timer import device_kernels_us, device_time_us
+    from ns_gls_tpu_torch.utils.timer import device_time_us
 
-    u, ul, vo = patch2d_inputs(tables, seed=1)
+    (tables,) = ft.fams
+    u, ul, vo = patch2d_inputs(ft, seed=1)
     args = (tables, SC, u, ul, vo, flavor, consider_dt, cell_wise)
     tiles = p2.Patch2DKernel.launch(*args).reshape(-1, 3)
-    got = sg.SeamSumKernel.launch(tables.seams, tiles)
-    again = sg.SeamSumKernel.launch(tables.seams, tiles)
-    plain_seams = sg.seam_sum_plain(tables.seams, tiles)
-    ref = sg.seam_sum_plain(tables.seams,
+    got = sg.SeamSumKernel.launch(ft.seams, tiles)
+    again = sg.SeamSumKernel.launch(ft.seams, tiles)
+    plain_seams = sg.seam_sum_plain(ft.seams, tiles)
+    ref = sg.seam_sum_plain(ft.seams,
                             p2.patch2d_sweep_plain(*args).reshape(-1, 3))
     torch.cuda.synchronize()
     if not (torch.equal(got, again) and torch.equal(got, plain_seams)):
@@ -395,26 +417,33 @@ def phase_patch2d_sweep(tables, flavor, consider_dt, cell_wise):
         return p2.Patch2DKernel.launch(*args)
 
     def sweep():
-        return sg.seam_sum(tables.seams, kernel().reshape(-1, 3))
+        return sg.seam_sum(ft.seams, kernel().reshape(-1, 3))
 
+    k0, s0 = p2.Patch2DKernel.launches, sg.SeamSumKernel.launches
+    sweep()
+    n_k = p2.Patch2DKernel.launches - k0
+    n_s = sg.SeamSumKernel.launches - s0
     us = device_time_us(kernel, "patch2d_kernel")
-    sweep_us, sweep_launches = device_kernels_us(sweep)
+    sweep_us = (device_time_us(sweep, "patch2d_kernel")
+                + device_time_us(sweep, "seam_sum_kernel"))
     events_ms = time_sweep(kernel)
     plain_ms = time_sweep(lambda: p2.patch2d_sweep_plain(*args), n=50)
-    nbytes, flops = patch2d_cost(tables, flavor, consider_dt, cell_wise)
+    nbytes, flops = patch2d_cost(ft, flavor, consider_dt, cell_wise)
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"[3] sweep (kernel, seam sums) vs plain sweep at m={tables.m}: max "
+    log(f"[{tag}] sweep (kernel, seam sums) vs plain sweep at "
+        f"m={tables.m}: max "
         f"rel err {rel:.3e}; seam sums bit-identical to their plain version "
         f"and to themselves")
-    log(f"[3] m={tables.m} {flavor} sweep (consider_dt {consider_dt}, "
+    log(f"[{tag}] m={tables.m} {flavor} sweep (consider_dt {consider_dt}, "
         f"cell-wise {cell_wise}), device time: kernel {us:.3f} us, sweep "
-        f"{sweep_us:.3f} us in {sweep_launches:g} launches; kernel by events "
+        f"{sweep_us:.3f} us in {n_k + n_s} launches; kernel by events "
         f"{1e3 * events_ms:.3f} us (back-to-back launches: the host's rate); "
         f"plain {plain_ms:.4f} ms; bound {1e3 * bound_ms:.4f} us by "
         f"{bound_by} ({nbytes} B, {flops} flop)")
-    if sweep_launches != 2:
-        raise AssertionError(f"the patch-2D sweep launched "
-                             f"{sweep_launches:g} kernels an apply, want 2")
+    if (n_k, n_s) != (1, 1):
+        raise AssertionError(
+            f"the patch-2D sweep launched {n_k} kernel and {n_s} seam-sum "
+            f"launches, want 1 and 1")
     return dict(ms=us / 1e3, sweep_ms=sweep_us / 1e3, events_ms=events_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1630,6 +1659,342 @@ def phase_hoffmann():
                 stats=stats), drv
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the rotation slice
+# ---------------------------------------------------------------------------
+# 17.2-17.4: input/rotation.json as given (refinement 3, GMG-LS), at
+# refinement 6, and under GMG (the several-family path)
+ROTATION_STEPS = 5
+ROTATION6 = {"n global refinements": 6}
+ROTATION6_STEPS = 3
+ROTATION6_NODES = 18688
+ROTATION6_LEVELS = 8
+ROTATION_GMG_STEPS = 3
+# the JAX package's tests/test_rotation.py: the inner ring's tangential
+# velocity is its radius
+INNER_RING_RTOL = 1e-8
+# 17.5: stationary Couette flow (the JAX package's tests/test_couette.py),
+# u_theta against (1/r - r) / 15 for 0.4 < r < 0.8 within that test's own
+# tolerance
+COUETTE = {
+    "dim": 2, "fe degree": 2, "mapping degree": 0,
+    "n global refinements": 1, "simulation name": "rotation",
+    "time intration": "none", "c1": 2.0, "c2": 0.0, "nu": 6.25,
+    "consider time derivative": False, "cell wise stabilization": False,
+    "lin absolute tolerance": 1e-10, "lin relative tolerance": 1e-6,
+    "gmg coarse grid solver": "direct",
+    "gmg constraint coarse pressure dof": True,
+    "nonlinear solver": "Newton", "output granularity": 0.0,
+    "paraview prefix": "",
+}
+COUETTE_TOL = 5e-3
+
+
+def adaptive_q2_mesh():
+    """The JAX package's ``tests/test_patch2d.py`` ``adaptive_mesh``: a
+    3 x 2 rectangle refined once, then its left half once more (patch
+    families m = 1, 2, 4)."""
+    from ns_gls_tpu_torch.mesh.generators import subdivided_hyper_rectangle
+
+    m = subdivided_hyper_rectangle((3, 2), (0.0, 0.0), (1.1, 0.9))
+    m.lattice = None
+    m = m.refine_global(1)
+    c = m.vertices[m.cells].mean(1)
+    return m.refine(c[:, 0] < 0.5)
+
+
+def family_table_sets(device):
+    """(label, several-family patch-2D tables): the rotation mesh's finest
+    GMG level (its final mesh, Q1) at refinements 3 and 6, and the Q2
+    adaptive rectangle."""
+    from ns_gls_tpu_torch.models.rotation import SimulationRotation
+
+    sim = SimulationRotation(2)
+    out = [(f"rotation ref {ref} finest GMG level",
+            patch2d_operator(sim.create_mesh(ref), 1, device)._fast.tables)
+           for ref in (3, 6)]
+    out.append(("Q2 adaptive rectangle",
+                patch2d_operator(adaptive_q2_mesh(), 2, device)._fast.tables))
+    for label, ft in out:
+        if len(ft.fams) < 2:
+            raise AssertionError(f"{label}: one patch family, want several")
+    return out
+
+
+def phase_family_sweep(label, ft, flavor="increment", consider_dt=True,
+                       cell_wise=False):
+    """The whole sweep on several families (one kernel launch a family,
+    each into its range of one tile buffer, then one seam sum) against
+    the plain sweeps and plain seam sums; its launches counted by the
+    wrappers; its device time as its kernels' mean times within it.
+    Returns (launches an apply, max abs err)."""
+    import torch
+
+    from ns_gls_tpu_torch.ops import patch2d as p2
+    from ns_gls_tpu_torch.utils import segment as sg
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    u, ul, vo = patch2d_inputs(ft, seed=1)
+    args = (ft, SC, u, ul, vo, flavor, consider_dt, cell_wise)
+    k0, s0 = p2.Patch2DKernel.launches, sg.SeamSumKernel.launches
+    tiles = p2.patch2d_tiles(*args)
+    got = sg.seam_sum(ft.seams, tiles)
+    n_k = p2.Patch2DKernel.launches - k0
+    n_s = sg.SeamSumKernel.launches - s0
+    plain_tiles = torch.cat([
+        p2.patch2d_sweep_plain(t, SC, u, ul, vo, flavor, consider_dt,
+                               cell_wise).reshape(-1, 3) for t in ft.fams])
+    ref = sg.seam_sum_plain(ft.seams, plain_tiles)
+    plain_seams = sg.seam_sum_plain(ft.seams, tiles)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain_seams):
+        raise AssertionError(f"[17] {label}: the seam sums differ from "
+                             "their plain version")
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    if not rel <= KERNEL_REL_TOL:
+        raise AssertionError(f"[17] {label}: several-family sweep vs plain "
+                             f"sweep rel err {rel:.3e} > {KERNEL_REL_TOL}")
+
+    def sweep():
+        return sg.seam_sum(ft.seams, p2.patch2d_tiles(*args))
+
+    want = len(ft.fams) + 1
+    if (n_k, n_s) != (len(ft.fams), 1):
+        raise AssertionError(
+            f"[17] {label}: {n_k} kernel and {n_s} seam-sum launches an "
+            f"apply; want {len(ft.fams)} and 1")
+    us = (n_k * device_time_us(sweep, "patch2d_kernel", per_call=n_k)
+          + device_time_us(sweep, "seam_sum_kernel"))
+    log(f"[17] {label}: families m = {[t.m for t in ft.fams]} (patches "
+        f"{[t.jinv.shape[0] for t in ft.fams]}), {ft.n_nodes} nodes; whole "
+        f"{flavor} sweep vs plain: max rel err {rel:.3e}; {want} launches an "
+        f"apply ({len(ft.fams)} kernels, 1 seam sum), {us:.3f} us of device "
+        f"time; seam sums bit-identical to their plain version")
+    return want, err
+
+
+class Patch2DApplies:
+    """While installed: for each operator given, the kernel and seam-sum
+    launches of every apply of its fused patch-2D sweep."""
+
+    def __init__(self, ops):
+        self.ops = list(ops)
+        self.applies = [[] for _ in self.ops]   # per op: (kernels, seams)
+
+    def launches(self, i):
+        return sum(k for k, _ in self.applies[i])
+
+    def __enter__(self):
+        from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
+        from ns_gls_tpu_torch.utils.segment import SeamSumKernel
+
+        for op, rec in zip(self.ops, self.applies):
+            def counted(*a, apply=op._fast.apply, rec=rec, **kw):
+                k0, s0 = Patch2DKernel.launches, SeamSumKernel.launches
+                out = apply(*a, **kw)
+                rec.append((Patch2DKernel.launches - k0,
+                            SeamSumKernel.launches - s0))
+                return out
+
+            op._fast.apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        for op in self.ops:
+            del op._fast.apply
+        return False
+
+
+def check_inner_ring(tag, drv):
+    """The inner ring rotates rigidly: u_theta = r there."""
+    import numpy as np
+
+    u = drv.solution.current.cpu().numpy()
+    if not np.isfinite(u).all():
+        raise AssertionError(f"[{tag}] non-finite solution")
+    pos = drv.space.node_pos
+    r = np.linalg.norm(pos, axis=1)
+    inner = r < r.min() + 1e-8
+    uth = (-pos[:, 1] * u[:, 0] + pos[:, 0] * u[:, 1]) / r
+    gap = float(np.abs(uth[inner] - r.min()).max() / r.min())
+    if not gap <= INNER_RING_RTOL:
+        raise AssertionError(f"[{tag}] inner ring u_theta vs r: rel gap "
+                             f"{gap:.3e} > {INNER_RING_RTOL}")
+    return gap
+
+
+def phase_rotation(tag, params, steps, ls=True, n_nodes=None, n_levels=None):
+    """``steps`` steps of the rotation case through ``Driver.run``: every
+    Newton solve converges, the solution is finite, the inner ring
+    rotates rigidly, every f32 level that the cycle applies launched the
+    patch-2D kernel (under GMG-LS the coarse level is the dense LU and is
+    never applied), each apply n_families kernels and one seam sum, no
+    f32 operator ran the general sweep and no other fused kernel ran.
+    Returns the driver, the patch-2D launches and the finest f32 level's
+    launches an apply."""
+    import torch
+
+    from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep
+
+    drv, setup_s = setup_driver(params)
+    want = "PreconditionerGMGLS" if ls else "PreconditionerGMG"
+    if type(drv.preconditioner).__name__ != want:
+        raise AssertionError(f"[{tag}] preconditioner "
+                             f"{type(drv.preconditioner).__name__}, want "
+                             f"{want}")
+    if n_nodes is not None and drv.space.n_nodes != n_nodes:
+        raise AssertionError(f"[{tag}] {drv.space.n_nodes} nodes, want "
+                             f"{n_nodes}")
+    if n_levels is not None and len(drv.mg_ops) != n_levels:
+        raise AssertionError(f"[{tag}] {len(drv.mg_ops)} levels, want "
+                             f"{n_levels}")
+    if not all(isinstance(op._fast, Patch2DSweep) for op in drv.mg_ops):
+        raise AssertionError(f"[{tag}] a level holds no patch-2D sweep")
+    with GeneralSweepCount() as general, \
+            Patch2DApplies(drv.mg_ops) as applies:
+        _, run_s, counts = run_steps(drv, steps)
+    stats = drv.step_stats
+    if len(stats) != steps:
+        raise AssertionError(f"[{tag}] ran {len(stats)} steps, want {steps}")
+    tol = params.nonlinear_tolerance
+    for i, st in enumerate(stats):
+        log(f"[{tag}] step {i + 1}: {st['seconds']:.3f} s, Newton "
+            f"{st['newton']} (residual {st['newton_residual']:.2e}), GMRES "
+            f"{st['gmres']}")
+        if not st["newton_residual"] <= tol:
+            raise AssertionError(f"[{tag}] step {i + 1}: Newton residual "
+                                 f"{st['newton_residual']:.3e} > {tol}")
+    gap = check_inner_ring(tag, drv)
+    first = 1 if ls else 0
+    per_level = [applies.launches(i) for i in range(len(drv.mg_ops))]
+    if min(per_level[first:]) <= 0:
+        raise AssertionError(f"[{tag}] patch-2D launches per level "
+                             f"{per_level}: want some on every applied "
+                             "level")
+    for i, op in enumerate(drv.mg_ops):
+        n_fam = len(op._fast.tables.fams)
+        bad = [a for a in applies.applies[i] if a != (n_fam, 1)]
+        if bad:
+            raise AssertionError(f"[{tag}] level {i}: applies launched "
+                                 f"{bad[:3]}, want ({n_fam}, 1)")
+    f32_general = general.calls.get(torch.float32, 0)
+    if f32_general or not general.calls.get(torch.float64, 0):
+        raise AssertionError(f"[{tag}] general sweep calls by dtype "
+                             f"{general.calls}: want none in f32")
+    launches = counts["patch2d_gls_sweep"]
+    others = {k: n for k, n in counts.items()
+              if n and k not in ("patch2d_gls_sweep", "seam_sum")}
+    if launches != sum(per_level) or others:
+        raise AssertionError(f"[{tag}] launches {counts}, by level "
+                             f"{per_level}")
+    fin = drv.mg_ops[-1]._fast
+    per_apply = len(fin.tables.fams) + 1
+    log(f"[{tag}] rotation Q{params.fe_degree} ref "
+        f"{params.n_global_refinements} under {params.preconditioner}: "
+        f"{drv.mesh.n_cells} cells, {drv.space.n_nodes * 3} DoFs, levels "
+        f"(nodes) {[op.space.n_nodes for op in drv.mg_ops]} with families "
+        f"m = {[[t.m for t in op._fast.tables.fams] for op in drv.mg_ops]}; "
+        f"setup {setup_s:.2f} s, {steps} steps in {run_s:.2f} s "
+        f"({run_s / steps:.3f} s a step); Newton "
+        f"{[st['newton'] for st in stats]}, GMRES "
+        f"{[st['gmres'] for st in stats]}; inner ring rel gap {gap:.1e}")
+    log(f"[{tag}] patch-2D launches by level, coarse to fine: {per_level}"
+        + (" (level 0: the dense LU, never applied)" if ls else "")
+        + f"; {per_apply} launches an apply on the finest f32 level; "
+        f"kernel launches {counts}; general sweep calls: f32 0, f64 "
+        f"{general.calls[torch.float64]}")
+    return drv, launches, per_apply
+
+
+def phase_couette(preconditioner):
+    """Stationary Couette flow under ``preconditioner``: u_theta against
+    the analytic solution.  Returns (max error, patch-2D launches)."""
+    import numpy as np
+
+    from ns_gls_tpu_torch.config import Parameters
+
+    params = Parameters.from_dict(COUETTE | {"preconditioner":
+                                             preconditioner})
+    drv, setup_s = setup_driver(params)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    drv.run()
+    run_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    st = drv.step_stats[-1]
+    if not st["newton_residual"] <= params.nonlinear_tolerance:
+        raise AssertionError(f"[17] Couette {preconditioner}: Newton "
+                             f"residual {st['newton_residual']:.3e}")
+    u = drv.solution.current.cpu().numpy()
+    r = np.linalg.norm(drv.space.node_pos, axis=1)
+    sel = (r > 0.4) & (r < 0.8)
+    pos, rr = drv.space.node_pos[sel], r[sel]
+    t_hat = np.stack([-pos[:, 1] / rr, pos[:, 0] / rr], axis=1)
+    u_theta = (u[sel, :2] * t_hat).sum(axis=1)
+    err = float(np.abs(u_theta - (1.0 / rr - rr) / 15.0).max())
+    if not err < COUETTE_TOL:
+        raise AssertionError(f"[17] Couette {preconditioner}: max |u_theta "
+                             f"- exact| {err:.3e} >= {COUETTE_TOL}")
+    if counts["patch2d_gls_sweep"] <= 0:
+        raise AssertionError(f"[17] Couette {preconditioner}: no patch-2D "
+                             "launch")
+    log(f"[17] Couette Q2 ref 1 under {preconditioner}: "
+        f"{drv.space.n_nodes * 3} DoFs, setup {setup_s:.2f} s, solve "
+        f"{run_s:.2f} s, Newton "
+        f"{st['newton']}, GMRES {st['gmres']}; max |u_theta - (1/r - r)/15|"
+        f" over 0.4 < r < 0.8: {err:.3e} (tol {COUETTE_TOL}); launches "
+        f"{counts}")
+    return err, counts["patch2d_gls_sweep"]
+
+
+def phase_rotation_slice():
+    """Phase 17: the patch-2D kernel on several-family tables, the rotation
+    paths through the driver and Couette flow.  Returns the kernel line's
+    additions to the patch-2D entry."""
+    import torch
+
+    t_phase = time.perf_counter()
+    sets = family_table_sets("cuda")
+    max_abs, _ = phase_kernel_vs_plain(sets, tag=17)
+    for label, ft in sets:
+        _, err = phase_family_sweep(label, ft)
+        max_abs = max(max_abs, err)
+    del sets
+
+    # 17.2 input/rotation.json as given
+    params = config({}, "rotation.json")
+    drv, launches, _ = phase_rotation("17", params, ROTATION_STEPS)
+    del drv
+    # 17.3 refinement 6; the kernel's time at its m = 1 forest level of
+    # 16,384 patches, in the path's flavor (increment, the BDF history,
+    # q-wise delta)
+    params6 = config(ROTATION6, "rotation.json")
+    drv6, l6, _ = phase_rotation("17", params6, ROTATION6_STEPS,
+                                 n_nodes=ROTATION6_NODES,
+                                 n_levels=ROTATION6_LEVELS)
+    t16 = next(op._fast.tables for op in drv6.mg_ops
+               if op._fast.tables.fams[0].jinv.shape[0] == 16384)
+    m1 = phase_patch2d_sweep(t16, "increment", True, False, tag=17)
+    del drv6, t16
+    torch.cuda.empty_cache()
+    # 17.4 under GMG: the several-family path in the driver
+    params_g = config({"preconditioner": "GMG"}, "rotation.json")
+    drv_g, lg, per_apply = phase_rotation("17", params_g, ROTATION_GMG_STEPS,
+                                          ls=False)
+    if per_apply < 3:
+        raise AssertionError(f"[17] GMG finest level: {per_apply} launches "
+                             "an apply, want several families")
+    del drv_g
+    # 17.5 Couette under both flavors
+    c_ls, lc1 = phase_couette("GMG-LS")
+    c_gc, lc2 = phase_couette("GMG")
+    log(f"[17] rotation phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(max_abs=max_abs,
+                launches=launches + l6 + lg + lc1 + lc2,
+                m1=m1, per_apply=per_apply, couette=(c_ls, c_gc))
+
+
 def scatter_bits(tag, label, fn):
     """Two calls of ``fn`` on equal inputs: the same bits?"""
     import torch
@@ -1819,9 +2184,16 @@ def main() -> int:
                 uh, torch.zeros_like(uh), residual_form=True)):
             raise AssertionError(f"{label}: not deterministic")
         del drv_h, uh
+        torch.cuda.empty_cache()
+        log(f"[-] weak outflow phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 17. the rotation slice: several-family tables, GMG-LS, GMG on
+        # the adaptive annulus, Couette flow
+        rot = phase_rotation_slice()
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 17. kernel line, card line, result line
+        # 18. kernel line, card line; 19. result line
         # the patch-2D kernel: device time at m = 8 in the main path's
         # flavor, alone (ms) and with its seam sum (sweep_ms); launches
         # from phase 4, one seam sum after each
@@ -1831,7 +2203,7 @@ def main() -> int:
             source="ns_gls_tpu_torch/csrc/patch2d.cu",
             replaces="ns_gls_tpu/ops/patch2d.py:309",
             launches=main["launches"],
-            max_abs_err=max_abs,
+            max_abs_err=max(max_abs, rot["max_abs"]),
             ms=p2_times["ms"],
             plain_ms=p2_times["plain_ms"],
             bound_ms=p2_times["bound_ms"],
@@ -1842,6 +2214,17 @@ def main() -> int:
             seam_sum_launches=main["seam_launches"],
             # the Hoffmann/ReInf path's launches (phase 16)
             hoffmann_launches=hoff["launches"],
+            # the rotation paths' launches (phase 17: rotation.json as
+            # given, refinement 6, GMG, Couette), the kernel and sweep at
+            # the m = 1 forest level of refinement 6 (16,384 patches), and
+            # the launches an apply of the several-family GMG level
+            rotation_launches=rot["launches"],
+            rotation_m1_ms=rot["m1"]["ms"],
+            rotation_m1_sweep_ms=rot["m1"]["sweep_ms"],
+            rotation_m1_plain_ms=rot["m1"]["plain_ms"],
+            rotation_m1_bound_ms=rot["m1"]["bound_ms"],
+            rotation_m1_bound_by=rot["m1"]["bound_by"],
+            families_launches_per_apply=rot["per_apply"],
         ), dict(
             name="prism_gls_sweep",
             route="cuda",

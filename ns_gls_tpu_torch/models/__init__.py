@@ -1,15 +1,17 @@
 from ns_gls_tpu_torch.models.base import BoundaryDescriptor, SimulationBase  # noqa
 from ns_gls_tpu_torch.models.channel import SimulationChannel  # noqa
 from ns_gls_tpu_torch.models.cylinder import SimulationCylinder  # noqa
+from ns_gls_tpu_torch.models.rotation import SimulationRotation  # noqa
 from ns_gls_tpu_torch.models.sphere import SimulationSphere  # noqa
 
 # simulations of the JAX package that the port does not have yet
-UNPORTED = ("rotation",)
+UNPORTED = ()
 
 PORTED = {
     "cylinder": SimulationCylinder,
     "channel": SimulationChannel,
     "sphere": SimulationSphere,
+    "rotation": SimulationRotation,
 }
 
 

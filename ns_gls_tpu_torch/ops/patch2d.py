@@ -37,11 +37,18 @@ and :func:`patch2d_sweep_plain` (its plain PyTorch version, the same
 arithmetic with dense 1D band matrices) for tensors on the CPU;
 :func:`patch2d_plan` splits the work into the kernel's thread blocks.
 
+The mesh tiles into patch FAMILIES, one per patch size m (``fem/space.py``
+``patch2d_families``): one on a uniformly refined mesh, several on an
+adaptive one.  Each family has its own tables and plan; an apply
+launches the kernel once per family, each writing its own contiguous
+range of one tile buffer, and then one seam-sum launch over the whole
+buffer (:class:`Patch2DFamilies`, the JAX package's
+``Patch2DTablesAdaptive``): n_families + 1 launches.
+
 Supported: dim 2, any degree (the kernel: 1-4), any m, curved cells,
 BDF/stationary (theta = 1), cell- or q-wise stabilization,
-fixed/increment/residual flavors, f32, meshes with ONE patch family
-(uniformly refined).  The operator uses the general sweep for anything
-else; adaptive multi-family meshes raise.
+fixed/increment/residual flavors, f32, one or several patch families.
+The operator uses the general sweep for anything else.
 """
 
 from __future__ import annotations
@@ -159,7 +166,8 @@ def patch2d_plan(P: int, m: int, n_patches: int) -> Patch2DPlan:
 
 
 class Patch2DTables(NamedTuple):
-    """Device tables for the patch-2D sweep (per-patch layout)."""
+    """Device tables of one patch family (per-patch layout) under its
+    plan."""
 
     P: int
     NQ: int
@@ -176,38 +184,65 @@ class Patch2DTables(NamedTuple):
     jxw: torch.Tensor       # (n_patches, Lq, Lq)
     h: torch.Tensor         # (n_patches, 2, m, m)  (h_min_vertex, hq)
     patch_nodes: torch.Tensor   # (n_patches, Yn, Xn) int32 node ids
-    seams: SeamSums         # cell-row tile rows -> nodes
 
 
-def replan(tables: Patch2DTables, plan: Patch2DPlan) -> Patch2DTables:
-    """``tables`` under ``plan``: with the band of its x brick and the
-    seam table of the tiles' layout it sets."""
+class Patch2DFamilies(NamedTuple):
+    """Device tables of the patch-2D sweep: one :class:`Patch2DTables`
+    per patch family, and ONE seam table over the concatenation of every
+    family's cell-row tiles in family order (the index into the
+    concatenation is the global row)."""
+
+    fams: tuple             # Patch2DTables per family
+    n_nodes: int
+    seams: SeamSums         # rows of the concatenated tiles -> nodes
+
+
+def _with_plan(tables: Patch2DTables, plan: Patch2DPlan) -> Patch2DTables:
+    """``tables`` under ``plan``, with the band of its x brick."""
     _, _, _, xS, xD = band_1d(tables.P, tables.NQ, plan.xb)
     dev = tables.jinv.device
-    pn = tables.patch_nodes.cpu().numpy().astype(np.int64)
     return tables._replace(
         plan=plan,
         xS=torch.as_tensor(np.asarray(xS, np.float32), device=dev),
-        xD=torch.as_tensor(np.asarray(xD, np.float32), device=dev),
-        seams=seam_sums(tile_nodes(pn, tables.P, tables.m, plan.xb),
-                        tables.n_nodes, dev))
+        xD=torch.as_tensor(np.asarray(xD, np.float32), device=dev))
 
 
-def build_patch2d_tables(op):
-    """Host-side packing; None when the operator/space is not a
-    patch-2D f32 BDF/stationary configuration."""
-    space = op.space
-    if not getattr(space, "patch2d", False):
-        return None
-    if op.theta != 1.0 or op.dtype != torch.float32:
-        return None
-    fams = space.patch2d_families
-    if len(fams) != 1:
-        raise NotImplementedError(
-            "adaptive multi-family patch-2D meshes are not ported yet"
-        )
-    fam = fams[0]
-    dev = op.device
+def _tile_targets(tables: Patch2DTables) -> np.ndarray:
+    """The node of every cell-row tile row of ``tables``, flat."""
+    pn = tables.patch_nodes.cpu().numpy().astype(np.int64)
+    return tile_nodes(pn, tables.P, tables.m, tables.plan.xb).reshape(-1)
+
+
+def _families(fams, n_nodes: int) -> Patch2DFamilies:
+    """The per-family tables ``fams`` with the seam table of their
+    concatenated tiles, in the layouts their plans set."""
+    targets = np.concatenate([_tile_targets(t) for t in fams])
+    return Patch2DFamilies(tuple(fams), n_nodes, seam_sums(
+        targets, n_nodes, fams[0].jinv.device))
+
+
+def replan(tables: Patch2DFamilies, plan: Patch2DPlan) -> Patch2DFamilies:
+    """One-family ``tables`` under ``plan``: with the band of its x brick
+    and the seam table of the tiles' layout it sets."""
+    (t,) = tables.fams
+    return _families((_with_plan(t, plan),), tables.n_nodes)
+
+
+def tile_shape(tables: Patch2DTables) -> tuple:
+    """Shape of the cell-row tiles of one sweep over ``tables``: (n_p, m,
+    nbx, P+1, XN, 3)."""
+    plan = tables.plan
+    return (tables.jinv.shape[0], tables.m, plan.nbx, tables.P + 1,
+            tables.P * plan.xb + 1, 3)
+
+
+def tile_rows(tables: Patch2DTables) -> int:
+    """Rows (node, 3 components) of the cell-row tiles of ``tables``."""
+    return int(np.prod(tile_shape(tables)[:-1]))
+
+
+def _family_tables(space, fam, dev) -> Patch2DTables:
+    """Tables of one patch family under its plan."""
     P = space.degree
     NQ = space.n_q1d
     m = int(fam["m"])
@@ -251,9 +286,22 @@ def build_patch2d_tables(op):
         P=P, NQ=NQ, m=m, n_nodes=space.n_nodes, plan=None,
         S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD), xS=None, xD=None,
         jinv=f32(jinv_t), jxw=f32(jxw_t), h=f32(h_t),
-        patch_nodes=torch.as_tensor(pn, device=dev), seams=None,
+        patch_nodes=torch.as_tensor(pn, device=dev),
     )
-    return replan(tables, patch2d_plan(P, m, n_patches))
+    return _with_plan(tables, patch2d_plan(P, m, n_patches))
+
+
+def build_patch2d_tables(op):
+    """Host-side packing into :class:`Patch2DFamilies`; None when the
+    operator/space is not a patch-2D f32 BDF/stationary configuration.
+    Raises where a family's plan does not fit."""
+    space = op.space
+    if not getattr(space, "patch2d", False):
+        return None
+    if op.theta != 1.0 or op.dtype != torch.float32:
+        return None
+    return _families([_family_tables(space, fam, op.device)
+                      for fam in space.patch2d_families], space.n_nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -394,9 +442,11 @@ class Patch2DKernel:
 
     @classmethod
     def launch(cls, tables: Patch2DTables, sc: dict, u, ul, vo,
-               flavor: str, consider_dt: bool, cell_wise: bool):
+               flavor: str, consider_dt: bool, cell_wise: bool, out=None):
         """The kernel on node-major u, ul, vo (n_nodes, 3) under the
-        tables' plan -> cell-row tiles."""
+        tables' plan -> cell-row tiles, written into ``out`` where given
+        (a contiguous float32 tensor of the tiles' shape on u's device,
+        e.g. a family's range of one tile buffer)."""
         n_p = tables.jinv.shape[0]
         P, NQ, m = tables.P, tables.NQ, tables.m
         for name, t in (("u", u), ("u_lin", ul), ("vec_old", vo)):
@@ -408,8 +458,13 @@ class Patch2DKernel:
                                  f"{tuple(t.shape)}")
         cls._check_tables(tables, u.device)
         plan = tables.plan
-        out = torch.empty((n_p, m, plan.nbx, P + 1, P * plan.xb + 1, 3),
-                          dtype=torch.float32, device=u.device)
+        shape = tile_shape(tables)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=u.device)
+        elif (tuple(out.shape) != shape or out.dtype != torch.float32
+              or out.device != u.device or not out.is_contiguous()):
+            raise ValueError(f"out: need a contiguous float32 {shape} "
+                             f"tensor on u's device")
         err = cls._load().patch2d_sweep_launch(
             u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
             tables.patch_nodes.data_ptr(), tables.jinv.data_ptr(),
@@ -448,17 +503,28 @@ class Patch2DKernel:
                     static_smem=static.value, dynamic_smem=dyn.value)
 
 
-def patch2d_sweep(tables: Patch2DTables, sc: dict, u, ul, vo, flavor: str,
-                  consider_dt: bool, cell_wise: bool):
-    """The patch-2D kernel for tensors on the card, its plain version for
-    tensors on the CPU: node-major vectors -> cell-row tiles."""
-    if u.is_cuda:
-        return Patch2DKernel.launch(tables, sc, u, ul, vo, flavor,
-                                    consider_dt, cell_wise)
-    if u.device.type != "cpu":
+def patch2d_tiles(tables: Patch2DFamilies, sc: dict, u, ul, vo,
+                  flavor: str, consider_dt: bool, cell_wise: bool):
+    """Every family's cell-row tiles, concatenated in family order
+    (n_rows, 3): for tensors on the card one kernel launch per family,
+    each into its own range of one buffer; for tensors on the CPU the
+    plain version per family."""
+    fams = tables.fams
+    if u.device.type == "cpu":
+        return torch.cat([patch2d_sweep_plain(t, sc, u, ul, vo, flavor,
+                                              consider_dt, cell_wise)
+                          .reshape(-1, 3) for t in fams])
+    if not u.is_cuda:
         raise TypeError(f"patch-2D sweep: unsupported device {u.device}")
-    return patch2d_sweep_plain(tables, sc, u, ul, vo, flavor, consider_dt,
-                               cell_wise)
+    rows = [tile_rows(t) for t in fams]
+    buf = torch.empty((sum(rows), 3), dtype=torch.float32, device=u.device)
+    start = 0
+    for t, n in zip(fams, rows):
+        Patch2DKernel.launch(t, sc, u, ul, vo, flavor, consider_dt,
+                             cell_wise,
+                             out=buf[start:start + n].view(tile_shape(t)))
+        start += n
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -469,13 +535,15 @@ class Patch2DSweep:
     interface every fused sweep of the operator has.  The kernel reads the
     node-major vectors through the patch lattices itself, so
     ``gather_nodes(v, lead)`` only makes v a contiguous (n_nodes, 3)
-    array, and ``apply(...)`` runs the sweep and the seam sums back to
-    (n_nodes, 3): two launches on the card."""
+    array, and ``apply(...)`` runs the sweep of every patch family and
+    the seam sums back to (n_nodes, 3): n_families + 1 launches on the
+    card."""
 
-    def __init__(self, op, tables: Patch2DTables):
+    def __init__(self, op, tables: Patch2DFamilies):
         self.tables = tables
         self.d = 2
-        self.m = tables.m
+        # the largest patch size
+        self.m = max(t.m for t in tables.fams)
         self.consider_dt = op.consider_time_derivative
         self.cell_wise = op.cell_wise_stabilization
         self.nu = op.nu
@@ -491,7 +559,7 @@ class Patch2DSweep:
         return v.contiguous()
 
     def compress(self, tiles):
-        """Cell-row tiles (n_p, m, nbx, P+1, XN, 3) -> (n_nodes, 3)."""
+        """Cell-row tiles of every family (n_rows, ...) -> (n_nodes, 3)."""
         return seam_sum(self.tables.seams, tiles.reshape(-1, 3))
 
     def apply(self, weight: float, stau: float, u, ul, vo, flavor: str):
@@ -499,7 +567,7 @@ class Patch2DSweep:
         Returns (n_nodes, 3)."""
         sc = dict(weight=weight, stau=stau, nu=self.nu, c1=self.c1,
                   c2=self.c2)
-        tiles = patch2d_sweep(self.tables, sc, u.contiguous(),
+        tiles = patch2d_tiles(self.tables, sc, u.contiguous(),
                               ul.contiguous(), vo.contiguous(), flavor,
                               self.consider_dt, self.cell_wise)
         return self.compress(tiles)

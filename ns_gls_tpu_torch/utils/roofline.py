@@ -30,11 +30,14 @@ def sumfac_fmas(n1, nodes, qpts, grads):
     return fmas
 
 
-def sweep_cost(d, n_tiles, n1, nodes, qpts, n_out, geometry, nq, cells,
-               flavor, consider_dt, cell_wise, full_jinv=False):
+def sweep_cost(d, n_tiles, n1, nodes, qpts, n_in, n_out, geometry, nq,
+               cells, flavor, consider_dt, cell_wise, full_jinv=False):
     """(bytes, flops) of the least work of one fused GLS sweep with its
-    seam compress: the input tiles read once, the compressed node-major
-    output (n_out nodes) written once, ``geometry`` table floats read
+    seam compress over ``n_tiles`` tiles of ``nodes`` nodes: the inputs
+    read once at ``n_in`` nodes (the whole tiles where the kernel takes
+    gathered tiles, each node once where it reads node-major vectors),
+    the compressed node-major output (n_out nodes) written once,
+    ``geometry`` 4-byte table entries (floats, int32 lattice ids) read
     once; sum-factorized evaluation of u, u_lin and the history and
     integration of the test-function weights, plus the q-point work.
     ``full_jinv``: a full d x d inverse Jacobian per cell (the structured
@@ -43,8 +46,7 @@ def sweep_cost(d, n_tiles, n1, nodes, qpts, n_out, geometry, nq, cells,
     incr = flavor == "increment"
     dt_old = consider_dt and flavor in ("increment", "residual")
     lead_in = C + (C if incr else d) + (d if dt_old else 0)
-    tile = math.prod(nodes)
-    nbytes = 4 * (lead_in * n_tiles * tile + C * n_out + geometry)
+    nbytes = 4 * (lead_in * n_in + C * n_out + geometry)
     g = sumfac_fmas(n1, nodes, qpts, True)
     v = sumfac_fmas(n1, nodes, qpts, False)
     fmas = n_tiles * (C * g + (C * g if incr else d * v)
@@ -65,18 +67,26 @@ def sweep_cost(d, n_tiles, n1, nodes, qpts, n_out, geometry, nq, cells,
 
 
 def patch2d_cost(tables, flavor, consider_dt, cell_wise):
-    """(bytes, flops) of one patch-2D sweep (see ``sweep_cost``): y, then
-    x contracted on the (Xn, Xn) patch tiles; the output is the seam-
-    compressed node vector."""
-    n_p = tables.jinv.shape[0]
-    P, NQ, m = tables.P, tables.NQ, tables.m
-    Xn, Lq = P * m + 1, NQ * m
-    geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
-                                       tables.S1, tables.D1))
-    return sweep_cost(2, n_p, P + 1, (Xn, Xn), (Lq, Lq),
-                      int(tables.patch_nodes.max()) + 1, geometry,
-                      n_p * Lq * Lq, n_p * m * m, flavor, consider_dt,
-                      cell_wise)
+    """(bytes, flops) of one patch-2D sweep (see ``sweep_cost``) over
+    every patch family of ``tables`` (``ops/patch2d.py``
+    ``Patch2DFamilies``): y, then x contracted on the (Xn, Xn) patch
+    tiles; the node-major inputs read once and the seam-compressed node
+    vector written once over all families, each family's int32 lattice
+    ids and geometry once."""
+    nbytes = flops = 0
+    for i, t in enumerate(tables.fams):
+        n_p = t.jinv.shape[0]
+        P, NQ, m = t.P, t.NQ, t.m
+        Xn, Lq = P * m + 1, NQ * m
+        geometry = sum(a.numel() for a in (t.jinv, t.jxw, t.h, t.S1, t.D1,
+                                           t.patch_nodes))
+        n_io = tables.n_nodes if i == 0 else 0
+        b, f = sweep_cost(2, n_p, P + 1, (Xn, Xn), (Lq, Lq), n_io, n_io,
+                          geometry, n_p * Lq * Lq, n_p * m * m, flavor,
+                          consider_dt, cell_wise)
+        nbytes += b
+        flops += f
+    return nbytes, flops
 
 
 def prism_cost(tables, flavor, consider_dt, cell_wise):
@@ -91,22 +101,26 @@ def prism_cost(tables, flavor, consider_dt, cell_wise):
                                        tables.S1, tables.D1, tables.wz))
     n2d = int(tables.patch_nodes.max()) + 1
     return sweep_cost(3, n_p, P + 1, (Nzn, Xn, Xn), (Lz, Lq, Lq),
-                      n2d * Nzn, geometry, n_p * Lq * Lq * Lz,
-                      n_p * m * m * nz, flavor, consider_dt, cell_wise)
+                      n_p * Xn * Xn * Nzn, n2d * Nzn, geometry,
+                      n_p * Lq * Lq * Lz, n_p * m * m * nz, flavor,
+                      consider_dt, cell_wise)
 
 
 def patch3d_cost(tables, flavor, consider_dt, cell_wise):
     """(bytes, flops) of one patch-3D sweep (see ``sweep_cost``): z, then
     y, then x contracted on the (Xn, Xn, Xn) patch lattices, a full 3 x 3
-    J^-1 per cell and q-point; the output is the seam-compressed node
-    vector, not the kernel's cell-row tiles."""
+    J^-1 per cell and q-point; the node-major inputs read once through
+    the int32 lattice ids, the output the seam-compressed node vector,
+    not the kernel's cell-row tiles."""
     n_p = tables.jinv.shape[0]
     P, NQ, m = tables.P, tables.NQ, tables.m
     Xn, Lq = P * m + 1, NQ * m
     geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
-                                       tables.S1, tables.D1))
-    return sweep_cost(3, n_p, P + 1, (Xn, Xn, Xn), (Lq, Lq, Lq),
-                      int(tables.patch_nodes.max()) + 1, geometry,
+                                       tables.S1, tables.D1,
+                                       tables.patch_nodes))
+    n = int(tables.patch_nodes.max()) + 1
+    return sweep_cost(3, n_p, P + 1, (Xn, Xn, Xn), (Lq, Lq, Lq), n, n,
+                      geometry,
                       n_p * Lq ** 3, n_p * m ** 3, flavor, consider_dt,
                       cell_wise, full_jinv=True)
 
@@ -122,7 +136,8 @@ def structured_cost(tables, flavor, consider_dt, cell_wise):
     geometry = sum(t.numel() for t in (tables.jinv, tables.jxw, tables.h,
                                        tables.S1, tables.D1))
     cells = math.prod(cs)
-    return sweep_cost(d, 1, P + 1, nodes, qpts, math.prod(nodes), geometry,
+    return sweep_cost(d, 1, P + 1, nodes, qpts, math.prod(nodes),
+                      math.prod(nodes), geometry,
                       math.prod(qpts), cells, flavor, consider_dt, cell_wise,
                       full_jinv=True)
 

@@ -122,13 +122,25 @@ def time_cuda(fn, n, warmup=0):
     return t0.elapsed_time(t1) / n
 
 
-def device_time_us(fn, name: str, n: int = 50) -> float:
+# Seconds the profiler windows of ``device_time_us`` and
+# ``device_kernels_us`` stay open on each side of the calls.  The profiler
+# keeps only the kernels whose device timestamps fall inside its window,
+# and the device clock it converts them by drifts from the host's as the
+# process ages (milliseconds after minutes:
+# ``tools/profiler_clock_drift.py``).
+PROFILER_EDGE_S = 0.05
+
+
+def device_time_us(fn, name: str, n: int = 50, per_call: int = 1) -> float:
     """Mean device time in microseconds of the CUDA kernels whose name
-    holds ``name``, over n calls of ``fn`` under ``torch.profiler`` (the
-    kernel's own time, without the host's launch gaps that CUDA events
-    around back-to-back launches also count).  The mean is over the
-    kernels the profiler recorded, which may miss one of the n; a window
-    in which it recorded none is profiled again, up to three times."""
+    holds ``name``, of which ``fn`` launches ``per_call``, over n calls
+    of ``fn`` under ``torch.profiler`` (the kernel's own time, without
+    the host's launch gaps that CUDA events around back-to-back launches
+    also count).  The window stays open ``PROFILER_EDGE_S`` on each side
+    of the calls.  The mean is over the kernels the profiler recorded,
+    which may miss some of them (late in a long process on the H100 it
+    has missed whole windows); a window in which it recorded none is
+    profiled again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,14 +148,16 @@ def device_time_us(fn, name: str, n: int = 50) -> float:
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_EDGE_S)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_EDGE_S)
         rows = [e for e in prof.key_averages() if name in e.key]
         count = sum(e.count for e in rows)
         if count:
             break
-    if not 0 < count <= n:
+    if not 0 < count <= n * per_call:
         raise RuntimeError(f"profiled {count} {name} kernels in {n} calls")
     return sum(e.self_device_time_total for e in rows) / count
 
@@ -151,7 +165,11 @@ def device_time_us(fn, name: str, n: int = 50) -> float:
 def device_kernels_us(fn, n: int = 50):
     """(mean device time in microseconds of all the CUDA kernels one call
     of ``fn`` launches, kernels launched per call), over n calls under
-    ``torch.profiler``."""
+    ``torch.profiler``, whose window stays open ``PROFILER_EDGE_S`` on
+    each side of the calls.  The profiler may miss a kernel of a window
+    (on the H100 it kept 99 of 100 in three windows in a row): each
+    kernel's launches a call are its recorded count over n rounded to
+    the nearest whole number, and its time its recorded mean."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -159,13 +177,18 @@ def device_kernels_us(fn, n: int = 50):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_EDGE_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in rows) / n,
-            sum(e.count for e in rows) / n)
+        time.sleep(PROFILER_EDGE_S)
+    us = launches = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            k = round(e.count / n)
+            us += k * e.self_device_time_total / e.count
+            launches += k
+    return us, launches
 
 
 def print_wall_time_statistics():

@@ -33,6 +33,9 @@ def test_import_loads_no_jax():
         "import ns_gls_tpu_torch.models.channel\n"
         "import ns_gls_tpu_torch.models.sphere, ns_gls_tpu_torch.mesh.gmsh\n"
         "import ns_gls_tpu_torch.ops.patch3d\n"
+        "import ns_gls_tpu_torch.mesh.forest\n"
+        "import ns_gls_tpu_torch.models.rotation\n"
+        "import ns_gls_tpu_torch.precond.gmg_ls\n"
         "import ns_gls_tpu_torch.utils.roofline\n"
         "import bench_gpu, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -91,6 +94,23 @@ def test_unported_configuration_raises():
                                        key: value})
         with pytest.raises(NotImplementedError):
             Driver(params, device="cpu")
+
+
+def test_every_input_config_is_ported():
+    """Every configuration in ``input/`` passes ``_unsupported``, the
+    check of what the port covers (``input/rotation.json`` with GMG-LS
+    the last), and its simulation is built."""
+    from ns_gls_tpu_torch.config import Parameters
+    from ns_gls_tpu_torch.driver import _unsupported
+    from ns_gls_tpu_torch.models import make_simulation
+
+    names = sorted(n for n in os.listdir(os.path.join(ROOT, "input"))
+                   if n.endswith(".json"))
+    assert len(names) == 14 and "rotation.json" in names
+    for name in names:
+        p = Parameters.from_file(os.path.join(ROOT, "input", name))
+        assert _unsupported(p) == [], name
+        make_simulation(p.simulation_name, p.dim)
 
 
 def test_bench_gpu_needs_cuda_or_explicit_cpu(monkeypatch, capsys):

@@ -2,8 +2,9 @@
 kernel is held to on the card) against the JAX package's Pallas patch-2D
 kernel, run as the JAX package's own tests run it on the CPU (interpret
 mode through ``use_structured=True``), and against the port's own f32
-general sweep; the kernel's split into thread blocks and the seam table
-of its cell-row tiles.
+general sweep, on uniformly refined meshes and on adaptive ones of
+several patch families; the kernel's split into thread blocks and the
+seam table of its cell-row tiles.
 
 Both sides run in f32 with different summation orders, so the tolerance
 is 1e-5 relative to the max-abs of the reference.
@@ -57,8 +58,17 @@ def _setup(n_ref, increment, cell_wise, consider_dt, degree=2):
     """JAX Pallas-interpret operator, port patch-2D operator and port
     general-sweep operator (all f32) on the curved Turek 2D mesh refined
     n_ref times (patches of m = 2**n_ref cells per axis), of ``degree``."""
-    sj = JSpace(_refine(jmesh(), n_ref), degree)
-    st = TSpace(_refine(tmesh(), n_ref), degree)
+    out = _setup_on(_refine(jmesh(), n_ref), _refine(tmesh(), n_ref),
+                    increment, cell_wise, consider_dt, degree)
+    assert out[1]._fast.m == 2**n_ref
+    return out
+
+
+def _setup_on(mj, mt, increment, cell_wise, consider_dt, degree):
+    """The three operators of ``_setup`` on the JAX mesh ``mj`` and the
+    port's equal mesh ``mt``."""
+    sj = JSpace(mj, degree)
+    st = TSpace(mt, degree)
     bn = st.boundary_nodes([0])
     vals = [[1.0, 0.0]] * len(bn)
     bj = JAff(sj.n_nodes, 3)
@@ -81,7 +91,6 @@ def _setup(n_ref, increment, cell_wise, consider_dt, degree=2):
               use_structured=False, **kw)
     assert opj._p2sweep is not None and isinstance(opt._fast, Patch2DSweep)
     assert opg._fast is None
-    assert opt._fast.m == 2**n_ref
 
     rng = np.random.default_rng(0)
     u = np.asarray(distribute(caj, jnp.asarray(
@@ -144,7 +153,7 @@ def test_plain_patch2d_vs_pallas_degrees(degree, n_ref, increment,
     """The other degrees the kernel is built for: Q1 (``turek_2d_re20.json``)
     at m = 2 and 4, Q3 at m = 1 and 2; every flavor, both delta modes."""
     opj, opt, opg, u, v = _setup(n_ref, increment, cell_wise, True, degree)
-    assert opt._fast.tables.P == degree
+    assert [t.P for t in opt._fast.tables.fams] == [degree]
     ref_v = opj.vmult(jnp.asarray(v))
     _close(opt.vmult(torch.as_tensor(v)).numpy(), ref_v)
     _close(opg.vmult(torch.as_tensor(v)).numpy(), ref_v)
@@ -207,11 +216,12 @@ def test_seam_rows_cover_every_node(xb):
     has as many rows as the tiles hold it: per patch, 1 or 2 cell rows
     (a node row between two cell rows) times 1 or 2 bricks (a node column
     between two bricks); the counts come from the lattices alone."""
-    t = tp2.replan(_turek_tables(2), tp2.Patch2DPlan(xb, 4 // xb, 1, 1, 4))
+    ft = tp2.replan(_turek_tables(2), tp2.Patch2DPlan(xb, 4 // xb, 1, 1, 4))
+    (t,) = ft.fams
     P, m = t.P, t.m
     pn = t.patch_nodes.numpy().astype(np.int64)
-    off = t.seams.offsets.numpy().astype(np.int64)
-    src = t.seams.sources.numpy().astype(np.int64)
+    off = ft.seams.offsets.numpy().astype(np.int64)
+    src = ft.seams.sources.numpy().astype(np.int64)
     rows = tp2.tile_nodes(pn, P, m, xb).reshape(-1)
     assert len(off) == t.n_nodes + 1 and off[-1] == len(rows)
     assert np.array_equal(np.sort(src), np.arange(len(rows)))
@@ -244,12 +254,13 @@ def test_plain_bricks_agree():
     for flavor in tp2.FLAVORS:
         got = []
         for xb in (1, 2, 4):
-            t = tp2.replan(base, tp2.Patch2DPlan(xb, 4 // xb, 2, 2, 2))
+            ft = tp2.replan(base, tp2.Patch2DPlan(xb, 4 // xb, 2, 2, 2))
+            (t,) = ft.fams
             tiles = tp2.patch2d_sweep_plain(t, sc, u, ul, vo, flavor, True,
                                             False)
             assert tiles.shape == (t.jinv.shape[0], 4, 4 // xb, 3,
                                    2 * xb + 1, 3)
-            got.append(seam_sum_plain(t.seams, tiles.reshape(-1, 3)))
+            got.append(seam_sum_plain(ft.seams, tiles.reshape(-1, 3)))
         for g in got[1:]:
             _close(g.numpy(), got[0].numpy())
 
@@ -257,9 +268,110 @@ def test_plain_bricks_agree():
 def test_kernel_launch_raises_on_cpu_tensors():
     """The kernel's wrapper takes CUDA tensors only (the sweep runs the
     plain version for CPU tensors); it refuses before building anything."""
-    t = _turek_tables(1)
+    (t,) = _turek_tables(1).fams
     u = torch.zeros((t.n_nodes, 3))
     sc = dict(weight=1.0, stau=1.0, nu=0.02, c1=4.0, c2=2.0)
     with pytest.raises(TypeError):
         tp2.Patch2DKernel.launch(t, sc, u, u, u, "increment", True, False)
     assert tp2.Patch2DKernel.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# adaptive meshes: several patch families
+# ---------------------------------------------------------------------------
+# the patch sizes of the families of each mesh
+FAMILIES = {"adaptive": [1, 2, 4], "rotation": [1, 2]}
+
+
+def _family_meshes(case):
+    """(JAX mesh, port mesh, degree): the JAX package's
+    ``tests/test_patch2d.py`` ``adaptive_mesh`` (Q2) or
+    ``input/rotation.json``'s annulus at refinement 2 (Q1)."""
+    if case == "rotation":
+        from ns_gls_tpu.models.rotation import SimulationRotation as JRot
+        from ns_gls_tpu_torch.models.rotation import SimulationRotation as TRot
+
+        return JRot(2).create_mesh(2), TRot(2).create_mesh(2), 1
+    from ns_gls_tpu.mesh.generators import subdivided_hyper_rectangle as jr
+    from ns_gls_tpu_torch.mesh.generators import (
+        subdivided_hyper_rectangle as tr,
+    )
+
+    out = []
+    for rect in (jr, tr):
+        m = rect((3, 2), (0.0, 0.0), (1.1, 0.9))
+        m.lattice = None
+        m = m.refine_global(1)
+        c = m.vertices[m.cells].mean(1)
+        out.append(m.refine(c[:, 0] < 0.5))
+    return out[0], out[1], 2
+
+
+@pytest.mark.parametrize("consider_dt", [True, False])
+@pytest.mark.parametrize("cell_wise", [True, False])
+@pytest.mark.parametrize("increment", [True, False])
+@pytest.mark.parametrize("case", ["adaptive", "rotation"])
+def test_plain_families_vs_pallas(case, increment, cell_wise, consider_dt):
+    """Several patch families: the plain sweep of every family, then one
+    seam sum over their concatenated tiles, against the JAX package's
+    multi-family Pallas path (``Patch2DTablesAdaptive``, interpret mode)
+    in every flavor (increment and fixed vmults, the residual), delta
+    mode and consider_dt; the vmult also against the port's general
+    sweep."""
+    mj, mt, degree = _family_meshes(case)
+    opj, opt, opg, u, v = _setup_on(mj, mt, increment, cell_wise,
+                                    consider_dt, degree)
+    assert [t.m for t in opt._fast.tables.fams] == FAMILIES[case]
+    ref_v = opj.vmult(jnp.asarray(v))
+    _close(opt.vmult(torch.as_tensor(v)).numpy(), ref_v)
+    _close(opg.vmult(torch.as_tensor(v)).numpy(), ref_v)
+    if increment:
+        # the residual flavor (the same in both forms)
+        _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(),
+               opj.evaluate_residual(jnp.asarray(u)))
+
+
+@pytest.mark.parametrize("case", ["adaptive", "rotation"])
+def test_family_seam_rows_cover_every_node(case):
+    """The one seam table of several families: every row of the
+    concatenated tiles once, in family order (family f's rows start after
+    the rows of the families before it), under the node its family's
+    lattice names, ascending; every node has a row; and the whole sweep
+    is the per-family plain sweeps summed."""
+    _, mt, degree = _family_meshes(case)
+    st = TSpace(mt, degree)
+    ca = TAff(st.n_nodes, 3).close(F32, "cpu")
+    ti = TBDF(2)
+    ti.update_dt(0.1)
+    op = TOp(st, ca, ca, time_integrator=ti, dtype=F32, device="cpu",
+             nu=0.02, c_1=4.0, c_2=2.0)
+    tables = op._fast.tables
+    assert [t.m for t in tables.fams] == FAMILIES[case]
+    rows = np.concatenate([
+        tp2.tile_nodes(t.patch_nodes.numpy().astype(np.int64), t.P, t.m,
+                       t.plan.xb).reshape(-1) for t in tables.fams])
+    assert len(rows) == sum(tp2.tile_rows(t) for t in tables.fams)
+    off = tables.seams.offsets.numpy().astype(np.int64)
+    src = tables.seams.sources.numpy().astype(np.int64)
+    assert len(off) == st.n_nodes + 1 and off[-1] == len(rows)
+    assert (np.diff(off) >= 1).all()
+    assert np.array_equal(np.sort(src), np.arange(len(rows)))
+    node_of = np.repeat(np.arange(st.n_nodes), np.diff(off))
+    assert np.array_equal(rows[src], node_of)
+    for n in range(st.n_nodes):
+        assert (np.diff(src[off[n]:off[n + 1]]) > 0).all()
+
+    rng = np.random.default_rng(5)
+    u, ul, vo = (torch.as_tensor(rng.standard_normal((st.n_nodes, 3)),
+                                 dtype=F32) for _ in range(3))
+    sc = dict(weight=1.3, stau=2.0, nu=0.02, c1=4.0, c2=2.0)
+    for flavor in tp2.FLAVORS:
+        tiles = tp2.patch2d_tiles(tables, sc, u, ul, vo, flavor, True, False)
+        assert tiles.shape == (len(rows), 3)
+        whole = seam_sum_plain(tables.seams, tiles)
+        parts = torch.zeros_like(whole)
+        for t in tables.fams:
+            ft = tp2.patch2d_sweep_plain(t, sc, u, ul, vo, flavor, True,
+                                         False).reshape(-1, 3)
+            parts.index_add_(0, torch.as_tensor(tp2._tile_targets(t)), ft)
+        _close(whole.numpy(), parts.numpy())

@@ -79,7 +79,7 @@ def test_sphere_model_equals_jax(n_refine):
 
 def test_mesh_file_key_and_registry(tmp_path):
     """``"simulation mesh file"`` names another mesh; the registry builds
-    the sphere and names the one model still to port."""
+    the sphere and has no model still to port."""
     st = tmake("sphere", 3)
     assert st.mesh_file == MESH_FILE
     other = tmp_path / "copy.msh"
@@ -87,7 +87,7 @@ def test_mesh_file_key_and_registry(tmp_path):
     st.parse_parameters({"simulation mesh file": str(other)})
     assert st.mesh_file == str(other)
     assert st.create_mesh(0).n_cells == 48
-    assert UNPORTED == ("rotation",)
+    assert UNPORTED == ()
     with pytest.raises(NotImplementedError, match="sphere case is 3D"):
         tmake("sphere", 2)
 

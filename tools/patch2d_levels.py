@@ -222,7 +222,8 @@ def main(argv=None) -> int:
 
     flavor, cdt, cw = "increment", True, False
     for label, degree, refinement in LEVELS + ([] if args.no_fine else FINE):
-        tables = level_tables(degree, refinement)
+        ft = level_tables(degree, refinement)
+        (tables,) = ft.fams
         n_p = tables.jinv.shape[0]
         rng = np.random.default_rng(1)
         u, ul, vo = (torch.as_tensor(rng.standard_normal((tables.n_nodes, 3)),
@@ -230,8 +231,8 @@ def main(argv=None) -> int:
                      for _ in range(3))
         case = (tables, SC, u, ul, vo, flavor, cdt, cw)
         ref = p2.patch2d_sweep_plain(*case)
-        nodes_ref = sg.seam_sum_plain(tables.seams, ref.reshape(-1, 3))
-        nbytes, flops = patch2d_cost(tables, flavor, cdt, cw)
+        nodes_ref = sg.seam_sum_plain(ft.seams, ref.reshape(-1, 3))
+        nbytes, flops = patch2d_cost(ft, flavor, cdt, cw)
         bms, by = bound(nbytes, flops)
         rec = dict(card=card, level=label, P=tables.P, m=tables.m, n_p=n_p,
                    n_nodes=tables.n_nodes, cells=n_p * tables.m ** 2,
@@ -241,7 +242,7 @@ def main(argv=None) -> int:
             return p2.Patch2DKernel.launch(*case)
 
         def sweep():
-            return sg.seam_sum(tables.seams, kernel().reshape(-1, 3))
+            return sg.seam_sum(ft.seams, kernel().reshape(-1, 3))
 
         if not args.baseline_only:
             a, b = kernel(), kernel()
@@ -308,7 +309,7 @@ def main(argv=None) -> int:
                     t = str(e)
                 rec["sweep"][f"xb{alt.xb}_ys{alt.ys}_nyb{alt.nyb}"] = t
         print(json.dumps(rec), flush=True)
-        del u, ul, vo, ref, nodes_ref, tables
+        del u, ul, vo, ref, nodes_ref, tables, ft
         torch.cuda.empty_cache()
     return 0
 

@@ -40,10 +40,11 @@ sys.path.insert(0, ROOT)
 
 def count_sweeps(drv):
     """Wrap the fused sweep of every operator (the levels and the outer
-    one) so that each apply adds its bound (``utils/roofline.py``, at the
-    level's shape and the apply's flavor) to its kernel's tally.  Returns
-    {kernel function name: [applies, summed bound ms]}; every apply
-    launches its kernel once."""
+    one) so that each apply adds its kernel launches and their bound
+    (``utils/roofline.py``, at the level's shape and the apply's flavor)
+    to its kernel's tally.  Returns {kernel function name: [launches,
+    summed bound ms]}; an apply launches its kernel once, or once a patch
+    family on a patch-2D level of several families."""
     from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep
     from ns_gls_tpu_torch.ops.patch3d import Patch3DSweep
     from ns_gls_tpu_torch.ops.prism import PrismSweep
@@ -73,7 +74,7 @@ def count_sweeps(drv):
             if flavor not in bounds:
                 bounds[flavor] = rl.bound(*cost(
                     sw.tables, flavor, sw.consider_dt, sw.cell_wise))[0]
-            entry[0] += 1
+            entry[0] += len(sw.tables.fams) if cost is rl.patch2d_cost else 1
             entry[1] += bounds[flavor]
             return apply(weight, stau, uP, ulP, voP, flavor)
 
@@ -254,15 +255,16 @@ def main():
     # profiled steps (or the window) less the summed bound of their
     # launches (each at the average bound of the profiled steps' applies)
     span = "the window" if args.sample else f"{len(stats)} profiled step(s)"
-    for name, (applies, bound_ms) in tally.items():
+    for name, (launches, bound_ms) in tally.items():
         rows = [e for e in events if e.device_type == DeviceType.CUDA
                 and (f"{name}(" in e.key or f"{name}<" in e.key)]
         dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
         n = sum(e.count for e in rows)
-        per_launch = bound_ms / max(applies, 1)
+        per_launch = bound_ms / max(launches, 1)
         above = dev_ms - n * per_launch
-        print(f"fused kernel {name}: {n} launches in {span} ({applies} "
-              f"sweep applies in the profiled steps), {dev_ms:.3f} ms of "
+        print(f"fused kernel {name}: {n} launches in {span} ({launches} "
+              f"by the sweep applies of the profiled steps), "
+              f"{dev_ms:.3f} ms of "
               f"device time, {1e3 * dev_ms / max(n, 1):.1f} us per launch "
               f"on average; bound {1e3 * per_launch:.2f} us per launch on "
               f"average; above the bound {above:.3f} ms in {span}"
