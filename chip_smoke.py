@@ -13,9 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
    PyTorch version on the card, on every level space of the Turek 2D
    chains of ``input/turek_2d_re100.json`` (Q2, m = 1, 2, 4, 8) and
    ``input/turek_2d_re20.json`` (Q1, m = 1-16), and on Q2 at m = 16 and
-   32 and Q3 at m = 16, in every flavor x delta mode x consider_dt, two
+   32, Q3 at m = 16 and Q5 and Q6 at m = 2 (the degrees the kernels
+   gained last), in every flavor x delta mode x consider_dt, two
    launches bit-identical; the kernel's registers, spills and shared
-   memory per block at each degree; the whole sweep (the kernel reading
+   memory per block at each degree, its device time and bound at Q6; the whole sweep (the kernel reading
    node-major vectors, then one seam-sum launch) against the plain sweep
    at m = 8, the seam sums bit-identical to their plain version; kernel
    and sweep timed there by the profiler's device time in the main
@@ -32,9 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    spaces are built once and reused by phase 7); the prism kernel against
    its plain version on every level space (m = 1, 2, 4, 8) and on
    synthetic single patch columns at the shapes the kernel refused before
-   its x bricks ((P, m) = (3, 16), (4, 8), (4, 16)), in every flavor x
-   delta mode x consider_dt, two launches bit-identical; its time and
-   bound at each shape,
+   its x bricks ((P, m) = (3, 16), (4, 8), (4, 16)) and at P = 5 and 6
+   (m = 2), in every flavor x delta mode x consider_dt, two launches
+   bit-identical; its time and bound at each shape,
 7. 3D main path: ``input/turek_3d_re100.json`` as given (refinement 3,
    f64 outer, f32 prism GMG levels, AMG coarse iterated by GMRES) for 3
    steps through ``Driver.run``, output off; every Newton solve
@@ -47,8 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
 9. structured kernels vs plain: the channel 3D driver is set up
    (``input/channel.json`` with dim 3, degree 2, refinement 3); the 2D,
    3D and batched-3D structured kernels against the plain version on
-   sheared lattices (P = 1-4, every degree the 2D and 3D kernels have a
-   specialization for; the 2D kernel also under forced slab plans with
+   sheared lattices (P = 1-6, every degree the 2D and 3D kernels have a
+   specialization for, timed at P = 6; the 2D kernel also under forced slab plans with
    ragged bricks, multi-row slabs and several y chunks) and on the
    channel's level spaces, in every flavor x delta mode x consider_dt,
    two launches bit-identical, each timed at the finest level's shape
@@ -77,8 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
     4, 8), on the single-cell-patch Q1 space of the second (m = 1) and on
     the sphere at refinements 0 and 1 in degrees 3 and 4, and on synthetic
     single patches at the shapes it refused before its x bricks ((P, m) =
-    (1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16); their time and
-    bound logged), in every flavor x delta mode x consider_dt, two
+    (1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16)) and at P = 5 and
+    6 (m = 2; their time and bound logged), in every flavor x delta mode x consider_dt, two
     launches bit-identical; the kernel's
     registers, spills and shared memory per block; the whole sweep (the
     kernel reading node-major vectors, then one seam-sum launch) against
@@ -97,7 +98,7 @@ Phases (any failure exits non-zero and prints no result line):
 16. weak outflow: ``input/hoffmann_2d_reinf.json`` as given (Q2,
     refinement 2, u max 39, nu = 0, BDF-2, inexact Newton, Nitsche
     outflow; f64 fine level on the general sweep, f32 GMG levels on the
-    patch-2D kernel, direct coarse) for 5 steps through ``Driver.run``,
+    patch-2D kernel, direct coarse) for 2 steps through ``Driver.run``,
     output off: every Newton solve ends by the solver's criteria, the
     solution is finite, no flux through the slip cylinder and walls, the
     patch-2D kernel ran with one seam sum a launch and no other fused
@@ -123,8 +124,22 @@ Phases (any failure exits non-zero and prints no result line):
     3 steps, n_families + 1 launches an apply on its finest f32 level;
     stationary Couette flow (Q2, refinement 1) under GMG-LS and GMG
     against the analytic u_theta within 5e-3,
-18. the kernel line (JSON) with launches, errors, times and bounds,
-19. the result line (JSON).
+18. the solver stack, every run through ``Driver.run`` with output off,
+    each logged with its seconds: Picard on ``input/turek_2d_re100.json``
+    (linear tolerance 1e-12, 3 steps): every solve converges by its own
+    criterion, the patch-2D kernel runs only in its fixed flavor and
+    nothing else runs, the step-3 solution within ``PICARD_NEWTON_GAP`` of
+    phase 4's Newton solution; ``input/channel.json`` under the ILU
+    preconditioner (3 steps; Newton and GMRES per step within 1 of the
+    same run on the CPU; the host apply's seconds and share of the
+    steps), with the matrix-based operator against the matrix-free one
+    (linearized, 2 steps, within 1e-7), standalone AMG with its ILU
+    smoother under Picard (1 step), Richardson and the ILU GMG coarse
+    solver (1 step each, the 2D structured kernel's launches counted);
+    ``input/turek_2d_re100.json`` for 4 steps against 2 checkpointed
+    steps and a fresh driver resumed to step 4 (within 1e-12),
+19. the kernel line (JSON) with launches, errors, times and bounds,
+20. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -239,6 +254,9 @@ def reset_kernel_counts():
 # previous design could not launch
 PATCH2D_CHAINS = (("turek_2d_re100", 2, 3), ("turek_2d_re20", 1, 4))
 PATCH2D_EXTRA = (("Q2 ref 4", 2, 4), ("Q2 ref 5", 2, 5), ("Q3 ref 4", 3, 4))
+# the degrees the kernels gained last (P = 5, 6), each at one shape: the
+# Turek 2D mesh refined once (m = 2)
+PATCH2D_HIGH = (("Q5 ref 1", 5, 1), ("Q6 ref 1", 6, 1))
 
 
 def patch2d_operator(mesh, degree, device):
@@ -277,8 +295,31 @@ def patch2d_level_sets(device):
                 for l, mesh in enumerate(meshes)]
     out += [(name, patch2d_operator(sim.create_mesh(ref), degree,
                                     device)._fast.tables)
-            for name, degree, ref in PATCH2D_EXTRA]
+            for name, degree, ref in PATCH2D_EXTRA + PATCH2D_HIGH]
     return out
+
+
+def time_patch2d_high(level_sets):
+    """The patch-2D kernel at its P = 6 shape of phase 3 (increment, the
+    history, q-wise delta): device time and bound, logged; returns them
+    for the kernel line."""
+    from ns_gls_tpu_torch.ops import patch2d as p2
+    from ns_gls_tpu_torch.utils.roofline import bound, patch2d_cost
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    label, ft = next((l, ft) for l, ft in level_sets
+                     if l == PATCH2D_HIGH[-1][0])
+    (tables,) = ft.fams
+    u, ul, vo = patch2d_inputs(tables, seed=1)
+    args = (tables, SC, u, ul, vo, "increment", True, False)
+    us = device_time_us(lambda: p2.Patch2DKernel.launch(*args),
+                        "patch2d_kernel", n=20)
+    bound_ms, by = bound(*patch2d_cost(ft, "increment", True, False))
+    label = f"{label} P={tables.P} m={tables.m}"
+    log(f"[3] {label}: kernel device time {us:.3f} us, bound "
+        f"{1e3 * bound_ms:.4f} us by {by} (increment, history, q-wise "
+        f"delta)")
+    return dict(label=label, ms=us / 1e3, bound_ms=bound_ms, bound_by=by)
 
 
 def patch2d_inputs(tables, seed=0):
@@ -483,8 +524,9 @@ def prism_inputs(tables, seed=0):
 
 
 # the (P, m) the prism kernel refused before its x bricks, on synthetic
-# single patch columns of PRISM_BRICK_NZ layers
-PRISM_BRICK_SHAPES = ((3, 16), (4, 8), (4, 16))
+# single patch columns of PRISM_BRICK_NZ layers; then the degrees the
+# kernel gained last, each at one shape
+PRISM_BRICK_SHAPES = ((3, 16), (4, 8), (4, 16), (5, 2), (6, 2))
 PRISM_BRICK_NZ = 16
 
 
@@ -669,8 +711,23 @@ def log_steps(tag, stats, recs):
 
 
 def phase_main_path():
+    """Phase 4; also keeps the solution after step 3 for phase 18."""
     params = config({})
-    drv, recs, setup_s, run_s, counts = run_driver(params, MAIN_STEPS)
+    drv, setup_s = setup_driver(params)
+    kept = []
+    post = drv.sim.postprocess
+
+    def postprocess(t, u):
+        # called at t = 0 and after every step
+        if len(kept) == 3:
+            kept.append(u.clone())
+        else:
+            kept.append(None)
+        return post(t, u)
+
+    drv.sim.postprocess = postprocess
+    recs, run_s, counts = run_steps(drv, MAIN_STEPS)
+    drv.sim.postprocess = post
     launches = counts["patch2d_gls_sweep"]
     n_dofs = drv.space.n_nodes * 3
     check_run(params, drv, recs, MAIN_STEPS)
@@ -693,7 +750,7 @@ def phase_main_path():
         f"{sum(steady) / len(steady):.4f}; kernel launches {counts} "
         f"({launches / MAIN_STEPS:.1f} patch-2D per step)")
     return dict(launches=launches, seam_launches=counts["seam_sum"],
-                n_dofs=n_dofs, stats=stats)
+                n_dofs=n_dofs, stats=stats, step3=kept[3])
 
 
 def check_series(tag, recs, ref, tol):
@@ -960,7 +1017,7 @@ def phase_structured2d_plans(tag, table_sets, errs):
 
     for label, tables, sc in table_sets:
         nx, ny = tables.cell_shape
-        cpw = 32 // (tables.P + 1) ** 2
+        cpw = max(1, 32 // (tables.P + 1) ** 2)
         xb = max(1, min(nx - 1, 2 * cpw if nx % (2 * cpw) else cpw + 1))
         plans = [st.SlabPlan2D(xb, -(-nx // xb), ys, -(-ny // nyb), nyb)
                  for ys, nyb in ((2, 2), (3, ny))]
@@ -1158,7 +1215,10 @@ def sweep_scalars(op):
 
 # the (P, m) the patch-3D kernel refused before its x bricks, on synthetic
 # single patches
-PATCH3D_BRICK_SHAPES = ((1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16))
+# single patches; then the degrees the kernel gained last, each at one
+# shape
+PATCH3D_BRICK_SHAPES = ((1, 64), (2, 32), (3, 16), (3, 32), (4, 8), (4, 16),
+                        (5, 2), (6, 2))
 
 
 def synthetic_patch3d_tables(P, m, device, seed=0):
@@ -1186,7 +1246,7 @@ def synthetic_patch3d_tables(P, m, device, seed=0):
 def time_patch3d_shapes(level_sets):
     """The patch-3D kernel's device time and bound at each shape of
     ``level_sets`` in the timing case of the other 3D kernels (increment,
-    the history, q-wise delta)."""
+    the history, q-wise delta); returns the numbers at the last shape."""
     from ns_gls_tpu_torch.ops import patch3d as p3
     from ns_gls_tpu_torch.utils.roofline import bound, patch3d_cost
     from ns_gls_tpu_torch.utils.timer import device_time_us
@@ -1200,6 +1260,8 @@ def time_patch3d_shapes(level_sets):
         log(f"[13] {label}: P={tables.P} m={tables.m} plan "
             f"{tuple(tables.plans[('increment', True)])}: kernel device time "
             f"{dev_us:.1f} us, bound {1e3 * bound_ms:.2f} us by {by}")
+    return dict(label=label, ms=dev_us / 1e3, bound_ms=bound_ms,
+                bound_by=by)
 
 
 def sphere_tables(ref, degree, device):
@@ -1469,7 +1531,7 @@ def phases_sphere():
                    synthetic_patch3d_tables(P, m, "cuda"), SC3)
                   for P, m in PATCH3D_BRICK_SHAPES]
     max_abs, _ = phase_patch3d_vs_plain(level_sets + brick_sets)
-    time_patch3d_shapes(brick_sets)
+    high = time_patch3d_shapes(brick_sets)
     log_patch3d_build(brick_sets, "increment", True)
     del brick_sets
     fine = drv_s.mg_ops[-1]
@@ -1506,6 +1568,8 @@ def phases_sphere():
         seam_sum_max_abs_err=seam_abs,
         seam_sum_ms=t["seam_ms"],
         sweep_ms=t["sweep_ms"],
+        # the last degree built (P = 6) at its one shape of phase 13
+        p6=high,
     )
 
 
@@ -1513,7 +1577,9 @@ def phases_sphere():
 # phases 16-17: the weak outflow (Hoffmann/ReInf) and the general sweep's
 # scatter order
 # ---------------------------------------------------------------------------
-HOFFMANN_STEPS = 5
+# 2 steps of ~1,800-2,000 GMRES iterations each (5 before the solver-stack
+# phase 18 came; every check is the same)
+HOFFMANN_STEPS = 2
 HOFFMANN_DOFS = 17592
 # the stored JAX series of the Q1 refinement-1 configuration: the port on a
 # CPU meets it to 2.7e-10 of the solution's max-abs (tests/test_torch_
@@ -1614,13 +1680,13 @@ def phase_hoffmann():
         raise AssertionError(f"face sweep calls per level {per_level}: "
                              "want the face sweep on every level")
     stats = drv.step_stats
-    steady = [s["seconds"] for s in stats[2:]]
+    steady = [s["seconds"] for s in stats[1:]]
     log(f"[16] Hoffmann/ReInf Q{params.fe_degree} ref "
         f"{params.n_global_refinements}: {drv.mesh.n_cells} cells, {n_dofs} "
         f"DoFs, GMG levels {[op.space.n_nodes * 3 for op in drv.mg_ops]} "
         f"(patch-2D m = {[op._fast.m for op in drv.mg_ops]}), setup "
-        f"{setup_s:.2f} s, {HOFFMANN_STEPS} steps in {run_s:.2f} s; steady "
-        f"seconds per step (steps 3-{HOFFMANN_STEPS}) "
+        f"{setup_s:.2f} s, {HOFFMANN_STEPS} steps in {run_s:.2f} s; "
+        f"seconds per step after the first (steps 2-{HOFFMANN_STEPS}) "
         f"{sum(steady) / len(steady):.4f}; Newton "
         f"{[s['newton'] for s in stats]}, GMRES {[s['gmres'] for s in stats]}"
         f"; slip flux {flux:.2e}")
@@ -1995,6 +2061,246 @@ def phase_rotation_slice():
                 m1=m1, per_apply=per_apply, couette=(c_ls, c_gc))
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the solver stack (Picard, linearized, Richardson, ILU, AMG with
+# its ILU smoother, the matrix-based operator, checkpoints)
+# ---------------------------------------------------------------------------
+PICARD_STEPS = 3
+# Picard solves for the whole solution at every iteration, so its
+# increment cannot fall below the linear tolerance times the solution:
+# with the config's 1e-2 the increments stall near 1e-2 of ||u|| and the
+# iteration fails (the port at refinement 1 on a CPU, tools/
+# compare_runs.py: increments near 1e-2 for 31 iterations, then the
+# solver raises; the JAX iteration is the same).  Its runs here solve to
+# 1e-12, where the absolute criterion of 1e-7 is met (refinements 1 and 2
+# on a CPU, tools/compare_runs.py: 10-11 iterations a step), so the
+# relative mode is not needed.
+PICARD_LIN_TOL = 1e-12
+# the Picard step-3 solution against phase 4's Newton run at step 3: the
+# JAX package's Picard iteration (copied) does not converge to Newton's
+# root, so the gap is set by the formulation, not by the tolerances: on a
+# CPU (tools/compare_runs.py) at refinement 1 it is 4.791e-4 with both
+# solvers as here and
+# 4.791e-4 with both tightened a thousandfold (Newton to 1e-11 with
+# linear tolerance 1e-12, Picard to 1e-10 with 1e-13); at refinement 2
+# 2.353e-4, half of it (ROADMAP queue 3).  The bound is twice the larger
+# of the two, rounded up
+PICARD_NEWTON_GAP = 1e-3
+ILU_STEPS = 3
+# the matrix-based and matrix-free linearized runs agree to 1e-7 (the
+# tolerance of the JAX package's tests/test_e2e.py:87-101) only when both
+# linear solves converge far below it: at the config's 1e-2 they differ
+# by the solve tolerance (relative l2 2.0e-5 on a CPU), at 1e-13 by
+# 6.0e-10 (max abs; CPU, tools/compare_runs.py)
+MB_LIN_TOL = 1e-13
+MB_STEPS = 2
+MB_ABS_TOL = 1e-7
+# standalone AMG with the ILU smoother under Picard: tight enough linear
+# solves for Picard (1e-6) and its relative criterion (1e-7 of ||u||; the
+# absolute one sits below the solve noise on a solution of norm ~8e3);
+# 4 Picard iterations, 1,948 GMRES on a CPU (tools/compare_runs.py)
+AMG_ILU = {"preconditioner": "AMG", "amg smoother": "ilu",
+           "nonlinear solver": "Picard", "lin relative tolerance": 1e-6,
+           "nonlinear tolerance relative": True}
+CHECKPOINT_STEPS = 4
+CHECKPOINT_TOL = 1e-12
+
+
+class LaunchFlavors:
+    """Counts the flavors a kernel wrapper is asked for while installed
+    (the launches themselves are the wrapper's own count)."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.flavors = {}
+
+    def __enter__(self):
+        self._attr = self.cls.__dict__["launch"]
+        orig = self.cls.launch
+        flavors = self.flavors
+
+        def launch(tables, sc, u, ul, vo, flavor, *a, **kw):
+            flavors[flavor] = flavors.get(flavor, 0) + 1
+            return orig(tables, sc, u, ul, vo, flavor, *a, **kw)
+
+        self.cls.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.launch = self._attr
+        return False
+
+
+def check_solves(tag, drv, tol=None):
+    """Every step's nonlinear solve ended by the solver's own criteria
+    (the solvers raise on anything else), its last residual or increment
+    at most ``tol`` where given, and the solution is finite."""
+    import torch
+
+    for i, s in enumerate(drv.step_stats):
+        log(f"[{tag}] step {i + 1}: {s['seconds']:.3f} s, nonlinear "
+            f"{s['newton']} (last residual or increment "
+            f"{s['newton_residual']:.3e}), linear {s['gmres']}")
+        if tol is not None and not s["newton_residual"] <= tol:
+            raise AssertionError(f"[{tag}] step {i + 1}: not converged")
+    if not bool(torch.isfinite(drv.solution.current).all()):
+        raise AssertionError(f"[{tag}] non-finite solution")
+
+
+def solver_run(tag, overrides, name, steps, device="cuda"):
+    """A driver on ``input/<name>`` with ``overrides`` for ``steps``
+    steps through ``Driver.run``, output off, every kernel count set to
+    0 just before and read just after: (driver, seconds, counts)."""
+    params = config(overrides, name)
+    if device == "cuda":
+        drv, setup_s = setup_driver(params)
+        _, run_s, counts = run_steps(drv, steps)
+    else:
+        from ns_gls_tpu_torch.driver import Driver
+
+        drv = Driver(params, device="cpu")
+        t0 = time.perf_counter()
+        drv.run(max_steps=steps)
+        setup_s, run_s, counts = 0.0, time.perf_counter() - t0, {}
+    log(f"[{tag}] {name} {overrides} on {device}: setup {setup_s:.2f} s, "
+        f"{steps} steps in {run_s:.2f} s")
+    return drv, params, run_s, counts
+
+
+def phase_solver_stack(newton_step3):
+    """Phase 18.  ``newton_step3``: phase 4's Newton solution after step
+    3.  Returns the launches of the fused kernels on these paths."""
+    import tempfile
+
+    import torch
+
+    from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
+    from ns_gls_tpu_torch.ops.structured import StructuredKernel
+
+    t_phase = time.perf_counter()
+    out = {}
+    # 18.1 Picard at full width: the patch-2D kernel in its fixed flavor
+    log(f"[18] Picard on turek_2d_re100.json: linear tolerance "
+        f"{PICARD_LIN_TOL}, held to phase 4's Newton step 3 within "
+        f"{PICARD_NEWTON_GAP} (relative l2)")
+    with LaunchFlavors(Patch2DKernel) as fl:
+        drv, params, run_s, counts = solver_run(
+            "18", {"nonlinear solver": "Picard",
+                   "lin relative tolerance": PICARD_LIN_TOL},
+            "turek_2d_re100.json", PICARD_STEPS)
+    check_solves("18", drv, params.nonlinear_tolerance)
+    launches = counts["patch2d_gls_sweep"]
+    others = {k: n for k, n in counts.items()
+              if n and k not in ("patch2d_gls_sweep", "seam_sum")}
+    if (launches <= 0 or counts["seam_sum"] != launches or others
+            or fl.flavors != {"fixed": launches}):
+        raise AssertionError(f"[18] Picard launches {counts}, flavors "
+                             f"{fl.flavors}: want the patch-2D kernel in "
+                             f"its fixed flavor, one seam sum each, "
+                             f"nothing else")
+    u = drv.solution.current
+    gap = float(torch.linalg.vector_norm(u - newton_step3)
+                / torch.linalg.vector_norm(newton_step3))
+    log(f"[18] Picard: {launches} patch-2D launches, all fixed flavor; "
+        f"step-3 gap to Newton {gap:.3e} (bound {PICARD_NEWTON_GAP}), "
+        f"{run_s:.2f} s")
+    if not gap <= PICARD_NEWTON_GAP:
+        raise AssertionError(f"[18] Picard vs Newton {gap:.3e}")
+    out["picard_fixed_launches"] = launches
+    del drv, u
+
+    # 18.2 the reference's default preconditioner, on the card and on
+    # the CPU
+    d_cuda, params, run_s, _ = solver_run(
+        "18", {"preconditioner": "ILU"}, "channel.json", ILU_STEPS)
+    check_solves("18", d_cuda)
+    # the CPU's run at one thread: its sums in a fixed order
+    from ns_gls_tpu_torch.utils.device import torch_threads
+
+    with torch_threads(1):
+        d_cpu, _, _, _ = solver_run("18", {"preconditioner": "ILU"},
+                                    "channel.json", ILU_STEPS, device="cpu")
+    card = [(s["newton"], s["gmres"]) for s in d_cuda.step_stats]
+    host = [(s["newton"], s["gmres"]) for s in d_cpu.step_stats]
+    if any(abs(a - b) > 1 for x, y in zip(card, host)
+           for a, b in zip(x, y)) or len(card) != len(host):
+        raise AssertionError(f"[18] ILU (Newton, GMRES) per step: card "
+                             f"{card}, CPU {host}")
+    pre = d_cuda.preconditioner
+    step_s = sum(s["seconds"] for s in d_cuda.step_stats)
+    log(f"[18] ILU: (Newton, GMRES) per step card {card}, CPU {host}; "
+        f"{pre.n_applies} host applies, {pre.apply_seconds / pre.n_applies:.6f}"
+        f" s each (the copies and the card's wait included), "
+        f"{pre.apply_seconds:.3f} s of {step_s:.3f} s of steps "
+        f"({100 * pre.apply_seconds / step_s:.1f}%)")
+    out["ilu_apply_s"] = pre.apply_seconds / pre.n_applies
+    out["ilu_share"] = pre.apply_seconds / step_s
+    del d_cuda, d_cpu, pre
+
+    # 18.3 the matrix-based operator against the matrix-free one
+    lin = {"nonlinear solver": "linearized",
+           "lin relative tolerance": MB_LIN_TOL}
+    d_mb, params, _, _ = solver_run(
+        "18", lin | {"use matrix free ns operator": False}, "channel.json",
+        MB_STEPS)
+    check_solves("18", d_mb)
+    d_mf, _, _, _ = solver_run("18", lin, "channel.json", MB_STEPS)
+    diff = float((d_mb.solution.current - d_mf.solution.current).abs().max())
+    log(f"[18] matrix-based vs matrix-free linearized: max abs diff "
+        f"{diff:.3e} (tol {MB_ABS_TOL})")
+    if not diff <= MB_ABS_TOL:
+        raise AssertionError(f"[18] matrix-based vs matrix-free {diff:.3e}")
+    del d_mb, d_mf
+
+    # 18.4 standalone AMG with its ILU smoother, Picard
+    d_amg, params, _, _ = solver_run("18", AMG_ILU, "channel.json", 1)
+    check_solves("18", d_amg)
+    log(f"[18] AMG with the ILU smoother: levels "
+        f"{d_amg.preconditioner.level_sizes}")
+    del d_amg
+
+    # 18.5 Richardson and 18.6 the ILU coarse solver, under GMG on the
+    # 2D structured kernel
+    for key, over in (("richardson", {"linear solver": "Richardson"}),
+                      ("ilu_coarse", {"gmg coarse grid solver": "ILU"})):
+        drv, params, _, counts = solver_run("18", over, "channel.json", 1)
+        check_solves("18", drv)
+        n = counts["structured2d"]
+        if n <= 0:
+            raise AssertionError(f"[18] {key}: the 2D structured kernel "
+                                 f"was not launched ({counts})")
+        log(f"[18] {key}: {n} structured2d launches")
+        out[f"{key}_launches"] = n
+    del drv
+
+    # 18.7 checkpoint and resume: 4 steps against 2 checkpointed steps and
+    # a fresh driver resumed to step 4
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = {"checkpoint prefix": os.path.join(tmp, "turek"),
+              "checkpoint granularity": 1e-6}
+        whole, _, _, _ = solver_run("18", {}, "turek_2d_re100.json",
+                                    CHECKPOINT_STEPS)
+        first, _, _, _ = solver_run("18", ck, "turek_2d_re100.json", 2)
+        params = config(ck, "turek_2d_re100.json")
+        resumed, _ = setup_driver(params)
+        t0 = time.perf_counter()
+        resumed.run(max_steps=CHECKPOINT_STEPS, resume=True)
+        torch.cuda.synchronize()
+        log(f"[18] resumed at cycle 3, {len(resumed.step_stats)} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+    diff = float((resumed.solution.current
+                  - whole.solution.current).abs().max())
+    equal = torch.equal(resumed.solution.current, whole.solution.current)
+    log(f"[18] checkpoint: resumed vs uninterrupted max abs diff {diff:.3e} "
+        f"(tol {CHECKPOINT_TOL}), bit-equal {equal}")
+    if len(resumed.step_stats) != CHECKPOINT_STEPS - 2 \
+            or not diff <= CHECKPOINT_TOL:
+        raise AssertionError(f"[18] checkpoint resume {diff:.3e}")
+    del whole, first, resumed
+    torch.cuda.empty_cache()
+    log(f"[18] solver-stack phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 def scatter_bits(tag, label, fn):
     """Two calls of ``fn`` on equal inputs: the same bits?"""
     import torch
@@ -2057,6 +2363,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         max_abs, max_rel = phase_kernel_vs_plain(p2_levels)
         log_patch2d_build(p2_levels, "increment", True)
+        p2_high = time_patch2d_high(p2_levels)
         p2_fine = next(t for label, t in p2_levels
                        if label == "turek_2d_re100 level 3")
         p2_times = phase_patch2d_sweep(p2_fine, "increment", True, False)
@@ -2084,7 +2391,12 @@ def main() -> int:
         pmax_abs, _ = phase_prism_vs_plain(turek_sets + brick_sets)
         tl = time_prism_levels(turek_sets)
         plevels = {t.m: tl[label] for label, t in turek_sets}
-        time_prism_levels(brick_sets)
+        high_label = brick_sets[-1][0]
+        pr_high = time_prism_levels(brick_sets)[high_label]
+        pr_high = dict(label=f"{high_label} nz={PRISM_BRICK_NZ}",
+                       ms=pr_high["device_us"] / 1e3,
+                       bound_ms=pr_high["bound_us"] / 1e3,
+                       bound_by=pr_high["bound_by"])
         del turek_sets, brick_sets
         ptables = drv3.mg_ops[-1]._fast.tables
         u, ul, vo = prism_inputs(ptables, seed=1)
@@ -2124,7 +2436,7 @@ def main() -> int:
         errs = {}
         sheared = [(f"sheared {dim}D P={degree}",
                     sheared_tables(dim, degree, "cuda"), SC_SHEAR)
-                   for dim in (2, 3) for degree in (1, 2, 3, 4)]
+                   for dim in (2, 3) for degree in (1, 2, 3, 4, 5, 6)]
         levels3 = [(f"channel 3D level {l}", op._fast.tables, SC_CH)
                    for l, op in enumerate(drv_c3.mg_ops)]
         phase_structured_vs_plain(9, sheared + levels3, errs)
@@ -2134,6 +2446,17 @@ def main() -> int:
         log_structured_build(9, [t for _, t, _ in sheared + levels3])
         t_s3 = time_structured(9, fine3, SC_CH, False)
         time_structured(9, fine3, SC_CH, True)      # logged only
+        # the last degree built (P = 6) at the sheared lattices' shapes
+        s_high = {}
+        for label, tables, sc in sheared:
+            if tables.P == 6:
+                for batched in ((False, True) if tables.d == 3
+                                else (False,)):
+                    t = time_structured(9, tables, sc, batched)
+                    s_high[(tables.d, batched)] = dict(
+                        label=f"{label} cells {tables.cell_shape}",
+                        ms=t["kernel_ms"], bound_ms=t["bound_ms"],
+                        bound_by=t["bound_by"])
         del sheared, levels3, fine3
 
         # 10. channel 3D main path
@@ -2191,9 +2514,16 @@ def main() -> int:
         # 17. the rotation slice: several-family tables, GMG-LS, GMG on
         # the adaptive annulus, Couette flow
         rot = phase_rotation_slice()
+        log(f"[-] rotation phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 18. the solver stack: Picard, ILU, the matrix-based operator, AMG
+        # with its ILU smoother, Richardson, the ILU coarse solver,
+        # checkpoints
+        stack = phase_solver_stack(main.pop("step3"))
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 18. kernel line, card line; 19. result line
+        # 19. kernel line, card line; 20. result line
         # the patch-2D kernel: device time at m = 8 in the main path's
         # flavor, alone (ms) and with its seam sum (sweep_ms); launches
         # from phase 4, one seam sum after each
@@ -2225,6 +2555,11 @@ def main() -> int:
             rotation_m1_bound_ms=rot["m1"]["bound_ms"],
             rotation_m1_bound_by=rot["m1"]["bound_by"],
             families_launches_per_apply=rot["per_apply"],
+            # Picard on turek_2d_re100.json (phase 18): every launch in the
+            # fixed flavor
+            picard_fixed_launches=stack["picard_fixed_launches"],
+            # the last degree built (P = 6) at its one shape of phase 3
+            p6=p2_high,
         ), dict(
             name="prism_gls_sweep",
             route="cuda",
@@ -2237,17 +2572,21 @@ def main() -> int:
             bound_ms=pbound_ms,
             bound_by=pbound_by,
             library_ms=None,
+            # the last degree built (P = 6) at its one shape of phase 6
+            p6=pr_high,
         )]
         # the structured kernels: time of the wrapper (kernel and fold).
         # 2D and 3D: at the finest channel level, errors over phases 9
         # and 11, launches from the channel main paths.  Batched, which
         # no driver path selects: error, times and bound at the gls-vmult
         # lane's shape (32^3 cells) and state, launches from that lane
-        for name, line, t, launches in (
-                ("structured3d", 540, t_s3, ch3["launches"]),
-                ("structured2d", 1131, t_s2, ch2["launches"]),
+        for name, line, t, launches, high in (
+                ("structured3d", 540, t_s3, ch3["launches"],
+                 s_high[(3, False)]),
+                ("structured2d", 1131, t_s2, ch2["launches"],
+                 s_high[(2, False)]),
                 ("structured3d_batched", 910, t_s3b,
-                 vmult_counts["structured3d_batched"])):
+                 vmult_counts["structured3d_batched"], s_high[(3, True)])):
             kernels.append(dict(
                 name=name,
                 route="cuda",
@@ -2261,7 +2600,13 @@ def main() -> int:
                 bound_ms=t["bound_ms"],
                 bound_by=t["bound_by"],
                 library_ms=None,
+                # the last degree built (P = 6), sheared lattice of phase 9
+                p6=high,
             ))
+        # the 2D structured kernel on phase 18's Richardson and ILU
+        # coarse-solver channel paths
+        kernels[-2].update(richardson_launches=stack["richardson_launches"],
+                           ilu_coarse_launches=stack["ilu_coarse_launches"])
         kernels.append(p3_line)
         for k in kernels:
             if k["launches"] <= 0:

@@ -8,7 +8,8 @@
 
 Runs on the CUDA device unless ``--device cpu`` is given;
 ``--refinements``, ``--dim`` and ``--degree`` override the config's
-"n global refinements", "dim" and "fe degree".  Records of cases with
+"n global refinements", "dim" and "fe degree"; ``--resume`` restarts
+from the last checkpoint written under the config's "checkpoint prefix".  Records of cases with
 functionals (drag, lift, pressure drop) are printed per step; every case
 prints its Newton and GMRES counts and seconds per step at the end.
 """
@@ -33,6 +34,8 @@ def main(argv=None):
                     help="override the config's 'dim'")
     ap.add_argument("--degree", type=int, default=None,
                     help="override the config's 'fe degree'")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the last checkpoint")
     args = ap.parse_args(argv)
 
     raw = _load_json(args.config)
@@ -42,7 +45,7 @@ def main(argv=None):
             raw[key] = value
     params = Parameters.from_dict(raw)
     drv = Driver(params, device=args.device)
-    for rec in drv.run(max_steps=args.max_steps):
+    for rec in drv.run(max_steps=args.max_steps, resume=args.resume):
         print(f"t = {rec['t']:.6g}  drag = {rec['drag']:.10g}  "
               f"lift = {rec['lift']:.10g}  p_diff = {rec['p_diff']:.10g}",
               flush=True)

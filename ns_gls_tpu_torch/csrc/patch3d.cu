@@ -65,7 +65,7 @@
 //    (E1), then x (E2), then y (E3, one thread per q-point, which maps the
 //    reference gradients with its own 3 x 3 J^-1 and runs the physics in
 //    registers); the test-function weights are integrated back along y
-//    (I3), x (I2) and z (I1).  P is a template parameter (degrees 1-4,
+//    (I3), x (I2) and z (I1).  P is a template parameter (degrees 1-6,
 //    NQ = P + 1), so the 1D tables and the short contractions live in
 //    registers.
 //  - All components together: E1 and E2 take every component of one field
@@ -178,7 +178,7 @@ __device__ __forceinline__ float lane_of(const float4& v, int c) {
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<P>)
 patch3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
                const float* __restrict__ vo, const int* __restrict__ pnodes,
                const float* __restrict__ jinv, const float* __restrict__ jxw,
@@ -743,7 +743,7 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 }  // namespace
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// Degrees 1-4 with NQ = P + 1 Gauss points; xb cells per x brick (a
+// Degrees 1-6 with NQ = P + 1 Gauss points; xb cells per x brick (a
 // divisor of m), zs cell layers per slab and nzb z chunks per column
 // (ops/patch3d.py patch3d_plan).  Returns 0, a CUDA error code, or 1
 // (cudaErrorInvalidValue) for a degree, plan or input it does not take.
@@ -764,6 +764,8 @@ extern "C" int patch3d_sweep_launch(
   P3_CASE(2)
   P3_CASE(3)
   P3_CASE(4)
+  P3_CASE(5)
+  P3_CASE(6)
 #undef P3_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -783,6 +785,8 @@ extern "C" int patch3d_attributes(int P, int m, int xb, int zs, int nzb,
   if (P == 2) err = cudaFuncGetAttributes(&a, patch3d_kernel<2>);
   if (P == 3) err = cudaFuncGetAttributes(&a, patch3d_kernel<3>);
   if (P == 4) err = cudaFuncGetAttributes(&a, patch3d_kernel<4>);
+  if (P == 5) err = cudaFuncGetAttributes(&a, patch3d_kernel<5>);
+  if (P == 6) err = cudaFuncGetAttributes(&a, patch3d_kernel<6>);
   if (err != cudaSuccess) return (int)err;
   if (m < 1 || xb < 1 || m % xb != 0 || nzb < 1 || nzb > m)
     return (int)cudaErrorInvalidValue;

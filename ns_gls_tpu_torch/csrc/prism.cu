@@ -145,7 +145,7 @@ __host__ __device__ inline PrismSmem prism_smem(int P, int NQ, int xb,
 }
 
 template <int P, int NQ>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<P>)
 prism_kernel(const float* __restrict__ u, const float* __restrict__ ul,
              const float* __restrict__ vo, const float* __restrict__ jinv,
              const float* __restrict__ jxw, const float* __restrict__ hcell,
@@ -643,7 +643,7 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 
 // ---- host launcher (plain C interface, bound with ctypes) -------------
 // xb, zs, nzb: cells per x brick (a divisor of m), cell layers per slab and
-// z chunks per column (ops/prism.py prism_plan).  Degrees 1-4 with NQ =
+// z chunks per column (ops/prism.py prism_plan).  Degrees 1-6 with NQ =
 // P + 1 Gauss points.  Returns 0, a CUDA error code, or 1
 // (cudaErrorInvalidValue) for a degree, plan or input it does not take.
 extern "C" int prism_sweep_launch(
@@ -663,6 +663,8 @@ extern "C" int prism_sweep_launch(
   PRISM_CASE(2)
   PRISM_CASE(3)
   PRISM_CASE(4)
+  PRISM_CASE(5)
+  PRISM_CASE(6)
 #undef PRISM_CASE
   return (int)cudaErrorInvalidValue;
 }

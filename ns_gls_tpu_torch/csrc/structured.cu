@@ -574,7 +574,7 @@ __host__ __device__ inline S3Smem s3_smem(int P, int XB, int ZS, int NF,
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<P>)
 structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
                     const float* __restrict__ vo,
                     const float* __restrict__ jinv,
@@ -1114,7 +1114,10 @@ structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 //  - E2 gives a warp whole cells (32 / NQ^2 of them, each cell's q-points on
 //    consecutive lanes; up to four passes a slab), so the cell-wise delta's
 //    max of |u*|^2 over the cell's q-points is a shuffle among those lanes:
-//    no barrier, no second evaluation.
+//    no barrier, no second evaluation.  A cell of more than 32 q-points
+//    (P = 5, 6) takes a whole warp, each lane its q-points in rounds; the
+//    cell-wise max is then taken over the warp first (u* alone at each of
+//    the lane's q-points) and the physics runs round by round.
 //  - Loop indices advance as mixed-radix digits (StridedDigits); a
 //    thread's q-point, I1 columns and copy column are fixed for the walk.
 //  - Exact f32 FMAs, no tensor cores, no atomics.
@@ -1144,7 +1147,8 @@ structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 
 // I1 columns (3 components x brick nodes) a thread may own
 constexpr int kMaxCols2 = 2;
-// passes of E2 over a slab's cells (each warp takes 32 / NQ^2 cells a pass)
+// passes of E2 over a slab's cells (each warp takes 32 / NQ^2 cells a pass,
+// one cell above 32 q-points)
 constexpr int kMaxPass2 = 4;
 
 struct S2Dims {
@@ -1174,7 +1178,7 @@ __host__ __device__ inline S2Smem s2_smem(int P, int XB, int YS, int NF,
 }
 
 template <int P>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<P>)
 structured2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
                     const float* __restrict__ vo,
                     const float* __restrict__ jinv,
@@ -1186,7 +1190,10 @@ structured2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
                     int consider_dt, int cell_wise, GlsScalars sc) {
   extern __shared__ float smem[];
   constexpr int n1 = P + 1, NQ = P + 1, NQ2 = NQ * NQ;
-  constexpr int CPW = 32 / NQ2;   // cells per warp in E2
+  // cells per warp in E2, and each lane's q-point rounds per cell (more
+  // than one only for a cell of more than 32 q-points)
+  constexpr int CPW = NQ2 <= 32 ? 32 / NQ2 : 1;
+  constexpr int NSUB = (NQ2 + 31) / 32;
   const int nx = dm.nx, ny = dm.ny, XB = dm.XB, YS = dm.YS;
   const int bx = blockIdx.x % dm.nbx;
   const int ky = blockIdx.x / dm.nbx;
@@ -1364,111 +1371,164 @@ structured2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 
     // ---- E2: along x, delta, physics, test-function weights; a warp
     // takes CPW cells a pass, one q-point per lane (lanes past CPW * NQ2,
-    // and cells past the slab's, compute cell 0 and write nothing)
+    // and cells past the slab's, compute cell 0 and write nothing); a
+    // cell of more than 32 q-points (P >= 5) takes the whole warp, each
+    // lane NSUB of its q-points in turn
     const int n_cells = ys * xb;
 #pragma unroll 1
     for (int pass = 0; pass < kMaxPass2; ++pass) {
       const int grp = warp + pass * n_warps;   // warp-uniform
       if (grp * CPW >= n_cells) break;
       const int cl_lin = grp * CPW + cw;
-      const bool valid = cw < CPW && cl_lin < n_cells;
-      const int cll = valid ? cl_lin : 0;
+      const bool cell_ok = cw < CPW && cl_lin < n_cells;
+      const int cll = cell_ok ? cl_lin : 0;
       const int eyl = cll / xb, ex = cll - eyl * xb;
-      const int ix = ex * NQ + qx, iy = eyl * NQ + qy;
-      const int ao = iy * XN + P * ex;
-
-      // value and reference gradients (x, y) of field f at this q-point
-      auto eval = [&](int f, float& v, float (&gr)[2], bool grads) {
-        const float* a = sA + f * AF + ao;
-        float av[n1];
-#pragma unroll
-        for (int i = 0; i < n1; ++i) av[i] = a[i];
-        v = 0.f;
-#pragma unroll
-        for (int i = 0; i < n1; ++i) v = fmaf(Sx[i], av[i], v);
-        if (grads) {
-          const float* ay = sAy + f * AF + ao;
-          gr[0] = gr[1] = 0.f;
-#pragma unroll
-          for (int i = 0; i < n1; ++i) {
-            gr[0] = fmaf(Dx[i], av[i], gr[0]);
-            gr[1] = fmaf(Sx[i], ay[i], gr[1]);
-          }
-        }
-      };
-      float uv[3], ud[3][2];
-      float lv[3] = {0.f, 0.f, 0.f};
-      float ld[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      float dto[2] = {0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < 3; ++c) eval(c, uv[c], ud[c], true);
-      if (incr) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) eval(3 + c, lv[c], ld[c], true);
-      } else {
-        float g2[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) eval(3 + c, lv[c], g2, false);
-      }
-      if (need_dt_old) {
-        float g2[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) eval(3 + lead_ul + c, dto[c], g2, false);
-      }
-
       // the cell's geometry, staged with the slab
       const int cl = eyl * XB + ex;
-      float ji[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ji[e] = gJ[cl * 4 + e];
 
-      // stabilization parameters; cell-wise: the max of |u*|^2 over the
-      // cell's NQ2 lanes
-      const float usq = lv[0] * lv[0] + lv[1] * lv[1];
-      float d1, d2;
-      if (cell_wise) {
-        const float m = valid ? usq : 0.f;
-        const int base = cw * NQ2;
-        float msq = 0.f;
+      // cell-wise delta over NSUB > 1 rounds: the max of |u*|^2 over the
+      // cell's q-points, each lane's rounds then a shuffle over the warp
+      float msq_warp = 0.f;
+      if (NSUB > 1 && cell_wise) {
+        for (int sub = 0; sub < NSUB; ++sub) {
+          const int t = lane + 32 * sub;
+          if (t < NQ2) {
+            float St[n1];
+            table_row(S1, t % NQ, St);
+            const float* a = sA + 3 * AF + (eyl * NQ + t / NQ) * XN + P * ex;
+            float l0 = 0.f, l1 = 0.f;
 #pragma unroll
-        for (int k = 0; k < NQ2; ++k)
-          msq = fmaxf(msq, __shfl_sync(0xffffffffu, m, base + k));
-        gls_delta_cell(sc, gH[cl * 2], msq, d1, d2);
-      } else {
-        gls_delta_q(sc, gH[cl * 2 + 1], usq, d1, d2);
-      }
-
-      // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*2 + x]
-      float ug[2][2], pg[2];
-      float gus[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      float gps[2] = {0.f, 0.f};
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          ug[a][x] = ud[a][0] * ji[x] + ud[a][1] * ji[2 + x];
-          gus[a][x] = ld[a][0] * ji[x] + ld[a][1] * ji[2 + x];
+            for (int i = 0; i < n1; ++i) {
+              l0 = fmaf(St[i], a[i], l0);
+              l1 = fmaf(St[i], a[AF + i], l1);
+            }
+            msq_warp = fmaxf(msq_warp, l0 * l0 + l1 * l1);
+          }
         }
-        pg[x] = ud[2][0] * ji[x] + ud[2][1] * ji[2 + x];
-        gps[x] = ld[2][0] * ji[x] + ld[2][1] * ji[2 + x];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          msq_warp = fmaxf(msq_warp,
+                           __shfl_xor_sync(0xffffffffu, msq_warp, o));
       }
 
-      float vr[3], gr[3][2];
-      const float uvel[2] = {uv[0], uv[1]};
-      const float us[2] = {lv[0], lv[1]};
-      gls_physics<2>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
-                     uv[2], pg, us, gus, gps, dto, d1, d2, vr, gr);
+#pragma unroll 1
+      for (int sub = 0; sub < NSUB; ++sub) {
+        // this round's q-point (qs_x, qs_y) of the cell and its rows of
+        // the 1D tables along x
+        const int t = NSUB == 1 ? qxy : lane + 32 * sub;
+        const bool valid = cell_ok && t < NQ2;
+        const int tq = t < NQ2 ? t : 0;
+        const int qs_x = NSUB == 1 ? qx : tq % NQ;
+        const int qs_y = NSUB == 1 ? qy : tq / NQ;
+        float Sq[n1], Dq[n1];
+        if (NSUB == 1) {
+#pragma unroll
+          for (int i = 0; i < n1; ++i) {
+            Sq[i] = Sx[i];
+            Dq[i] = Dx[i];
+          }
+        } else {
+          table_row(S1, qs_x, Sq);
+          table_row(D1, qs_x, Dq);
+        }
+        const int ix = ex * NQ + qs_x, iy = eyl * NQ + qs_y;
+        const int ao = iy * XN + P * ex;
 
-      if (valid) {
-        const float w = gQ[cl * NQ2 + qxy];
-        const int q = iy * LX + ix;
+        // value and reference gradients (x, y) of field f at this q-point
+        auto eval = [&](int f, float& v, float (&gr)[2], bool grads) {
+          const float* a = sA + f * AF + ao;
+          float av[n1];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          sW[c * QS + q] = vr[c] * w;
+          for (int i = 0; i < n1; ++i) av[i] = a[i];
+          v = 0.f;
 #pragma unroll
-          for (int r = 0; r < 2; ++r)
-            sW[((1 + r) * 3 + c) * QS + q] =
-                (gr[c][0] * ji[r * 2] + gr[c][1] * ji[r * 2 + 1]) * w;
+          for (int i = 0; i < n1; ++i) v = fmaf(Sq[i], av[i], v);
+          if (grads) {
+            const float* ay = sAy + f * AF + ao;
+            gr[0] = gr[1] = 0.f;
+#pragma unroll
+            for (int i = 0; i < n1; ++i) {
+              gr[0] = fmaf(Dq[i], av[i], gr[0]);
+              gr[1] = fmaf(Sq[i], ay[i], gr[1]);
+            }
+          }
+        };
+        float uv[3], ud[3][2];
+        float lv[3] = {0.f, 0.f, 0.f};
+        float ld[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+        float dto[2] = {0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 3; ++c) eval(c, uv[c], ud[c], true);
+        if (incr) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) eval(3 + c, lv[c], ld[c], true);
+        } else {
+          float g2[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) eval(3 + c, lv[c], g2, false);
+        }
+        if (need_dt_old) {
+          float g2[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            eval(3 + lead_ul + c, dto[c], g2, false);
+        }
+
+        float ji[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ji[e] = gJ[cl * 4 + e];
+
+        // stabilization parameters; cell-wise: the max of |u*|^2 over the
+        // cell's NQ2 lanes (over the warp's rounds when NSUB > 1)
+        const float usq = lv[0] * lv[0] + lv[1] * lv[1];
+        float d1, d2;
+        if (cell_wise) {
+          float msq = msq_warp;
+          if (NSUB == 1) {
+            const float m = valid ? usq : 0.f;
+            const int base = cw * NQ2;
+            msq = 0.f;
+#pragma unroll
+            for (int k = 0; k < NQ2; ++k)
+              msq = fmaxf(msq, __shfl_sync(0xffffffffu, m, base + k));
+          }
+          gls_delta_cell(sc, gH[cl * 2], msq, d1, d2);
+        } else {
+          gls_delta_q(sc, gH[cl * 2 + 1], usq, d1, d2);
+        }
+
+        // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*2+x]
+        float ug[2][2], pg[2];
+        float gus[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        float gps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            ug[a][x] = ud[a][0] * ji[x] + ud[a][1] * ji[2 + x];
+            gus[a][x] = ld[a][0] * ji[x] + ld[a][1] * ji[2 + x];
+          }
+          pg[x] = ud[2][0] * ji[x] + ud[2][1] * ji[2 + x];
+          gps[x] = ld[2][0] * ji[x] + ld[2][1] * ji[2 + x];
+        }
+
+        float vr[3], gr[3][2];
+        const float uvel[2] = {uv[0], uv[1]};
+        const float us[2] = {lv[0], lv[1]};
+        gls_physics<2>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
+                       uv[2], pg, us, gus, gps, dto, d1, d2, vr, gr);
+
+        if (valid) {
+          const float w = gQ[cl * NQ2 + t];
+          const int q = iy * LX + ix;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            sW[c * QS + q] = vr[c] * w;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              sW[((1 + r) * 3 + c) * QS + q] =
+                  (gr[c][0] * ji[r * 2] + gr[c][1] * ji[r * 2 + 1]) * w;
+          }
         }
       }
     }
@@ -1645,7 +1705,8 @@ int launch2d(const float* u, const float* ul, const float* vo,
   // I1 columns and E2 passes per thread
   if (3 * (P * XB + 1) > kMaxCols2 * kThreads)
     return (int)cudaErrorInvalidValue;
-  const int cpw = 32 / ((P + 1) * (P + 1));
+  const int nq2 = (P + 1) * (P + 1);
+  const int cpw = nq2 <= 32 ? 32 / nq2 : 1;
   if ((YS * XB + cpw - 1) / cpw > kMaxPass2 * (kThreads / 32))
     return (int)cudaErrorInvalidValue;
   // node offsets inside one field are 32-bit
@@ -1750,7 +1811,7 @@ extern "C" int structured3d_batched_launch(
   return (int)cudaGetLastError();
 }
 
-// The 2D kernel, degrees 1-4 with NQ = P + 1 Gauss points: xb cells per
+// The 2D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb cells per
 // brick, ys cell rows per slab, nyb y chunks (ops/structured.py
 // slab_plan_2d).  out (3, Yr, 1, Nx), seams (3, Yr, nbx).  Returns 0, a
 // CUDA error code, or 1 (cudaErrorInvalidValue) for a degree, plan or shape
@@ -1772,6 +1833,8 @@ extern "C" int structured2d_launch(
   S2_CASE(2)
   S2_CASE(3)
   S2_CASE(4)
+  S2_CASE(5)
+  S2_CASE(6)
 #undef S2_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -1791,6 +1854,8 @@ extern "C" int structured2d_attributes(int P, int xb, int ys, int flavor,
   if (P == 2) err = cudaFuncGetAttributes(&a, structured2d_kernel<2>);
   if (P == 3) err = cudaFuncGetAttributes(&a, structured2d_kernel<3>);
   if (P == 4) err = cudaFuncGetAttributes(&a, structured2d_kernel<4>);
+  if (P == 5) err = cudaFuncGetAttributes(&a, structured2d_kernel<5>);
+  if (P == 6) err = cudaFuncGetAttributes(&a, structured2d_kernel<6>);
   if (err != cudaSuccess) return (int)err;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
@@ -1804,7 +1869,7 @@ extern "C" int structured2d_attributes(int P, int xb, int ys, int flavor,
   return 0;
 }
 
-// The 3D kernel, degrees 1-4 with NQ = P + 1 Gauss points: xb cells per
+// The 3D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb cells per
 // brick, zs cell layers per slab, nzb z chunks per column (ops/
 // structured.py brick_plan).  Returns 0, a CUDA error code, or 1
 // (cudaErrorInvalidValue) for a degree, plan or shape it does not take.
@@ -1825,6 +1890,8 @@ extern "C" int structured3d_launch(
   S3_CASE(2)
   S3_CASE(3)
   S3_CASE(4)
+  S3_CASE(5)
+  S3_CASE(6)
 #undef S3_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -1844,6 +1911,8 @@ extern "C" int structured3d_attributes(int P, int xb, int zs, int flavor,
   if (P == 2) err = cudaFuncGetAttributes(&a, structured3d_kernel<2>);
   if (P == 3) err = cudaFuncGetAttributes(&a, structured3d_kernel<3>);
   if (P == 4) err = cudaFuncGetAttributes(&a, structured3d_kernel<4>);
+  if (P == 5) err = cudaFuncGetAttributes(&a, structured3d_kernel<5>);
+  if (P == 6) err = cudaFuncGetAttributes(&a, structured3d_kernel<6>);
   if (err != cudaSuccess) return (int)err;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =

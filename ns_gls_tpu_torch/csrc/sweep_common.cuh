@@ -27,6 +27,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 namespace {
 
+// Blocks per SM the fused sweeps' launch bounds ask for: two up to degree
+// 4 (at most 128 registers a thread), one above, where the 1D tables
+// alone take 2 (P+1)^2 registers a thread.
+template <int P>
+constexpr int kMinBlocks = P <= 4 ? 2 : 1;
+
 // The items of a block-strided loop (item = threadIdx.x, then + blockDim.x;
 // or from v in steps of st) as digits of a mixed radix, digit 0 fastest,
 // advanced without a division per item (the divisions of a runtime radix

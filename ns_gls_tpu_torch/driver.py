@@ -2,15 +2,17 @@
 
 Port of the JAX package's single-device ``Driver`` (the reference's
 ``Driver<dim>``, ``main.cc:199-1052``): builds the mesh/space/constraints,
-the NS operator, the GMG preconditioner (global coarsening or local
-smoothing, level operators in f32), the
-GMRES and Newton solvers wired through callbacks, then runs the
-CFL-controlled time loop with drag/lift/pressure-drop records and
-optional VTU output.
+the NS operator (matrix-free, or assembled for the non-Newton solvers),
+the preconditioner (GMG with global coarsening or local smoothing, level
+operators in f32; AMG, ILU, Jacobi or identity), the GMRES, Richardson or
+direct linear solver and the Newton, Picard or linearized nonlinear
+solver wired through callbacks, then runs the CFL-controlled time loop
+with drag/lift/pressure-drop records, optional VTU output and rolling
+checkpoints, resumable with ``run(resume=True)``.
 
 Precision follows the reference layering: f64 outer solve, f32 multigrid
-levels, TF32 off.  Configuration keys this port does not cover yet raise
-``NotImplementedError``.
+levels, TF32 off.  Sharding over several devices (``n devices`` > 1) is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ns_gls_tpu_torch.precond.jacobi import (
 from ns_gls_tpu_torch.solvers.linear import (
     LinearSolverDirect,
     LinearSolverGMRES,
+    LinearSolverRichardson,
 )
 from ns_gls_tpu_torch.solvers.nonlinear import make_nonlinear_solver
 from ns_gls_tpu_torch.utils.device import resolve_device
@@ -189,20 +192,6 @@ def _unsupported(p: Parameters) -> list[str]:
     out = []
     if p.n_devices != 1:
         out.append(f"'n devices' = {p.n_devices} (sharding)")
-    if not p.use_matrix_free_ns_operator:
-        out.append("matrix-based operator")
-    if p.preconditioner not in ("GMG", "GMG-LS", "Jacobi", "identity"):
-        out.append(f"preconditioner '{p.preconditioner}'")
-    if p.linear_solver not in ("GMRES", "direct"):
-        out.append(f"linear solver '{p.linear_solver}'")
-    if p.nonlinear_solver != "Newton":
-        out.append(f"nonlinear solver '{p.nonlinear_solver}'")
-    if (p.preconditioner in ("GMG", "GMG-LS")
-            and p.gmg.coarse_grid_solver not in ("direct", "AMG",
-                                                 "identity")):
-        out.append(f"GMG coarse grid solver '{p.gmg.coarse_grid_solver}'")
-    if p.checkpoint_prefix:
-        out.append("checkpoints")
     return out
 
 
@@ -226,6 +215,8 @@ class Driver:
         self.time_reached = 0.0
         self._counter0 = 1
         self._restarted = False
+        self._output_counter = 0
+        self._checkpoint_counter = 1
 
     # ------------------------------------------------------------------
     def setup(self):
@@ -290,6 +281,21 @@ class Driver:
             )
             self.op.constraints_inhomogeneous = self.csets.inhomogeneous_at(0.0)
 
+        # the preconditioners that take the fine operator assemble or
+        # apply the matrix-free one
+        op_mf = self.op
+        if not p.use_matrix_free_ns_operator:
+            # assembled SpMV (``main.cc:351-364``; the reference restricts
+            # it to non-Newton solvers)
+            if p.nonlinear_solver == "Newton":
+                raise ValueError(
+                    "matrix-based operator does not support Newton")
+            from ns_gls_tpu_torch.ops.matrix_based import (
+                NavierStokesOperatorMatrixBased,
+            )
+
+            self.op = NavierStokesOperatorMatrixBased(op_mf)
+
         # ---- preconditioner ------------------------------------------------
         self.mg_ops = []
         self.mg_transfers = []
@@ -301,10 +307,23 @@ class Driver:
                                    mg_dtype)
             elif p.preconditioner == "GMG":
                 self._setup_gmg(bcs, mapping_degree, increment_form, mg_dtype)
+            elif p.preconditioner == "ILU":
+                from ns_gls_tpu_torch.precond.ilu import PreconditionerILU
+
+                self.preconditioner = PreconditionerILU(op_mf)
+            elif p.preconditioner == "AMG":
+                from ns_gls_tpu_torch.precond.amg import PreconditionerAMG
+
+                # matrix-free level 0 (``ns_gls_tpu/driver.py:353-359``)
+                self.preconditioner = PreconditionerAMG(
+                    op_mf, smoother=p.amg_smoother)
             elif p.preconditioner == "Jacobi":
-                self.preconditioner = PreconditionerJacobi(self.op)
-            else:
+                self.preconditioner = PreconditionerJacobi(op_mf)
+            elif p.preconditioner == "identity":
                 self.preconditioner = PreconditionerIdentity()
+            else:
+                raise ValueError(
+                    f"unknown preconditioner {p.preconditioner}")
 
         # ---- linear solver -------------------------------------------------
         if p.linear_solver == "GMRES":
@@ -313,8 +332,16 @@ class Driver:
                 p.lin_n_max_iterations, p.lin_absolute_tolerance,
                 p.lin_relative_tolerance, logger=self.log,
             )
-        else:
+        elif p.linear_solver == "Richardson":
+            self.linear_solver = LinearSolverRichardson(
+                self.op, self.preconditioner,
+                p.lin_n_max_iterations, p.lin_absolute_tolerance,
+                p.lin_relative_tolerance, logger=self.log,
+            )
+        elif p.linear_solver == "direct":
             self.linear_solver = LinearSolverDirect(self.op, logger=self.log)
+        else:
+            raise ValueError(f"unknown linear solver {p.linear_solver}")
 
         # ---- nonlinear solver ----------------------------------------------
         nl = make_nonlinear_solver(p.nonlinear_solver, p.newton_inexact,
@@ -324,6 +351,7 @@ class Driver:
         nl.logger = self.log
         nl.setup_jacobian = self._setup_jacobian
         nl.setup_preconditioner = self._setup_preconditioner
+        nl.evaluate_rhs = self.op.evaluate_rhs
         nl.evaluate_residual = self.op.evaluate_residual
         nl.solve_with_jacobian = self._solve_with_jacobian
         self.nonlinear_solver = nl
@@ -620,11 +648,27 @@ class Driver:
         self._counter0 = int(counter)
         self._restarted = True
 
-    def run(self, max_steps: int = 10**9):
+    def run(self, max_steps: int = 10**9, resume: bool = False):
+        """The time loop up to ``t final`` or cycle ``max_steps``; with
+        ``resume``, first restore the last checkpoint of ``checkpoint
+        prefix`` (its time and next cycle, and the output and checkpoint
+        counters that follow from that time)."""
         p = self.params
         if not getattr(self, "_setup_done", False):
             self.setup()
             self._setup_done = True
+        if resume:
+            from ns_gls_tpu_torch.utils.checkpoint import load_checkpoint
+
+            if not p.checkpoint_prefix:
+                raise ValueError("resume requested but no 'checkpoint prefix'")
+            t, counter = load_checkpoint(p.checkpoint_prefix, self)
+            if p.output_granularity > 0:
+                self._output_counter = int(t / p.output_granularity) + 1
+            self._checkpoint_counter = (
+                int(t / p.checkpoint_granularity) + 1
+                if p.checkpoint_granularity > 0 else 0)
+            self.log(f"    [C] resumed from t = {t:.6g} (cycle {counter})")
         t = self._t0
         counter = self._counter0
         min_dx = self.mesh.minimal_cell_diameter()
@@ -682,6 +726,7 @@ class Driver:
                 if rec:
                     records.append(rec)
                 counter += 1
+                self._checkpoint(t, counter)
             self.step_stats.append(dict(
                 newton=self.nonlinear_solver.last_iterations,
                 newton_residual=self.nonlinear_solver.last_residual,
@@ -694,8 +739,27 @@ class Driver:
         return records
 
     # ------------------------------------------------------------------
-    _output_counter = 0
+    def _checkpoint(self, t, counter, force=False):
+        """Honor 'checkpoint prefix' / 'checkpoint granularity': a rolling
+        save of the solution history and the integrator's step sizes,
+        restorable with ``run(resume=True)``."""
+        p = self.params
+        if not p.checkpoint_prefix:
+            return
+        if p.checkpoint_granularity > 0 and not force:
+            if (t + 1e-15) < (self._checkpoint_counter
+                              * p.checkpoint_granularity):
+                return
+        elif not force:
+            return  # prefix set but granularity 0: checkpoint only on demand
+        from ns_gls_tpu_torch.utils.checkpoint import save_checkpoint
 
+        with timer("postprocess::checkpoint"):
+            save_checkpoint(p.checkpoint_prefix, self, t=t, counter=counter)
+        self.log(f"    [C] checkpoint saved (t = {t:.6g})")
+        self._checkpoint_counter += 1
+
+    # ------------------------------------------------------------------
     def _output(self, t, force=False):
         p = self.params
         if p.output_granularity <= 0 and not force:

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ns_gls_tpu_torch.utils.segment import class_sum, fixed_scatter
+
 
 class ConstraintArrays(NamedTuple):
     """Closed constraints as tensors."""
@@ -179,11 +181,15 @@ def condense_transpose(ca: ConstraintArrays, r: torch.Tensor) -> torch.Tensor:
         return r
     rf = r.reshape(-1).clone()
     vals = rf[ca.rows]
-    # in place on the clone
-    rf.index_add_(
-        0, ca.cols.reshape(-1),
-        (ca.weights * vals[:, None]).reshape(-1).to(rf.dtype),
-    )
+    src = (ca.weights * vals[:, None]).reshape(-1).to(rf.dtype)
+    # in place on the clone; on the card by fixed-order class sums
+    # (``index_add_`` there sums with atomics in a varying order)
+    if rf.is_cuda:
+        fs = fixed_scatter(ca.cols, ca.weights)
+        if fs.gather is not None:
+            rf[fs.targets] += class_sum(fs.gather, src)
+    else:
+        rf.index_add_(0, ca.cols.reshape(-1), src)
     rf[ca.rows] = 0.0
     return rf.reshape(r.shape)
 

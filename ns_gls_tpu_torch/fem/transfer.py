@@ -24,6 +24,7 @@ import torch
 
 from ns_gls_tpu_torch.fem.element import embedding_matrix, tabulate_at
 from ns_gls_tpu_torch.fem.space import FESpace
+from ns_gls_tpu_torch.utils.segment import class_sum, fixed_scatter
 
 
 class TwoLevelTransfer(NamedTuple):
@@ -144,6 +145,14 @@ def restrict(t: TwoLevelTransfer, r_f: torch.Tensor) -> torch.Tensor:
     basis function, in the order of the JAX reference."""
     out = r_f.new_zeros((t.n_coarse, r_f.shape[1]))
     w = t.p_wts.to(r_f.dtype)
+    if r_f.is_cuda:
+        # fixed-order class sums (``index_add_`` on the card sums with
+        # atomics in an order that changes from run to run)
+        fs = fixed_scatter(t.p_cols, t.p_wts)
+        src = (r_f[:, None, :] * w[:, :, None]).reshape(-1, r_f.shape[1])
+        if fs.gather is not None:
+            out[fs.targets] = class_sum(fs.gather, src)
+        return out
     for k in range(t.p_cols.shape[1]):
         # in place on the fresh output
         out.index_add_(0, t.p_cols[:, k], r_f * w[:, k: k + 1])

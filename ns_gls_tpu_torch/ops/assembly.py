@@ -182,3 +182,37 @@ def assemble_dense(op: NavierStokesOperator) -> torch.Tensor:
         A[rows, :] = 0.0
         A[rows, rows] = 1.0
     return A
+
+
+def constrained_matrix(op: NavierStokesOperator, emat: torch.Tensor,
+                       fmt: str = "csr"):
+    """The operator's matrix on the host (scipy, f64) from its element
+    matrices ``emat`` (n_c, n_loc*C, n_loc*C), constrained rows and
+    columns zeroed with ones on their diagonal (the JAX package's
+    Dirichlet-style condensation of its AMG and ILU); with the (row, col)
+    of every element entry and the mask of unconstrained dofs.  ``fmt``:
+    the sparse format the entries are summed into first, as each JAX
+    caller does ("csr" its AMG, "csc" its ILU; the two sum duplicates in
+    other orders, and SuperLU's incomplete factors follow the bits)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    C = op.n_comp
+    emat = emat.detach().cpu().numpy().astype(np.float64)
+    gdofs = (
+        op.space.cell_nodes.astype(np.int64)[:, :, None] * C
+        + np.arange(C)[None, None, :]
+    ).reshape(len(emat), -1)
+    nl = gdofs.shape[1]
+    rows = np.repeat(gdofs, nl, axis=1).reshape(-1)
+    cols = np.tile(gdofs, (1, nl)).reshape(-1)
+    n = op.n_nodes * C
+    A = sp.coo_matrix((emat.reshape(-1), (rows, cols)),
+                      shape=(n, n)).asformat(fmt)
+    ca = op.constraints_homogeneous
+    mask = np.ones(n, dtype=bool)
+    if ca.n:
+        mask[ca.rows.cpu().numpy()] = False
+        D = sp.diags(mask.astype(np.float64))
+        A = D @ A @ D + sp.diags((~mask).astype(np.float64))
+    return A, rows, cols, mask

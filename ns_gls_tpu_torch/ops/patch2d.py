@@ -45,7 +45,7 @@ range of one tile buffer, and then one seam-sum launch over the whole
 buffer (:class:`Patch2DFamilies`, the JAX package's
 ``Patch2DTablesAdaptive``): n_families + 1 launches.
 
-Supported: dim 2, any degree (the kernel: 1-4), any m, curved cells,
+Supported: dim 2, any degree (the kernel: 1-6), any m, curved cells,
 BDF/stationary (theta = 1), cell- or q-wise stabilization,
 fixed/increment/residual flavors, f32, one or several patch families.
 The operator uses the general sweep for anything else.
@@ -122,7 +122,7 @@ def smem_bytes(P: int, xb: int, ys: int, yc: int, flavor: str,
 
 def _plan_ok(P: int, xb: int, ys: int) -> bool:
     """The launcher's limits: I1 columns and E2 passes per thread."""
-    cpw = 32 // (P + 1) ** 2
+    cpw = max(1, 32 // (P + 1) ** 2)
     return (3 * (P * xb + 1) <= MAX_COLS * THREADS
             and -(-ys * xb // cpw) <= MAX_PASSES * (THREADS // 32))
 

@@ -40,7 +40,7 @@ arithmetic with dense 1D band matrices) for tensors on the CPU;
 :func:`prism_plan` splits the work into the kernel's thread blocks when
 the tables are built.
 
-Supported: dim 3, degrees 1-4 (the kernel's; the tables refuse others),
+Supported: dim 3, degrees 1-6 (the kernel's; the tables refuse others),
 any m, curved (prismatic) cells, BDF/stationary (theta = 1), cell- or
 q-wise stabilization, fixed/increment/residual flavors, f32.  The
 operator uses the general sweep for anything else.

@@ -43,7 +43,7 @@ stacked schedules, the bf16-split precision modes and the diagonal- and
 uniform-geometry compile-time variants.  The port is exact f32 with the
 full per-cell ``jinv``.
 
-Supported: dim 2/3, degrees 1-4 (every fused kernel's; the tables refuse
+Supported: dim 2/3, degrees 1-6 (every fused kernel's; the tables refuse
 others, :func:`check_degree`), affine cells, BDF/stationary (theta = 1),
 cell- or q-wise stabilization, fixed-point / Newton-increment / residual
 flavors, f32.  The operator uses another sweep for anything else.
@@ -60,8 +60,11 @@ import torch
 
 FLAVORS = ("fixed", "increment", "residual")
 # the degrees every fused CUDA kernel of the port is built for (template
-# instances); the JAX package's Pallas kernels have no such limit
-KERNEL_DEGREES = (1, 2, 3, 4)
+# instances); the JAX package's Pallas kernels have no such limit.  Six is
+# where deal.II's precompiled matrix-free evaluators stop by default
+# (FE_EVAL_FACTORY_DEGREE_MAX), so the reference's own fast path has the
+# same cut
+KERNEL_DEGREES = (1, 2, 3, 4, 5, 6)
 
 
 def check_degree(kernel: str, P: int):
@@ -473,11 +476,14 @@ class SlabPlan2D(NamedTuple):
 
 
 # per degree: brick shapes (cells along x, cell rows per slab) of 1-4 passes
-# of the kernel's E2 stage (a warp takes 32 // (P+1)^2 cells a pass)
+# of the kernel's E2 stage (a warp takes 32 // (P+1)^2 cells a pass, one
+# cell above 32 q-points)
 SLABS_2D = {1: ((32, 8), (16, 8), (64, 2), (16, 4)),
             2: ((12, 8), (24, 4), (16, 6), (12, 4), (8, 3)),
             3: ((12, 4), (16, 2), (8, 4), (8, 2)),
-            4: ((8, 4), (16, 2), (8, 2), (4, 2))}
+            4: ((8, 4), (16, 2), (8, 2), (4, 2)),
+            5: ((8, 2), (4, 4), (4, 2), (8, 1)),
+            6: ((8, 1), (4, 2), (4, 1))}
 # blocks of the 2D kernel resident at once on an H100: two per SM
 WAVE_2D = 2 * 132
 # the shared memory per block the plans stay within: two blocks per SM

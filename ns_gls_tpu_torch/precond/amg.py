@@ -1,4 +1,4 @@
-"""Algebraic multigrid preconditioner (aggregation-based), Jacobi mode.
+"""Algebraic multigrid preconditioner (aggregation-based).
 
 Port of ``ns_gls_tpu/precond/amg.py`` (the JAX package's stand-in for the
 reference's Trilinos ML-AMG, ``preconditioner.cc:38-77``; coarse-solver
@@ -16,11 +16,19 @@ zoo ``multigrid.cc:372-433``):
 - apply on the device: a V-cycle with damped Jacobi smoothing (Gershgorin
   damping) on padded-ELL level matrices; level 0 applies the operator
   itself instead of its matrix (the unaggregated Q2 level would gather
-  hundreds of entries per row, and the linearization stays current).
+  hundreds of entries per row, and the linearization stays current),
+- "amg smoother": "ilu" (the reference's ML-AMG smooths with Ifpack ILU,
+  ``preconditioner.cc:49-77``): every setup also assembles each stored
+  level's matrix on the host, factors it with SuperLU's ILU (scipy) and
+  takes the factors to the device as padded-ELL strict triangles, the
+  inverted U diagonal and the two permutations; a smoothing step applies
+  them with ``ILU_SWEEPS`` Jacobi-style sweeps a triangle (iterative
+  triangular solves, parallel on the device, as the JAX package's
+  ``ilu_apply`` runs them).
 
 Every sum over a fixed map (assembly, Galerkin products, restriction)
 goes through ``utils/segment.py``, so two setups or applies on the same
-inputs give the same bits on the card.  The ILU smoother is not ported.
+inputs give the same bits on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ from ns_gls_tpu_torch.utils.segment import class_gather, class_sum
 
 # aggregation levels at most (the JAX package's default ``max_levels``)
 MAX_LEVELS = 10
+# sweeps a triangular solve of the ILU smoother (the JAX package's
+# ``ilu_sweeps``)
+ILU_SWEEPS = 3
 
 
 class AMGLevel(NamedTuple):
@@ -42,6 +53,78 @@ class AMGLevel(NamedTuple):
     inv_diag: torch.Tensor   # (n,)
     omega: torch.Tensor      # ()
     agg: torch.Tensor        # (n,) int64 aggregate dof of each dof (next level)
+
+
+class ILUFactors(NamedTuple):
+    """SuperLU's incomplete factors of a level matrix, on the device: the
+    apply is ``x = (U^-1 L^-1 r[ipr])[pc]``."""
+
+    l_cols: torch.Tensor     # (n, kl) strict lower L, padded ELL
+    l_vals: torch.Tensor
+    u_cols: torch.Tensor     # (n, ku) strict upper U, padded ELL
+    u_vals: torch.Tensor
+    udi: torch.Tensor        # (n,) 1 / diag(U)
+    ipr: torch.Tensor        # (n,) inverse row permutation
+    pc: torch.Tensor         # (n,) column permutation
+
+
+def _to_ell(A, dtype, device):
+    """A scipy matrix as padded ELL (each row's columns in CSR order,
+    padded with the row index and value 0)."""
+    A = A.tocsr()
+    A.sum_duplicates()
+    n = A.shape[0]
+    counts = np.diff(A.indptr)
+    k = max(int(counts.max()), 1)
+    row_of = np.repeat(np.arange(n), counts)
+    pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
+    cols = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, k))
+    vals = np.zeros((n, k))
+    cols[row_of, pos] = A.indices
+    vals[row_of, pos] = A.data
+    return (torch.as_tensor(cols, device=device),
+            torch.as_tensor(vals, dtype=dtype, device=device))
+
+
+def ilu_factors(A, dtype, device) -> ILUFactors:
+    """SuperLU's incomplete factors of the level matrix ``A`` (scipy;
+    ``drop_tol=1e-5``, ``fill_factor=3``) in device form (the JAX
+    package's ``_ilu_factors``)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    ilu = spla.spilu(A.tocsc(), drop_tol=1e-5, fill_factor=3.0)
+    n = A.shape[0]
+    Ls = (ilu.L.tocsr() - sp.eye(n)).tocsr()
+    Ls.eliminate_zeros()
+    U = ilu.U.tocsr()
+    ud = U.diagonal()
+    Us = (U - sp.diags(ud)).tocsr()
+    Us.eliminate_zeros()
+    ipr = np.empty(n, np.int64)
+    ipr[ilu.perm_r] = np.arange(n)
+    udi = np.where(np.abs(ud) > 1e-300, 1.0 / ud, 1.0)
+    return ILUFactors(
+        *_to_ell(Ls, dtype, device), *_to_ell(Us, dtype, device),
+        torch.as_tensor(udi, dtype=dtype, device=device),
+        torch.as_tensor(ipr, device=device),
+        torch.as_tensor(ilu.perm_c.astype(np.int64), device=device),
+    )
+
+
+def ilu_apply(f: ILUFactors, r: torch.Tensor,
+              sweeps: int = ILU_SWEEPS) -> torch.Tensor:
+    """x ~= A^-1 r from the incomplete factors; the two triangular solves
+    run as ``sweeps`` Jacobi-style sweeps each (approximate, as the
+    reference's Ifpack ILU smoother is incomplete)."""
+    rp = r[f.ipr]
+    y = rp
+    for _ in range(sweeps):
+        y = rp - (f.l_vals * y[f.l_cols]).sum(dim=1)
+    z = y * f.udi
+    for _ in range(sweeps):
+        z = (y - (f.u_vals * z[f.u_cols]).sum(dim=1)) * f.udi
+    return z[f.pc]
 
 
 def _strength_aggregates(A, theta=0.08):
@@ -102,10 +185,11 @@ class PreconditionerAMG:
 
     def __init__(self, op, max_coarse: int = 500, n_smooth: int = 2,
                  theta: float = 0.08, smoother: str = "jacobi"):
-        if smoother != "jacobi":
-            raise NotImplementedError(
-                f"AMG smoother '{smoother}' is not ported yet (jacobi is)"
-            )
+        if smoother not in ("jacobi", "ilu"):
+            raise ValueError(f"unknown AMG smoother '{smoother}'")
+        self.smoother = smoother
+        # per stored level, its ILU factors ("ilu" smoother)
+        self.ilu = None
         self.op = op
         self.n_comp = op.n_comp
         self.max_coarse = max_coarse
@@ -124,27 +208,13 @@ class PreconditionerAMG:
         aggregates and builds the refresh maps (JAX ``initialize``)."""
         import scipy.sparse as sp
 
-        op = self.op
-        C = self.n_comp
-        emat = emat.detach().cpu().numpy().astype(np.float64)
-        gdofs = (
-            op.space.cell_nodes.astype(np.int64)[:, :, None] * C
-            + np.arange(C)[None, None, :]
-        ).reshape(len(emat), -1)
-        nl = gdofs.shape[1]
-        rows = np.repeat(gdofs, nl, axis=1).reshape(-1)
-        cols = np.tile(gdofs, (1, nl)).reshape(-1)
-        n = op.n_nodes * C
-        A = sp.coo_matrix((emat.reshape(-1), (rows, cols)),
-                          shape=(n, n)).tocsr()
-        # constraint rows/cols -> identity (Dirichlet-style condensation)
-        ca = op.constraints_homogeneous
-        mask = np.ones(n, dtype=bool)
-        if ca.n:
-            mask[ca.rows.cpu().numpy()] = False
-            D = sp.diags(mask.astype(np.float64))
-            A = D @ A @ D + sp.diags((~mask).astype(np.float64))
+        from ns_gls_tpu_torch.ops.assembly import constrained_matrix
 
+        C = self.n_comp
+        # constraint rows/cols -> identity (Dirichlet-style condensation)
+        A, rows, cols, mask = constrained_matrix(self.op, emat)
+        n = A.shape[0]
+        A0 = A
         frozen_aggs = []
         for _ in range(MAX_LEVELS):
             if A.shape[0] <= self.max_coarse * C:
@@ -173,6 +243,27 @@ class PreconditionerAMG:
             A = (Pm.T @ A @ Pm).tocsr()
         self._frozen_aggs = frozen_aggs
         self._build_maps(rows, cols, mask, n)
+        if self.smoother == "ilu":
+            self._ilu_levels(A0)
+
+    def _ilu_levels(self, A0):
+        """ILU factors of every stored level: the constrained matrix
+        ``A0`` (scipy) and its Galerkin products over the frozen
+        aggregates, factored on the host."""
+        import scipy.sparse as sp
+
+        dtype = self.op.dtype
+        dev = self.op.device
+        A = A0.tocsr()
+        ilu = []
+        for agg_dofs, n_agg in self._frozen_aggs:
+            ilu.append(ilu_factors(A, dtype, dev))
+            Pm = sp.coo_matrix(
+                (np.ones(A.shape[0]), (np.arange(A.shape[0]), agg_dofs)),
+                shape=(A.shape[0], n_agg * self.n_comp),
+            ).tocsr()
+            A = (Pm.T @ A @ Pm).tocsr()
+        self.ilu = tuple(ilu)
 
     def _build_maps(self, rows_e, cols_e, mask, n):
         """The slot-map chain of the refresh: element-matrix entries ->
@@ -277,6 +368,10 @@ class PreconditionerAMG:
         emat = element_matrices(self.op)
         if self._maps is None:
             self._host_build(emat)
+        elif self.smoother == "ilu":
+            from ns_gls_tpu_torch.ops.assembly import constrained_matrix
+
+            self._ilu_levels(constrained_matrix(self.op, emat)[0])
         self.refresh(emat)
 
     # ------------------------------------------------------------------
@@ -291,7 +386,11 @@ class PreconditionerAMG:
     def _smooth(self, k, x, b):
         lvl = self.levels[k]
         for _ in range(self.n_smooth):
-            x = x + lvl.omega * lvl.inv_diag * (b - self._apply_level(k, x))
+            r = b - self._apply_level(k, x)
+            if self.ilu is not None:
+                x = x + ilu_apply(self.ilu[k], r)
+            else:
+                x = x + lvl.omega * lvl.inv_diag * r
         return x
 
     def _lu_solve(self, r):

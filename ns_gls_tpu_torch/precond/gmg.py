@@ -11,7 +11,9 @@ setup ``main.cc:396-568``):
 - coarse solver: dense LU in f64 ("direct" on coarse levels of at most
   8000 DoFs, replaces Trilinos SolverDirect), aggregation AMG
   (``precond/amg.py``; "AMG", or "direct" on larger coarse levels, the
-  reference's coarse AMG ``multigrid.cc:372-433``) or "identity",
+  reference's coarse AMG ``multigrid.cc:372-433``), SuperLU's ILU on the
+  host ("ILU", ``precond/ilu.py``; the reference's Trilinos ILU coarse
+  solver ``multigrid.cc:435-460``) or "identity",
   optionally iterated by GMRES on the coarse level operator
   (``multigrid.cc:490-532``); the float<->double shim of
   ``multigrid.cc:113-136`` becomes dtype casts around the coarse solve.
@@ -51,11 +53,9 @@ class PreconditionerGMG:
         coarse_amg_default_parameters: bool = True,
         logger=None,
     ):
-        if coarse_grid_solver not in ("direct", "AMG", "identity"):
-            raise NotImplementedError(
-                f"GMG coarse grid solver '{coarse_grid_solver}' is not "
-                "ported yet (direct, AMG and identity are)"
-            )
+        if coarse_grid_solver not in ("direct", "AMG", "ILU", "identity"):
+            raise ValueError(
+                f"unknown GMG coarse grid solver '{coarse_grid_solver}'")
         self.level_ops = level_ops
         self.transfers = tuple(transfers)
         self.mg_dtype = mg_dtype
@@ -81,6 +81,7 @@ class PreconditionerGMG:
         self.omegas = None
         self.coarse_lu = None
         self.coarse_amg = None
+        self.coarse_ilu = None
 
     # ------------------------------------------------------------------
     def _estimate_omega(self, level: int, inv_diag):
@@ -127,7 +128,15 @@ class PreconditionerGMG:
         self.coarse_lu = None
         op0 = self.level_ops[0]
         n_coarse = op0.n_nodes * op0.n_comp
-        if self.coarse_grid_solver == "direct" and n_coarse <= 8000:
+        if self.coarse_grid_solver == "ILU":
+            # SuperLU's ILU of the assembled coarse matrix, on the host
+            from ns_gls_tpu_torch.precond.ilu import PreconditionerILU
+
+            if self.coarse_ilu is None:
+                self.coarse_ilu = PreconditionerILU(op0)
+            with timer("mg_init::coarse_ilu"):
+                self.coarse_ilu.initialize()
+        elif self.coarse_grid_solver == "direct" and n_coarse <= 8000:
             with timer("mg_init::coarse_lu"):
                 A = assemble_dense(op0)
                 self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))
@@ -155,10 +164,12 @@ class PreconditionerGMG:
 
     # ------------------------------------------------------------------
     def _coarse_apply(self, r):
-        """One application of the coarse preconditioner (dense LU or an
-        AMG V-cycle)."""
+        """One application of the coarse preconditioner (dense LU, an AMG
+        V-cycle or the host ILU solve)."""
         if self.coarse_grid_solver == "identity":
             return r
+        if self.coarse_ilu is not None:
+            return self.coarse_ilu.vmult(r)
         if self.coarse_lu is None:
             return self.coarse_amg.vmult(r)
         lu, piv = self.coarse_lu

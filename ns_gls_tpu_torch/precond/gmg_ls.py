@@ -111,8 +111,8 @@ class PreconditionerGMGLS(PreconditionerGMG):
     def initialize(self):
         """Smoother state (inverse diagonals, relaxation factors) of every
         level above the coarse one, and the coarse solver: a dense LU in
-        f64 ("direct"), or aggregation AMG with a matrix-free level 0 and
-        the JAX package's parameters ("AMG")."""
+        f64 ("direct" and "ILU"), or aggregation AMG with a matrix-free
+        level 0 and the JAX package's parameters ("AMG")."""
         from ns_gls_tpu_torch.ops.assembly import (
             assemble_dense,
             compute_inverse_diagonal,
@@ -138,7 +138,10 @@ class PreconditionerGMGLS(PreconditionerGMG):
                     op0, theta=0.02, n_smooth=3, max_coarse=1000)
             with timer("mg_ls_init::coarse_amg"):
                 self.coarse_amg.initialize()
-        elif self.coarse_grid_solver == "direct":
+        elif self.coarse_grid_solver != "identity":
+            # "direct", and "ILU" as well: the JAX package's local-smoothing
+            # cycle factors its coarse level densely for any solver but
+            # AMG and identity
             with timer("mg_ls_init::coarse_lu"):
                 A = assemble_dense(op0)
                 self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))

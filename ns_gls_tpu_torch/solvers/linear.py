@@ -1,15 +1,19 @@
-"""Linear solvers: right-preconditioned restarted GMRES and a dense direct
-solver (reference ``solver_l.cc``):
+"""Linear solvers: right-preconditioned restarted GMRES, Richardson and a
+dense direct solver (reference ``solver_l.cc``):
 
 - GMRES: restart basis 30, right preconditioning, Givens-rotation residual
   tracking, tolerance max(rtol*||b||, abs)  (``solver_l.cc:46-74``),
+- Richardson: x += M (b - A x)  (``solver_l.cc:97-120``),
 - direct: dense LU of the assembled matrix — replaces Trilinos
   SolverDirect (``solver_l.cc:6-24``) on small problems.
 
 Operators and preconditioners enter as callables on tensors shaped like
 the right-hand side.  The loops run eagerly on the host; each Arnoldi
 step reads one scalar (the Givens residual estimate) to decide whether to
-go on.
+go on.  The JAX package's ``gmres_fixed`` (a loop of a static length, which
+it takes only on a TPU backend) is not ported: the port's multigrid
+coarse solve iterates with ``gmres`` everywhere, as the JAX package does
+off the TPU.
 """
 
 from __future__ import annotations
@@ -133,6 +137,24 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     return SolveResult(x.reshape(shape), total_it)
 
 
+def richardson(A: Callable, b: torch.Tensor, x0: torch.Tensor,
+               M: Callable = _identity, tol=1e-12,
+               max_iter: int = 1000) -> SolveResult:
+    """Preconditioned Richardson: x += M (b - A x) while the residual norm
+    of the iterate before the update exceeds ``tol``, at most
+    ``max_iter`` updates (``solver_l.cc:97-120``)."""
+    tol = float(tol)
+    x = x0
+    it = 0
+    res = float(torch.linalg.vector_norm((b - A(x0)).reshape(-1)))
+    while res > tol and it < max_iter:
+        r = b - A(x)
+        x = x + M(r)
+        it += 1
+        res = float(torch.linalg.vector_norm(r.reshape(-1)))
+    return SolveResult(x, it)
+
+
 # --------------------------------------------------------------------------
 # object layer (reference ``solver_l.h:17-27`` contract)
 # --------------------------------------------------------------------------
@@ -158,6 +180,33 @@ class LinearSolverGMRES:
                     M=self.preconditioner.vmult, tol=tol,
                     restart=self.restart,
                     max_restarts=max(1, self.n_max_iterations // self.restart))
+        self.last_iterations = res.iterations
+        if self.logger:
+            self.logger(f"    [L] solved in {res.iterations} iterations.")
+        return res.x
+
+
+class LinearSolverRichardson:
+    def __init__(self, op, preconditioner, n_max_iterations=10000,
+                 absolute_tolerance=1e-12, relative_tolerance=1e-8,
+                 logger=None):
+        self.op = op
+        self.preconditioner = preconditioner
+        self.n_max_iterations = n_max_iterations
+        self.abs_tol = absolute_tolerance
+        self.rel_tol = relative_tolerance
+        self.logger = logger
+        self.last_iterations = 0
+
+    def initialize(self):
+        pass
+
+    def solve(self, b):
+        tol = max(self.rel_tol * float(torch.linalg.vector_norm(
+            b.reshape(-1))), self.abs_tol)
+        res = richardson(self.op.vmult, b, torch.zeros_like(b),
+                         M=self.preconditioner.vmult, tol=tol,
+                         max_iter=self.n_max_iterations)
         self.last_iterations = res.iterations
         if self.logger:
             self.logger(f"    [L] solved in {res.iterations} iterations.")

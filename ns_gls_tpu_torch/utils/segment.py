@@ -91,6 +91,47 @@ def target_sums(target: np.ndarray, device) -> TargetSums:
                       torch.as_tensor(uniq, device=device))
 
 
+class FixedScatter(NamedTuple):
+    """A scatter-add over a fixed map as class sums: the sum of the
+    sources of every target in ``targets`` (``gather`` over the flat
+    source positions); no targets when nothing is scattered."""
+
+    gather: Optional[ClassGather]
+    targets: torch.Tensor
+
+
+# index tensor id -> (weak reference to it, its FixedScatter)
+_FIXED_SCATTERS: dict = {}
+
+
+def fixed_scatter(index: torch.Tensor,
+                  weights: torch.Tensor) -> FixedScatter:
+    """The class-sum tables of ``out[index[i, k]] += weights[i, k] * ...``
+    over the entries of nonzero weight (the others add exactly zero),
+    built once for the index tensor (a map that stays fixed: a transfer's
+    or a constraint set's) and cached on it.  On the card this replaces
+    ``index_add_``, whose atomics sum in an order that changes from run to
+    run."""
+    import weakref
+
+    key = id(index)
+    hit = _FIXED_SCATTERS.get(key)
+    if hit is not None and hit[0]() is index:
+        return hit[1]
+    idx = index.reshape(-1).cpu().numpy()
+    sel = np.nonzero(weights.reshape(-1).cpu().numpy() != 0)[0]
+    if len(sel) == 0:
+        fs = FixedScatter(None, index.new_zeros(0))
+    else:
+        ts = target_sums(idx[sel], index.device)
+        sel_t = torch.as_tensor(sel, device=index.device)
+        fs = FixedScatter(
+            ClassGather(tuple(sel_t[c] for c in ts.gather.classes),
+                        ts.gather.perm), ts.targets)
+    _FIXED_SCATTERS[key] = (weakref.ref(index), fs)
+    return fs
+
+
 # ---------------------------------------------------------------------------
 # seam sums: one launch over a CSR table (csrc/seam_sum.cu)
 # ---------------------------------------------------------------------------

@@ -216,7 +216,8 @@ def test_refresh_equals_host_galerkin_chain():
 def test_gmg_coarse_picks_amg_above_8000_dofs():
     """"direct" keeps the dense LU up to 8000 coarse DoFs and switches to
     AMG (matrix-free level 0) above, as the JAX package does; "AMG" asks
-    for it at any size, and the ILU smoother is not taken silently."""
+    for it at any size; the AMG takes the ILU smoother (since it was
+    ported) and refuses a smoother it does not know."""
     from ns_gls_tpu_torch.precond.gmg import PreconditionerGMG
 
     _, big, rng = _ops(n_refine=2, dtype_t=torch.float32)
@@ -241,5 +242,6 @@ def test_gmg_coarse_picks_amg_above_8000_dofs():
         g.initialize()
         assert (g.coarse_lu is not None) == lu
         assert (g.coarse_amg is None) == lu
-    with pytest.raises(NotImplementedError):
-        TAMG(small, smoother="ilu")
+    assert TAMG(small, smoother="ilu").smoother == "ilu"
+    with pytest.raises(ValueError):
+        TAMG(small, smoother="gauss-seidel")

@@ -37,6 +37,9 @@ def test_import_loads_no_jax():
         "import ns_gls_tpu_torch.models.rotation\n"
         "import ns_gls_tpu_torch.precond.gmg_ls\n"
         "import ns_gls_tpu_torch.utils.roofline\n"
+        "import ns_gls_tpu_torch.ops.matrix_based\n"
+        "import ns_gls_tpu_torch.precond.ilu, ns_gls_tpu_torch.precond.amg\n"
+        "import ns_gls_tpu_torch.utils.checkpoint\n"
         "import bench_gpu, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'ns_gls_tpu' "
@@ -81,19 +84,53 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 def test_unported_configuration_raises():
+    """What the port does not cover yet: sharding (``n devices`` > 1)
+    raises when the driver is made; a degree above the fused kernels'
+    (1-6) raises when an f32 level's tables are built."""
     from ns_gls_tpu_torch.config import Parameters
     from ns_gls_tpu_torch.driver import Driver
 
-    for key, value in (("preconditioner", "AMG"),
-                       ("nonlinear solver", "Picard"),
-                       ("n devices", 2),
-                       ("gmg coarse grid solver", "ILU")):
-        params = Parameters.from_dict({"preconditioner": "GMG",
-                                       "nonlinear solver": "Newton",
-                                       "gmg coarse grid solver": "direct",
-                                       key: value})
-        with pytest.raises(NotImplementedError):
-            Driver(params, device="cpu")
+    params = Parameters.from_dict({"preconditioner": "GMG",
+                                   "nonlinear solver": "Newton",
+                                   "gmg coarse grid solver": "direct",
+                                   "n devices": 2})
+    with pytest.raises(NotImplementedError):
+        Driver(params, device="cpu")
+    with open(os.path.join(ROOT, "input", "channel.json")) as f:
+        raw = json.load(f)
+    params = Parameters.from_dict(raw | {"fe degree": 7,
+                                         "n global refinements": 1,
+                                         "output granularity": 0.0})
+    drv = Driver(params, device="cpu")
+    with pytest.raises(ValueError, match="degrees 1-6, not 7"):
+        drv.setup()
+
+
+# every configuration key this slice ported, with a value that selects it
+SOLVER_OPTIONS = (
+    {"preconditioner": "ILU"},
+    {"preconditioner": "AMG"},
+    {"preconditioner": "AMG", "amg smoother": "ilu"},
+    {"linear solver": "Richardson"},
+    {"nonlinear solver": "Picard"},
+    {"nonlinear solver": "linearized"},
+    {"gmg coarse grid solver": "ILU"},
+    {"use matrix free ns operator": False, "nonlinear solver": "Picard"},
+    {"checkpoint prefix": "ckpt", "checkpoint granularity": 0.1},
+)
+
+
+@pytest.mark.parametrize("option", SOLVER_OPTIONS,
+                         ids=lambda o: "-".join(map(str, o.values())))
+def test_every_solver_option_is_ported(option):
+    """A driver builds with each solver-stack option on the CPU."""
+    from ns_gls_tpu_torch.config import Parameters
+    from ns_gls_tpu_torch.driver import Driver, _unsupported
+
+    params = Parameters.from_dict({"simulation name": "channel",
+                                   "n global refinements": 0} | option)
+    assert _unsupported(params) == []
+    Driver(params, device="cpu")
 
 
 def test_every_input_config_is_ported():

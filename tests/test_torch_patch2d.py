@@ -161,7 +161,7 @@ def test_plain_patch2d_vs_pallas_degrees(degree, n_ref, increment,
     _close(opt.evaluate_residual(torch.as_tensor(u)).numpy(), ref_r)
 
 
-@pytest.mark.parametrize("P", [1, 2, 3, 4])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 6])
 def test_patch2d_plan_covers_every_cell_row_once(P):
     """The CUDA kernel's split (``ops/patch2d.py`` ``patch2d_plan``: one
     block per patch, x brick and y chunk, walking slabs of cell rows) at
@@ -193,8 +193,8 @@ def test_patch2d_plan_covers_every_cell_row_once(P):
 def test_patch2d_plan_refuses_other_degrees():
     """A degree the kernel has no specialization for is refused with a
     clear message when the plan is made, before any launch."""
-    for P in (0, 5):
-        with pytest.raises(ValueError, match="degrees 1-4"):
+    for P in (0, 7):
+        with pytest.raises(ValueError, match="degrees 1-6"):
             tp2.patch2d_plan(P, 8, 88)
 
 

@@ -286,9 +286,11 @@ def test_patch3d_bricks_match_whole_rows():
 @pytest.mark.parametrize("kind", ["patch3d", "prism", "patch2d",
                                   "structured"])
 def test_degree_5_raises_at_table_build(kind):
-    """The port's kernels are built for degrees 1-4; an f32 operator of
-    degree 5 on any fused-sweep space raises when its tables are built,
-    before any launch, naming that limit (on the CPU too)."""
+    """The port's kernels are built for degrees 1-6 (degree 5 was the
+    first refused degree before they gained 5 and 6, hence the name); an
+    f32 operator of degree 7 on any fused-sweep space raises when its
+    tables are built, before any launch, naming that limit (on the CPU
+    too)."""
     from ns_gls_tpu_torch.models.channel import SimulationChannel
 
     if kind == "patch3d":
@@ -303,10 +305,10 @@ def test_degree_5_raises_at_table_build(kind):
         mesh.lattice = None
     else:
         mesh = SimulationChannel(2).create_mesh(-2)
-    space = TSpace(mesh, 5)
+    space = TSpace(mesh, 7)
     ti = TBDF(1)
     ti.update_dt(0.1)
     ca = TAff(space.n_nodes, space.dim + 1).close(F32, "cpu")
-    with pytest.raises(ValueError, match="degrees 1-4, not 5"):
+    with pytest.raises(ValueError, match="degrees 1-6, not 7"):
         TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
             dtype=F32, device="cpu")

@@ -52,9 +52,9 @@ TOL = 5e-6
 F32 = torch.float32
 
 
-def lattice_mesh(gen, dim, shear=0.0):
+def lattice_mesh(gen, dim, shear=0.0, cells=(3, 2)):
     mesh = gen.subdivided_hyper_rectangle(
-        (3, 2) + ((2,) if dim == 3 else ()),
+        cells + ((2,) if dim == 3 else ()),
         (0.0,) * dim,
         (1.2, 1.0) + ((0.8,) if dim == 3 else ()),
         colorize=True,
@@ -69,13 +69,13 @@ def lattice_mesh(gen, dim, shear=0.0):
 
 
 def _setup(dim, degree, increment, cell_wise, consider_dt, jax_structured,
-           shear=0.0, batched=False):
+           shear=0.0, batched=False, cells=(3, 2)):
     """JAX operator (Pallas structured kernel in interpret mode, or the
     general sweep) and the port's structured operator, all f32, with one
     numpy seed."""
     C = dim + 1
-    sj = JSpace(lattice_mesh(jgen, dim, shear), degree)
-    st = TSpace(lattice_mesh(tgen, dim, shear), degree)
+    sj = JSpace(lattice_mesh(jgen, dim, shear, cells), degree)
+    st = TSpace(lattice_mesh(tgen, dim, shear, cells), degree)
     assert st.structured
     bn = st.boundary_nodes([0])
     vals = [[1.0] + [0.0] * (dim - 1)] * len(bn)
@@ -304,7 +304,7 @@ def plan_blocks(plan, cell_shape):
             for kz in range(plan.nzb)]
 
 
-@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6])
 def test_brick_plan_covers_every_cell_once(degree):
     """The 3D kernel's blocks under ``brick_plan`` own every cell of the
     lattice exactly once."""
@@ -386,12 +386,13 @@ def plan_blocks_2d(plan, cell_shape):
             for ky in range(plan.nyb) for bx in range(plan.nbx)]
 
 
-@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6])
 def test_slab_plan_2d_covers_every_cell_once(degree):
     """The 2D kernel's blocks under ``slab_plan_2d`` own every cell of the
     lattice exactly once, and the plan is one the launcher takes (at most
-    two I1 columns and four E2 passes per thread)."""
-    cpw = 32 // (degree + 1) ** 2
+    two I1 columns and four E2 passes per thread; a warp takes one cell a
+    pass above 32 q-points)."""
+    cpw = max(1, 32 // (degree + 1) ** 2)
     for cs in SLAB_SHAPES:
         plan = ts.slab_plan_2d(degree, cs)
         nx, ny = cs
@@ -409,7 +410,7 @@ def test_slab_plan_2d_covers_every_cell_once(degree):
         assert (owned == 1).all(), (cs, plan)
 
 
-@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+@pytest.mark.parametrize("degree", [1, 2, 3, 4, 5, 6])
 def test_slab_plan_2d_fits_shared_memory(degree):
     """No plan of ``slab_plan_2d`` needs more shared memory per block
     (``slab_smem_2d``, the launcher's formula) than the two blocks per SM

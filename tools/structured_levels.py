@@ -232,7 +232,7 @@ def sweep_plans_2d(tables):
     from ns_gls_tpu_torch.ops.structured import SlabPlan2D
 
     nx, ny = tables.cell_shape
-    cpw = 32 // (tables.P + 1) ** 2
+    cpw = max(1, 32 // (tables.P + 1) ** 2)
     for xb in (8, 12, 16, 24, 32, 48):
         for ys in (1, 2, 3, 4, 6, 8):
             if xb > nx or ys > ny or -(-xb * ys // cpw) > 32:
