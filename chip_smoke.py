@@ -138,8 +138,22 @@ Phases (any failure exits non-zero and prints no result line):
     solver (1 step each, the 2D structured kernel's launches counted);
     ``input/turek_2d_re100.json`` for 4 steps against 2 checkpointed
     steps and a fresh driver resumed to step 4 (within 1e-12),
-19. the kernel line (JSON) with launches, errors, times and bounds,
-20. the result line (JSON).
+19. sharding, four shards on the one card (``devices=["cuda:0"] * 4``;
+    one process drives them, ``ns_gls_tpu_torch/parallel/``):
+    ``input/turek_2d_re100.json`` (3 steps), ``input/sphere_amg.json``
+    (the stationary solve) and ``input/turek_3d_re100.json`` (2 steps)
+    as given under the halo strategy against phases 4, 14 and 7 (Newton
+    equal, GMRES within 10% a step, functionals and solution within
+    ``SHARD_TOL``; seconds a step beside each other); then each level's
+    layout (halo share, rounds, bytes and time of an apply's
+    exchanges), each shard's fused kernel on the finest level against its
+    plain version with its device time and bound, every level's sharded
+    applies and the f64 fine level's against the single-device
+    operators; the replicated strategy on Turek 2D ref 2 (2 steps)
+    against a single-device run,
+20. the kernel line (JSON) with launches, errors, times and bounds (and
+    the fused kernels' sharded launches and per-shard times),
+21. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -651,14 +665,15 @@ class PrismLaunchesByLevel:
 # ---------------------------------------------------------------------------
 # phases 4, 5, 7, 8: the driver
 # ---------------------------------------------------------------------------
-def setup_driver(params):
+def setup_driver(params, devices=None):
     import torch
 
     from ns_gls_tpu_torch.driver import Driver
     from ns_gls_tpu_torch.utils.logging import set_verbose
 
     set_verbose(False)
-    drv = Driver(params, device="cuda")
+    drv = (Driver(params, device="cuda") if devices is None
+           else Driver(params, devices=devices))
     t0 = time.perf_counter()
     drv.setup()
     drv._setup_done = True
@@ -679,8 +694,8 @@ def run_steps(drv, steps):
     return recs, run_s, kernel_counts()
 
 
-def run_driver(params, steps):
-    drv, setup_s = setup_driver(params)
+def run_driver(params, steps, devices=None):
+    drv, setup_s = setup_driver(params, devices)
     recs, run_s, launches = run_steps(drv, steps)
     return drv, recs, setup_s, run_s, launches
 
@@ -750,7 +765,7 @@ def phase_main_path():
         f"{sum(steady) / len(steady):.4f}; kernel launches {counts} "
         f"({launches / MAIN_STEPS:.1f} patch-2D per step)")
     return dict(launches=launches, seam_launches=counts["seam_sum"],
-                n_dofs=n_dofs, stats=stats, step3=kept[3])
+                n_dofs=n_dofs, stats=stats, recs=recs, step3=kept[3])
 
 
 def check_series(tag, recs, ref, tol):
@@ -787,8 +802,19 @@ def phase_main_path_3d(drv, params, setup_s, levels):
     import torch
 
     torch.cuda.reset_peak_memory_stats()
+    kept = []
+    post = drv.sim.postprocess
+
+    def postprocess(t, u):
+        # called at t = 0 and after every step; phase 19 reads the
+        # solution after its steps
+        kept.append(u.cpu() if len(kept) == SHARD_3D_STEPS else None)
+        return post(t, u)
+
+    drv.sim.postprocess = postprocess
     with PrismLaunchesByLevel() as by_level:
         recs, run_s, counts = run_steps(drv, MAIN3D_STEPS)
+    drv.sim.postprocess = post
     launches = counts["prism_gls_sweep"]
     check_run(params, drv, recs, MAIN3D_STEPS)
     if launches <= 0:
@@ -813,7 +839,8 @@ def phase_main_path_3d(drv, params, setup_s, levels):
             f"{lv['device_us']:.1f} us of device time against a bound of "
             f"{lv['bound_us']:.2f} us: {ms_above:.1f} ms per step above it")
     log(f"[7] prism kernel above its bounds: {above:.1f} ms per step")
-    return dict(launches=launches, stats=stats)
+    return dict(launches=launches, stats=stats, recs=recs,
+                u=kept[SHARD_3D_STEPS])
 
 
 def phase_series_3d():
@@ -1459,7 +1486,7 @@ def phase_sphere(tag, drv, params, setup_s, steps):
         raise AssertionError("a sphere level holds no patch-3D sweep")
     torch.cuda.reset_peak_memory_stats()
     with GeneralSweepCount() as general:
-        _, run_s, counts = run_steps(drv, steps)
+        recs, run_s, counts = run_steps(drv, steps)
     stats = drv.step_stats
     if len(stats) != steps:
         raise AssertionError(f"ran {len(stats)} steps, want {steps}")
@@ -1493,14 +1520,15 @@ def phase_sphere(tag, drv, params, setup_s, steps):
         f"{len(general.f32_ops)} iso-Q1 level(s)); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(launches=launches, seam_launches=counts["seam_sum"],
-                stats=stats, n_dofs=n_dofs)
+                stats=stats, n_dofs=n_dofs, recs=recs,
+                u=drv.solution.current.cpu())
 
 
 def phases_sphere():
     """Phases 13-15; returns the patch-3D kernel's entry of the kernel
-    line: its error over phase 13, its time at the finest sphere level in
+    line (its error over phase 13, its time at the finest sphere level in
     the main path's flavor, its launches from phase 14; and the same of
-    the seam sums after it."""
+    the seam sums after it) and phase 14's run for phase 19."""
     import torch
 
     # 13. sphere drivers set up, patch-3D kernel against plain version
@@ -1550,7 +1578,7 @@ def phases_sphere():
 
     # 15. transient sphere
     phase_sphere(15, drv_t, params_t, setup_t, SPHERE_STEPS)
-    return dict(
+    return sph, dict(
         name="patch3d_gls_sweep",
         route="cuda",
         source="ns_gls_tpu_torch/csrc/patch3d.cu",
@@ -2301,6 +2329,261 @@ def phase_solver_stack(newton_step3):
     log(f"[18] solver-stack phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 19: sharding (``ns_gls_tpu_torch/parallel/``) on one card
+# ---------------------------------------------------------------------------
+# four shards on the one card: the layouts, the exchanges, each shard's
+# fused kernel and the distributed V-cycle all run on it (two ranks of
+# NCCL cannot share a card, so one process drives the shards)
+SHARDS = 4
+SHARD_DEVICES = ["cuda:0"] * SHARDS
+SHARD_2D_STEPS = 3
+SHARD_3D_STEPS = 2      # step 1 has no inflow yet: step 2 is the first solve
+SHARD_2D_REF = 2        # the replicated strategy's run, 2 steps
+SHARD_REP_STEPS = 2
+# GMRES iterations a step within 10% of the single-device run's
+SHARD_GMRES_REL = 0.10
+# the sharded runs' functionals and solutions against the single-device
+# ones, relative to max(|ref|, 1): on a CPU (plain sweeps) 4 shards meet 1
+# shard within 1.3e-9 on Turek 2D ref 2 over 3 steps; on the card the
+# shards' kernels and seam sums add in another order, under an inexact
+# Newton whose linear tolerance is 1e-2 (the Newton tolerance bounds the
+# gap)
+SHARD_TOL = 1e-4
+# sharded applies against the single-device operator, relative to its
+# max-abs: f32 levels (each shard's kernel and seam sums, another order),
+# and the f64 fine level's general sweep
+SHARD_F32_TOL = 1e-5
+SHARD_F64_TOL = 1e-12
+
+
+def shard_kernel(sweep):
+    """(wrapper, plain version, inputs, tables of each launch, cost,
+    kernel name) of a shard's fused sweep."""
+    from ns_gls_tpu_torch.ops import patch2d as p2
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.ops import prism as pr
+    from ns_gls_tpu_torch.utils import roofline as rf
+
+    if isinstance(sweep, pr.PrismSweep):
+        t = sweep.tables
+        return (pr.PrismKernel.launch, pr.prism_sweep_plain, prism_inputs,
+                [t], lambda *a: rf.prism_cost(t, *a), "prism_kernel")
+    if isinstance(sweep, p3.Patch3DSweep):
+        t = sweep.tables
+        return (p3.Patch3DKernel.launch, p3.patch3d_sweep_plain,
+                patch3d_inputs, [t], lambda *a: rf.patch3d_cost(t, *a),
+                "patch3d_kernel")
+    ft = sweep.tables
+    return (p2.Patch2DKernel.launch, p2.patch2d_sweep_plain,
+            lambda t, seed: patch2d_inputs(t, seed), list(ft.fams),
+            lambda *a: rf.patch2d_cost(ft, *a), "patch2d_kernel")
+
+
+def phase_shard_kernels(label, h):
+    """Each shard's fused kernel on ``h``'s tables against its plain
+    version in every flavor (the operator's delta mode and consider_dt),
+    and its device time and bound in the main path's flavor (increment).
+    Returns (max abs err, [per shard dict(us, bound_us, bound_by)])."""
+    from ns_gls_tpu_torch.utils.roofline import bound
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    op = h.op
+    sc = sweep_scalars(op)
+    cdt, cw = op.consider_time_derivative, op.cell_wise_stabilization
+    worst, shards = 0.0, []
+    for i, s in enumerate(h.shards):
+        launch, plain, inputs, tables, cost, kname = shard_kernel(s.fast)
+        us = 0.0
+        for t in tables:
+            u, ul, vo = inputs(t, seed=i)
+            # the prism kernel's patch tiles of u_lin: its velocity only
+            # outside the increment flavor (node-major vectors keep all)
+            cases = [(t, sc, u, ul if f == "increment" or ul.dim() == 2
+                      else ul[:3].contiguous(), vo, f, cdt, cw)
+                     for f in ("increment", "fixed", "residual")]
+            a, r = compare_cases(f"{label} shard {i}", launch, plain, cases)
+            worst = max(worst, a)
+            us += device_time_us(lambda: launch(*cases[0]), kname, n=20)
+        bound_ms, by = bound(*cost("increment", cdt, cw))
+        shards.append(dict(us=us, bound_us=1e3 * bound_ms, bound_by=by,
+                           n_loc=h.n_loc))
+        log(f"[19] {label} shard {i}: {len(tables)} table set(s), kernel vs "
+            f"plain max rel err {r:.3e}; kernel device time {us:.1f} us, "
+            f"bound {1e3 * bound_ms:.2f} us by {by} (window {h.n_loc} "
+            f"nodes)")
+    return worst, shards
+
+
+def phase_shard_layout(label, h):
+    """The layout's measures and the exchanges' time per apply."""
+    import torch
+
+    st = h.stats()
+    C = h.op.n_comp
+    ws = [torch.zeros((h.n_loc, C), dtype=h.op.dtype, device=d)
+          for d in h.devices]
+    ms = time_sweep(lambda: (h.exchange_fill(ws), h.compress(ws)), n=20)
+    log(f"[19] {label}: {st['local_sweep']} local sweep, halo share "
+        f"{100 * st['halo_share']:.3f}% of the node vector, {st['rounds']} "
+        f"rounds ({st['pairs']} pairs), {st['exchange_bytes']} B exchanged "
+        f"an apply in {1e3 * ms:.1f} us (fill and reverse), window "
+        f"{st['n_loc']} nodes ({st['n_own_max']} owned at most)")
+    return dict(st, exchange_ms=ms)
+
+
+def check_shard_applies(label, h, tol, seed=0):
+    """The sharded vmult and residual against the wrapped operator's on
+    one random input (the state the driver left)."""
+    import numpy as np
+    import torch
+
+    op = h.op
+    rng = np.random.default_rng(seed)
+    v = torch.as_tensor(rng.standard_normal((op.n_nodes, op.n_comp)),
+                        dtype=op.dtype, device="cuda")
+    worst = 0.0
+    for what, a, b in (("vmult", h.vmult(v), op.vmult(v)),
+                       ("residual", h.evaluate_residual(v),
+                        op.evaluate_residual(v))):
+        rel = float((a - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not rel <= tol:
+            raise AssertionError(f"[19] {label} sharded {what}: rel err "
+                                 f"{rel:.3e} > {tol}")
+    log(f"[19] {label}: sharded vmult and residual vs single-device, max "
+        f"rel err {worst:.3e} (tol {tol})")
+    return worst
+
+
+def compare_shard_run(label, drv, recs, ref):
+    """The sharded run against the single-device one (``ref``: its step
+    stats, records and solution after the same steps): Newton counts
+    equal, GMRES within ``SHARD_GMRES_REL`` a step, functionals and
+    solution within ``SHARD_TOL``; seconds a step beside each other."""
+    stats = drv.step_stats
+    for i, (s, r) in enumerate(zip(stats, ref["stats"])):
+        log(f"[19] {label} step {i + 1}: {s['seconds']:.3f} s on {SHARDS} "
+            f"shards vs {r['seconds']:.3f} s on one (Newton {s['newton']} "
+            f"vs {r['newton']}, GMRES {s['gmres']} vs {r['gmres']})")
+        if s["newton"] != r["newton"]:
+            raise AssertionError(f"[19] {label} step {i + 1}: Newton "
+                                 f"{s['newton']} vs {r['newton']}")
+        if abs(s["gmres"] - r["gmres"]) > SHARD_GMRES_REL * r["gmres"]:
+            raise AssertionError(f"[19] {label} step {i + 1}: GMRES "
+                                 f"{s['gmres']} vs {r['gmres']}")
+    gap = 0.0
+    for a, b in zip(recs, ref["recs"]):
+        for k in ("drag", "lift", "p_diff"):
+            gap = max(gap, abs(a[k] - b[k]) / max(abs(b[k]), 1.0))
+    u, u_ref = drv.solution.current, ref["u"].to(drv.solution.current.device)
+    sol = float((u - u_ref).abs().max()) / max(float(u_ref.abs().max()), 1.0)
+    log(f"[19] {label}: functionals within {gap:.3e}, solution within "
+        f"{sol:.3e} of the single-device run (tol {SHARD_TOL}); four "
+        f"shards on one card run each apply's shards one after the other, "
+        f"so the run is slower than one shard")
+    if not (gap <= SHARD_TOL and sol <= SHARD_TOL):
+        raise AssertionError(f"[19] {label}: gap {gap:.3e} / {sol:.3e} > "
+                             f"{SHARD_TOL}")
+    return dict(gap=gap, sol=sol)
+
+
+def phase_shard_case(label, params, steps, ref, kind):
+    """A sharded driver of ``params`` set up and run for ``steps`` steps
+    (the counts read around the run), held to the single-device ``ref``;
+    then its operators: each level's layout, each shard's kernel on the
+    finest level, every level's sharded applies and the f64 fine level's
+    general sweep against the single-device operators."""
+    from ns_gls_tpu_torch.parallel.halo import HaloShardedOperator
+
+    drv, setup_s = setup_driver(params, SHARD_DEVICES)
+    if not (isinstance(drv.op, HaloShardedOperator)
+            and drv.preconditioner.distributed):
+        raise AssertionError(f"[19] {label}: not the halo path")
+    lv = drv.mg_ops_apply
+    kinds = [h.local_sweep for h in lv]
+    log(f"[19] {label}: {SHARDS} shards set up in {setup_s:.2f} s; level "
+        f"local sweeps {kinds}, fine operator {drv.op.local_sweep} on the "
+        f"{drv.op.partition.kind} partition")
+    if kinds[-1] != kind:
+        raise AssertionError(f"[19] {label}: finest level {kinds[-1]}, "
+                             f"want {kind}")
+    recs, run_s, counts = run_steps(drv, steps)
+    launches = counts[f"{kind}_gls_sweep"]
+    log(f"[19] {label}: {steps} step(s) in {run_s:.2f} s; kernel launches "
+        f"{counts}")
+    if launches <= 0:
+        raise AssertionError(f"[19] {label}: the {kind} kernel was not "
+                             "launched")
+    if kind != "prism" and counts["seam_sum"] != launches:
+        raise AssertionError(f"[19] {label}: want one seam sum per launch")
+    out = dict(launches=launches, run=compare_shard_run(label, drv, recs,
+                                                        ref))
+    out["layout"] = [phase_shard_layout(f"{label} level {l}", h)
+                     for l, h in enumerate(lv)]
+    out["layout_fine"] = phase_shard_layout(f"{label} f64 fine operator",
+                                            drv.op)
+    out["max_abs"], out["shards"] = phase_shard_kernels(
+        f"{label} finest level", lv[-1])
+    out["f32_rel"] = max(check_shard_applies(f"{label} level {l}", h,
+                                             SHARD_F32_TOL)
+                         for l, h in enumerate(lv))
+    out["f64_rel"] = check_shard_applies(f"{label} f64 fine level", drv.op,
+                                         SHARD_F64_TOL)
+    return out
+
+
+def phase_shard_replicated():
+    """The replicated strategy on Turek 2D at refinement ``SHARD_2D_REF``:
+    a sharded and a single-device run against each other."""
+    from ns_gls_tpu_torch.parallel.sharding import ShardedOperator
+
+    over = {"n global refinements": SHARD_2D_REF}
+    drv, recs1, _, _, _ = run_driver(config(over), SHARD_REP_STEPS)
+    ref = dict(stats=drv.step_stats, recs=recs1,
+               u=drv.solution.current.clone())
+    del drv
+    drv4, recs4, _, run_s, _ = run_driver(
+        config(over | {"n devices": SHARDS,
+                       "parallel strategy": "replicated"}),
+        SHARD_REP_STEPS, SHARD_DEVICES)
+    if not isinstance(drv4.op, ShardedOperator):
+        raise AssertionError("[19] not the replicated strategy")
+    log(f"[19] replicated strategy, Turek 2D ref {SHARD_2D_REF}: "
+        f"{SHARD_REP_STEPS} steps in {run_s:.2f} s")
+    return compare_shard_run("replicated Turek 2D", drv4, recs4, ref)
+
+
+def phase_sharding(ref2d, ref3d, ref_sphere):
+    """Phase 19: ``input/turek_2d_re100.json`` as given for
+    ``SHARD_2D_STEPS`` steps, ``input/turek_3d_re100.json`` as given for
+    ``SHARD_3D_STEPS`` and ``input/sphere_amg.json`` as given (one
+    stationary solve), each on ``SHARDS`` shards of the card against
+    phases 4, 7 and 14; then the replicated strategy on Turek 2D at
+    refinement ``SHARD_2D_REF``.  Returns the kernels' sharded
+    launches and per-shard numbers."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    for key, label, name, steps, ref, kind in (
+            ("patch2d", "Turek 2D", "turek_2d_re100.json", SHARD_2D_STEPS,
+             ref2d, "patch2d"),
+            ("sphere", "sphere_amg", "sphere_amg.json", 1, ref_sphere,
+             "patch3d"),
+            ("prism", "Turek 3D", "turek_3d_re100.json", SHARD_3D_STEPS,
+             ref3d, "prism")):
+        params = config({"n devices": SHARDS}, name)
+        out[key] = phase_shard_case(label, params, steps, ref, kind)
+        torch.cuda.empty_cache()
+        log(f"[19] {label} done at {time.perf_counter() - t_phase:.1f} s "
+            "of the phase")
+    out["replicated"] = phase_shard_replicated()
+    log(f"[19] sharding phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def scatter_bits(tag, label, fn):
     """Two calls of ``fn`` on equal inputs: the same bits?"""
     import torch
@@ -2493,7 +2776,7 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
 
         # 13-15. the patch-3D kernel and the sphere
-        p3_line = phases_sphere()
+        sph, p3_line = phases_sphere()
         torch.cuda.empty_cache()
         log(f"[-] sphere phases done at "
             f"{time.perf_counter() - t_start:.1f} s")
@@ -2520,10 +2803,17 @@ def main() -> int:
         # 18. the solver stack: Picard, ILU, the matrix-based operator, AMG
         # with its ILU smoother, Richardson, the ILU coarse solver,
         # checkpoints
-        stack = phase_solver_stack(main.pop("step3"))
+        stack = phase_solver_stack(main["step3"])
+        log(f"[-] solver-stack phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 19. sharding: four shards on the card against phases 4, 7, 14
+        shard = phase_sharding(
+            dict(stats=main["stats"], recs=main["recs"], u=main["step3"]),
+            main3, sph)
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 19. kernel line, card line; 20. result line
+        # 20. kernel line, card line; 21. result line
         # the patch-2D kernel: device time at m = 8 in the main path's
         # flavor, alone (ms) and with its seam sum (sweep_ms); launches
         # from phase 4, one seam sum after each
@@ -2608,6 +2898,19 @@ def main() -> int:
         kernels[-2].update(richardson_launches=stack["richardson_launches"],
                            ilu_coarse_launches=stack["ilu_coarse_launches"])
         kernels.append(p3_line)
+        # the sharded paths of phase 19: each fused kernel's launches
+        # there, its error against its plain version on the shards'
+        # tables, and its device time and bound on each shard of the
+        # finest level in the main path's flavor
+        for k, key in ((kernels[0], "patch2d"), (kernels[1], "prism"),
+                       (p3_line, "sphere")):
+            sh = shard[key]
+            k["max_abs_err"] = max(k["max_abs_err"], sh["max_abs"])
+            k.update(sharded_launches=sh["launches"],
+                     sharded_shard_ms=[x["us"] / 1e3 for x in sh["shards"]],
+                     sharded_bound_ms=[x["bound_us"] / 1e3
+                                       for x in sh["shards"]],
+                     sharded_bound_by=sh["shards"][0]["bound_by"])
         for k in kernels:
             if k["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was not launched on its "

@@ -11,8 +11,11 @@ with drag/lift/pressure-drop records, optional VTU output and rolling
 checkpoints, resumable with ``run(resume=True)``.
 
 Precision follows the reference layering: f64 outer solve, f32 multigrid
-levels, TF32 off.  Sharding over several devices (``n devices`` > 1) is
-not ported yet and raises ``NotImplementedError``.
+levels, TF32 off.  With ``n devices`` > 1 one process shards the fine
+operator and the multigrid levels over a list of devices
+(``parallel/``): the halo-exchange operator and the distributed V-cycle
+by default, the cell-sharded "replicated" strategy on request or for the
+matrix-based operator (``ns_gls_tpu/driver.py:271-296``).
 """
 
 from __future__ import annotations
@@ -187,22 +190,39 @@ class ConstraintSetBuilder:
         )
 
 
-def _unsupported(p: Parameters) -> list[str]:
-    """Configuration keys this port does not cover yet."""
-    out = []
-    if p.n_devices != 1:
-        out.append(f"'n devices' = {p.n_devices} (sharding)")
-    return out
+def shard_devices(n: int, device: torch.device) -> tuple:
+    """The devices of ``n`` shards: cards 0..n-1, or n CPU shards."""
+    if device.type != "cuda":
+        return (device,) * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"requested {n} devices, have {have}")
+    return tuple(torch.device("cuda", i) for i in range(n))
 
 
 class Driver:
-    def __init__(self, params: Parameters, device: str | torch.device = "cuda"):
-        missing = _unsupported(params)
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing)
-            )
+    def __init__(self, params: Parameters, device: str | torch.device = "cuda",
+                 devices=None):
+        """``devices``: the shards' devices under ``n devices`` > 1 (a
+        device may repeat, e.g. four shards on one card); by default
+        ``device``'s cards 0..n-1, or n CPU shards.  The global vectors
+        live on the first."""
+        if (params.n_devices > 1
+                and params.parallel_strategy not in ("halo", "replicated")):
+            raise ValueError(
+                f"unknown parallel strategy {params.parallel_strategy}")
+        if devices is not None:
+            from ns_gls_tpu_torch.parallel.sharding import make_device_mesh
+
+            devices = make_device_mesh(devices)
+            if len(devices) != params.n_devices:
+                raise ValueError(f"'n devices' = {params.n_devices} with "
+                                 f"{len(devices)} devices given")
+            device = devices[0]
         self.device = resolve_device(device)
+        if devices is None and params.n_devices > 1:
+            devices = shard_devices(params.n_devices, self.device)
+        self.devices = devices
         # exact f32/f64 arithmetic: no TF32 anywhere
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -282,8 +302,13 @@ class Driver:
             self.op.constraints_inhomogeneous = self.csets.inhomogeneous_at(0.0)
 
         # the preconditioners that take the fine operator assemble or
-        # apply the matrix-free one
+        # apply the matrix-free one, unsharded
         op_mf = self.op
+        self.op_unsharded = op_mf
+        # the halo strategy shards the matrix-free operator; the
+        # replicated one serves the matrix-based operator too
+        halo = (self.devices is not None and p.parallel_strategy == "halo"
+                and p.use_matrix_free_ns_operator)
         if not p.use_matrix_free_ns_operator:
             # assembled SpMV (``main.cc:351-364``; the reference restricts
             # it to non-Newton solvers)
@@ -295,18 +320,46 @@ class Driver:
             )
 
             self.op = NavierStokesOperatorMatrixBased(op_mf)
+        if self.devices is not None and not halo:
+            from ns_gls_tpu_torch.parallel.sharding import ShardedOperator
+
+            sharded = ShardedOperator(op_mf, self.devices)
+            if p.use_matrix_free_ns_operator:
+                self.op = sharded
+            else:
+                self.op.residual_op = sharded
 
         # ---- preconditioner ------------------------------------------------
         self.mg_ops = []
         self.mg_transfers = []
+        # the levels' sharded wrappers (``n devices`` > 1, GMG)
+        self.mg_ops_apply = []
         # GMG-LS: per forest level, its (level node, final node) pairs
         self._ls_lvl2fin = None
         with timer("setup::preconditioner"):
-            if p.preconditioner == "GMG-LS":
+            if p.preconditioner == "GMG-LS" and self.devices is None:
                 self._setup_gmg_ls(bcs, mapping_degree, increment_form,
                                    mg_dtype)
-            elif p.preconditioner == "GMG":
-                self._setup_gmg(bcs, mapping_degree, increment_form, mg_dtype)
+            elif p.preconditioner in ("GMG", "GMG-LS"):
+                if p.preconditioner == "GMG-LS":
+                    # the multi-device cycle is the distributed global-
+                    # coarsening one, on an explicit opt-in
+                    # (``ns_gls_tpu/driver.py:315-345``)
+                    if not p.gmg_ls_parallel_fallback:
+                        raise ValueError(
+                            "preconditioner 'GMG-LS' with 'n devices' > 1 "
+                            "is served by the distributed global-"
+                            "coarsening GMG cycle; set "
+                            '"gmg ls parallel fallback": true to accept '
+                            "it (or use preconditioner 'GMG')")
+                    import warnings
+
+                    warnings.warn(
+                        "preconditioner 'GMG-LS' with 'n devices' > 1 "
+                        "falls back to the global-coarsening GMG cycle",
+                        stacklevel=2)
+                self._setup_gmg(bcs, mapping_degree, increment_form, mg_dtype,
+                                halo)
             elif p.preconditioner == "ILU":
                 from ns_gls_tpu_torch.precond.ilu import PreconditionerILU
 
@@ -325,6 +378,20 @@ class Driver:
                 raise ValueError(
                     f"unknown preconditioner {p.preconditioner}")
 
+        if halo:
+            from ns_gls_tpu_torch.parallel.halo import HaloShardedOperator
+
+            # the outer Krylov hands the distributed V-cycle its vectors:
+            # the fine operator takes the finest level's partition, so
+            # that both have one layout (``ns_gls_tpu/driver.py:520-525``)
+            part = (self.mg_ops_apply[-1].partition
+                    if self.mg_ops_apply else None)
+            self.op = HaloShardedOperator(op_mf, self.devices, part)
+            if self.mg_ops_apply:
+                assert np.array_equal(self.mg_ops_apply[-1].own_global,
+                                      self.op.own_global), \
+                    "fine MG level layout differs from the operator's"
+
         # ---- linear solver -------------------------------------------------
         if p.linear_solver == "GMRES":
             self.linear_solver = LinearSolverGMRES(
@@ -339,7 +406,9 @@ class Driver:
                 p.lin_relative_tolerance, logger=self.log,
             )
         elif p.linear_solver == "direct":
-            self.linear_solver = LinearSolverDirect(self.op, logger=self.log)
+            # the dense LU assembles the unsharded operator
+            self.linear_solver = LinearSolverDirect(
+                self.op if self.devices is None else op_mf, logger=self.log)
         else:
             raise ValueError(f"unknown linear solver {p.linear_solver}")
 
@@ -369,10 +438,15 @@ class Driver:
         sim.setup_postprocess(space, p.nu, dev)
 
     # ------------------------------------------------------------------
-    def _setup_gmg(self, bcs, mapping_degree, increment_form, mg_dtype):
+    def _setup_gmg(self, bcs, mapping_degree, increment_form, mg_dtype,
+                   halo=False):
         """Geometric coarsening sequence (``main.cc:396-568``): the level
         meshes are the refinement *generation chain* of the final mesh,
-        so MG transfers come straight from the stored parent maps."""
+        so MG transfers come straight from the stored parent maps.  Under
+        sharding every level's hot apply is sharded over the same devices
+        as the fine operator; with ``halo`` the transfers are halo
+        transfers and the cycle runs on distributed vectors
+        (``ns_gls_tpu/driver.py:490-540``)."""
         p = self.params
         dev = self.device
         meshes = [self.mesh]
@@ -416,9 +490,29 @@ class Driver:
                            dev)
             for l in range(len(meshes) - 1)
         ]
+        transfer_ops = None
+        if halo:
+            from ns_gls_tpu_torch.parallel.halo import (
+                HaloShardedOperator,
+                HaloTransferOps,
+            )
+
+            self.mg_ops_apply = [HaloShardedOperator(op_l, self.devices)
+                                 for op_l in self.mg_ops]
+            transfer_ops = [
+                HaloTransferOps(self.mg_transfers[l], self.mg_ops_apply[l],
+                                self.mg_ops_apply[l + 1])
+                for l in range(len(self.mg_ops) - 1)]
+        elif self.devices is not None:
+            from ns_gls_tpu_torch.parallel.sharding import ShardedOperator
+
+            self.mg_ops_apply = [ShardedOperator(op_l, self.devices)
+                                 for op_l in self.mg_ops]
         self.preconditioner = PreconditionerGMG(
             self.mg_ops,
             self.mg_transfers,
+            level_ops_apply=self.mg_ops_apply or None,
+            transfer_ops=transfer_ops,
             mg_dtype=mg_dtype,
             smoothing_n_iterations=p.gmg.smoothing_n_iterations,
             smoothing_range=p.gmg.smoothing_range,

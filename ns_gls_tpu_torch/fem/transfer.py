@@ -124,7 +124,7 @@ def build_transfer(coarse: FESpace, fine: FESpace, dtype=torch.float32,
     )
 
 
-def _row_gather_sum(cols, wts, u):
+def row_gather_sum(cols, wts, u):
     """sum_k w[:, k] * u[cols[:, k], :], one ROW gather per local basis
     function, every intermediate in the compact (rows, C) layout."""
     n_loc = cols.shape[1]
@@ -137,28 +137,34 @@ def _row_gather_sum(cols, wts, u):
 
 def prolongate(t: TwoLevelTransfer, u_c: torch.Tensor) -> torch.Tensor:
     """(n_coarse, C) -> (n_fine, C)."""
-    return _row_gather_sum(t.p_cols, t.p_wts, u_c)
+    return row_gather_sum(t.p_cols, t.p_wts, u_c)
 
 
 def restrict(t: TwoLevelTransfer, r_f: torch.Tensor) -> torch.Tensor:
     """Pᵀ: (n_fine, C) -> (n_coarse, C) — one row scatter-add per local
     basis function, in the order of the JAX reference."""
-    out = r_f.new_zeros((t.n_coarse, r_f.shape[1]))
-    w = t.p_wts.to(r_f.dtype)
+    return restrict_rows(t.p_cols, t.p_wts, r_f, t.n_coarse)
+
+
+def restrict_rows(p_cols, p_wts, r_f: torch.Tensor, n_out: int):
+    """The transpose of :func:`row_gather_sum` onto (n_out, C): row i of
+    r_f times p_wts[i, k] added at row p_cols[i, k]."""
+    out = r_f.new_zeros((n_out, r_f.shape[1]))
+    w = p_wts.to(r_f.dtype)
     if r_f.is_cuda:
         # fixed-order class sums (``index_add_`` on the card sums with
         # atomics in an order that changes from run to run)
-        fs = fixed_scatter(t.p_cols, t.p_wts)
+        fs = fixed_scatter(p_cols, p_wts)
         src = (r_f[:, None, :] * w[:, :, None]).reshape(-1, r_f.shape[1])
         if fs.gather is not None:
             out[fs.targets] = class_sum(fs.gather, src)
         return out
-    for k in range(t.p_cols.shape[1]):
+    for k in range(p_cols.shape[1]):
         # in place on the fresh output
-        out.index_add_(0, t.p_cols[:, k], r_f * w[:, k: k + 1])
+        out.index_add_(0, p_cols[:, k], r_f * w[:, k: k + 1])
     return out
 
 
 def interpolate_to_coarse(t: TwoLevelTransfer, u_f: torch.Tensor) -> torch.Tensor:
     """Solution interpolation (pointwise), fine -> coarse."""
-    return _row_gather_sum(t.i_cols, t.i_wts, u_f)
+    return row_gather_sum(t.i_cols, t.i_wts, u_f)

@@ -88,6 +88,9 @@ class NavierStokesOperatorMatrixBased:
 
     def __init__(self, op):
         self.op = op  # a NavierStokesOperator holding space/state
+        # what evaluates the residual and the rhs: the operator, or its
+        # cell-sharded wrapper under sharding (``parallel/sharding.py``)
+        self.residual_op = op
         self._ell: ELLMatrix | None = None
         self._pattern: ELLPattern | None = None
 
@@ -141,10 +144,10 @@ class NavierStokesOperatorMatrixBased:
         self._ell = None
 
     def evaluate_rhs(self):
-        return self.op.evaluate_rhs()
+        return self.residual_op.evaluate_rhs()
 
     def evaluate_residual(self, u):
-        return self.op.evaluate_residual(u)
+        return self.residual_op.evaluate_residual(u)
 
     def get_max_u(self, u):
         return self.op.get_max_u(u)

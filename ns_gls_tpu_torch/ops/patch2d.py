@@ -213,19 +213,21 @@ def _tile_targets(tables: Patch2DTables) -> np.ndarray:
     return tile_nodes(pn, tables.P, tables.m, tables.plan.xb).reshape(-1)
 
 
-def _families(fams, n_nodes: int) -> Patch2DFamilies:
+def families(fams, n_nodes: int, every_node: bool = True
+              ) -> Patch2DFamilies:
     """The per-family tables ``fams`` with the seam table of their
-    concatenated tiles, in the layouts their plans set."""
+    concatenated tiles, in the layouts their plans set (``every_node``:
+    see ``utils/segment.py`` ``seam_sums``)."""
     targets = np.concatenate([_tile_targets(t) for t in fams])
     return Patch2DFamilies(tuple(fams), n_nodes, seam_sums(
-        targets, n_nodes, fams[0].jinv.device))
+        targets, n_nodes, fams[0].jinv.device, every_node))
 
 
 def replan(tables: Patch2DFamilies, plan: Patch2DPlan) -> Patch2DFamilies:
     """One-family ``tables`` under ``plan``: with the band of its x brick
     and the seam table of the tiles' layout it sets."""
     (t,) = tables.fams
-    return _families((_with_plan(t, plan),), tables.n_nodes)
+    return families((_with_plan(t, plan),), tables.n_nodes)
 
 
 def tile_shape(tables: Patch2DTables) -> tuple:
@@ -241,8 +243,11 @@ def tile_rows(tables: Patch2DTables) -> int:
     return int(np.prod(tile_shape(tables)[:-1]))
 
 
-def _family_tables(space, fam, dev) -> Patch2DTables:
-    """Tables of one patch family under its plan."""
+def family_tables(space, fam, dev, n_nodes=None) -> Patch2DTables:
+    """Tables of one patch family under its plan.  ``fam`` holds the
+    family's patch size, cells (ids in ``space``), each cell's patch and
+    lattice position and the patch lattices; ``n_nodes`` (by default the
+    space's) is the length of the vectors the lattice ids index."""
     P = space.degree
     NQ = space.n_q1d
     m = int(fam["m"])
@@ -283,7 +288,8 @@ def _family_tables(space, fam, dev) -> Patch2DTables:
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     tables = Patch2DTables(
-        P=P, NQ=NQ, m=m, n_nodes=space.n_nodes, plan=None,
+        P=P, NQ=NQ, m=m,
+        n_nodes=space.n_nodes if n_nodes is None else n_nodes, plan=None,
         S1=f32(S1), D1=f32(D1), bS=f32(bS), bD=f32(bD), xS=None, xD=None,
         jinv=f32(jinv_t), jxw=f32(jxw_t), h=f32(h_t),
         patch_nodes=torch.as_tensor(pn, device=dev),
@@ -300,7 +306,7 @@ def build_patch2d_tables(op):
         return None
     if op.theta != 1.0 or op.dtype != torch.float32:
         return None
-    return _families([_family_tables(space, fam, op.device)
+    return families([family_tables(space, fam, op.device)
                       for fam in space.patch2d_families], space.n_nodes)
 
 

@@ -211,6 +211,16 @@ def build_patch3d_tables(op, xb=None):
         return None
     if op.theta != 1.0 or op.dtype != torch.float32:
         return None
+    return make_patch3d_tables(space.degree, space.n_q1d,
+                               int(space.patch_cells), space.n_nodes,
+                               *patch3d_geometry(space), op.device, xb)
+
+
+def patch3d_geometry(space):
+    """The per-patch arrays of a patch-3D space in the patch's own order:
+    the lattices ``pn`` (n_p, y, x, z) of node ids, ``jinv_t`` (n_p, ey,
+    9, ez, qz, qy, ex, qx), ``jxw_t`` (n_p, ey, ez, qz, qy, ex, qx) and
+    ``h_t`` (n_p, ey, 2, ez, ex)."""
     P = space.degree
     NQ = space.n_q1d
     m = int(space.patch_cells)
@@ -233,19 +243,17 @@ def build_patch3d_tables(op, xb=None):
     h_t = np.ones((n_p, m, 2, m, m))
     h_t[patch, ey, 0, ez, ex] = space.cell_h_min_vertex
     h_t[patch, ey, 1, ez, ex] = np.cbrt(6.0 * space.cell_measure / np.pi) / P
-    return make_patch3d_tables(P, NQ, m, space.n_nodes, pn, jinv_t, jxw_t,
-                               h_t, op.device, xb)
+    return pn, jinv_t, jxw_t, h_t
 
 
 def make_patch3d_tables(P, NQ, m, n_nodes, pn, jinv_t, jxw_t, h_t, dev,
-                        xb=None):
-    """The tables from the per-patch arrays in the patch's own order
-    (``jinv_t`` (n_p, ey, 9, ez, qz, qy, ex, qx), ``jxw_t`` (n_p, ey, ez,
-    qz, qy, ex, qx), ``h_t`` (n_p, ey, 2, ez, ex), the lattices ``pn``
-    (n_p, y, x, z) of node ids): the plans of every flavor x consider_dt,
-    made here so that a shape the kernel cannot take raises before any
-    launch, and the geometry split into the plans' x bricks (``xb``: the
-    tests' and tools' override of :func:`patch3d_brick`)."""
+                        xb=None, every_node=True):
+    """The tables from the per-patch arrays of :func:`patch3d_geometry`:
+    the plans of every flavor x consider_dt, made here so that a shape
+    the kernel cannot take raises before any launch, and the geometry
+    split into the plans' x bricks (``xb``: the tests' and tools'
+    override of :func:`patch3d_brick`; ``every_node``: see
+    ``utils/segment.py`` ``seam_sums``)."""
     n_p = pn.shape[0]
     if xb is None:
         xb = patch3d_brick(P, m, n_p)
@@ -277,7 +285,7 @@ def make_patch3d_tables(P, NQ, m, n_nodes, pn, jinv_t, jxw_t, h_t, dev,
         jxw=f32(jxw_b, (n_p, m, nbx, QB)),
         h=f32(h_b, (n_p, m, nbx, 2, m * xb)),
         patch_nodes=torch.as_tensor(pn.astype(np.int32), device=dev),
-        seams=seam_sums(rows, n_nodes, dev),
+        seams=seam_sums(rows, n_nodes, dev, every_node),
     )
 
 

@@ -234,11 +234,24 @@ def tile_nodes(pn: np.ndarray, P: int, m: int, xb: int) -> np.ndarray:
 def build_prism_tables(op, xb=None):
     """Host-side packing; None when the operator/space is unsupported.
     ``xb`` overrides the x brick (tests, tools)."""
+    arrays = prism_patch_arrays(op)
+    if arrays is None:
+        return None
+    space = op.space
+    return make_prism_tables(space.degree, space.n_q1d,
+                             int(space.patch_cells), int(space.nz_cells),
+                             space.n2d, *arrays, op.device, xb)
+
+
+def prism_patch_arrays(op):
+    """The per-patch arrays of :func:`make_prism_tables` for the whole
+    space (the lattices ``pn`` (n_p, Yn, Xn) of 2D node ids, ``jinv_t``
+    (n_p, 5, Lq, Lq), ``jxw_t`` (n_p, Lq, Lq), ``h_t`` (n_p, 2, m, m)),
+    or None when the operator/space is unsupported."""
     space = op.space
     geo = prism_cell_geometry(op)
     if geo is None:
         return None
-    dev = op.device
     P = space.degree
     NQ = space.n_q1d
     m = int(space.patch_cells)
@@ -267,9 +280,7 @@ def build_prism_tables(op, xb=None):
     h_t = np.ones((n_p, 2, m, m))
     h_t[patch, 0, lat[:, 1], lat[:, 0]] = geo["h1"]
     h_t[patch, 1, lat[:, 1], lat[:, 0]] = geo["hq"]
-
-    return make_prism_tables(P, NQ, m, nz, space.n2d, pn, jinv_t, jxw_t, h_t,
-                             dev, xb)
+    return pn, jinv_t, jxw_t, h_t
 
 
 def make_prism_tables(P, NQ, m, nz, n2d, pn, jinv_t, jxw_t, h_t, dev,

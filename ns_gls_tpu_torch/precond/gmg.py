@@ -19,7 +19,12 @@ setup ``main.cc:396-568``):
   ``multigrid.cc:113-136`` becomes dtype casts around the coarse solve.
 
 The V-cycle runs on flat (n_l*C,) vectors between the operator and
-transfer calls, as the JAX reference does.
+transfer calls, as the JAX reference does.  Under sharding the hot
+applies (smoother vmults, power iterations) go to per-level sharded
+wrappers (``level_ops_apply``); with halo transfers (``transfer_ops``,
+``parallel/halo.py`` ``HaloTransferOps``) the whole cycle runs on
+distributed vectors (``parallel/dist.py``) and only the coarse solve
+gathers to the global layout (``ns_gls_tpu/precond/gmg.py:58-125``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ns_gls_tpu_torch.fem import transfer as tr
+from ns_gls_tpu_torch.parallel.dist import DistVector
 
 
 def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
@@ -52,12 +58,21 @@ class PreconditionerGMG:
         coarse_grid_gmres_reltol: float = 1e-4,
         coarse_amg_default_parameters: bool = True,
         logger=None,
+        level_ops_apply: list | None = None,
+        transfer_ops: list | None = None,
     ):
         if coarse_grid_solver not in ("direct", "AMG", "ILU", "identity"):
             raise ValueError(
                 f"unknown GMG coarse grid solver '{coarse_grid_solver}'")
         self.level_ops = level_ops
+        # the level applies of the cycle: the operators themselves, or
+        # their sharded wrappers (assembly, diagonals and the coarse
+        # solve keep the plain operators)
+        self.level_ops_apply = (list(level_ops) if level_ops_apply is None
+                                else list(level_ops_apply))
         self.transfers = tuple(transfers)
+        self.transfer_ops = transfer_ops
+        self.distributed = transfer_ops is not None
         self.mg_dtype = mg_dtype
         self.n_smooth = smoothing_n_iterations
         self.smoothing_range = smoothing_range
@@ -88,15 +103,25 @@ class PreconditionerGMG:
         """Power iteration for lambda_max(D^{-1} A); relaxation =
         2 / (lambda_max * (1 + 1/smoothing_range)) — deal.II
         PreconditionRelaxation semantics (``multigrid.cc:281-305``).
-        Returns the factor as a 0-dim tensor (no host sync)."""
-        op = self.level_ops[level]
-        v = self.power_start(level, tuple(inv_diag.shape), inv_diag.dtype,
-                             inv_diag.device)
-        v = v / torch.linalg.vector_norm(v)
+        Returns the factor as a 0-dim tensor (no host sync).  On the
+        distributed cycle the start vector is drawn in the JAX package's
+        (n_dev, n_own_max, C) layout, pads included, and split by shard."""
+        op = self.level_ops_apply[level]
+        if self.distributed:
+            v0 = self.power_start(level, (op.n_dev, op.n_own_max, op.n_comp),
+                                  inv_diag.dtype, inv_diag.device)
+            v = DistVector(x.to(p.device) for x, p in zip(v0,
+                                                          inv_diag.parts))
+            vmult, norm = op.vmult_dist, DistVector.norm
+        else:
+            v = self.power_start(level, tuple(inv_diag.shape),
+                                 inv_diag.dtype, inv_diag.device)
+            vmult, norm = op.vmult, torch.linalg.vector_norm
+        v = v / norm(v)
         lam = torch.ones((), dtype=v.dtype, device=v.device)
         for _ in range(self.eig_n_iterations):
-            w = inv_diag * op.vmult(v)
-            lam = torch.linalg.vector_norm(w)
+            w = inv_diag * vmult(v)
+            lam = norm(w)
             v = w / lam
         lam_max = 1.2 * lam  # deal.II-style safety factor on the estimate
         lam_min = lam_max / self.smoothing_range
@@ -120,6 +145,8 @@ class PreconditionerGMG:
                     omegas.append(None)
                     continue
                 dinv = compute_inverse_diagonal(self.level_ops[lvl])
+                if self.distributed:
+                    dinv = self.level_ops_apply[lvl].to_dist(dinv)
                 inv_diags.append(dinv)
                 omegas.append(self._estimate_omega(lvl, dinv))
         self.inv_diags = inv_diags
@@ -177,31 +204,60 @@ class PreconditionerGMG:
         return x.reshape(r.shape).to(r.dtype)
 
     def _coarse_solve(self, r):
+        op0 = self.level_ops_apply[0]
+        if self.distributed:
+            # only the coarse solve gathers to the global layout
+            def capply(x):
+                return op0.to_dist(self._coarse_apply(op0.to_global(x)))
+        else:
+            capply = self._coarse_apply
         if not self.coarse_grid_iterate or self.coarse_grid_solver == "identity":
-            return self._coarse_apply(r)
+            return capply(r)
         # iterative coarse solve: GMRES on the coarse level operator
         # preconditioned by the LU (``multigrid.cc:490-532``)
         from ns_gls_tpu_torch.solvers.linear import gmres
 
-        tol = self.coarse_grid_gmres_reltol * torch.linalg.vector_norm(r)
-        res = gmres(self.level_ops[0].vmult, r, torch.zeros_like(r),
-                    M=self._coarse_apply, tol=tol, restart=30,
+        if self.distributed:
+            A0, zero, norm = op0.vmult_dist, r.zeros_like(), r.norm()
+        else:
+            A0, zero = op0.vmult, torch.zeros_like(r)
+            norm = torch.linalg.vector_norm(r)
+        res = gmres(A0, r, zero, M=capply,
+                    tol=self.coarse_grid_gmres_reltol * norm, restart=30,
                     max_restarts=10)
         return res.x
 
     def _smooth(self, level: int, x, b):
-        """Damped Jacobi sweeps on flat level vectors."""
-        op = self.level_ops[level]
+        """Damped Jacobi sweeps on flat level vectors (distributed ones on
+        the distributed cycle)."""
+        op = self.level_ops_apply[level]
+        om = self.omegas[level]
+        if self.distributed:
+            inv_d = self.inv_diags[level]
+            for _ in range(self.n_smooth):
+                x = x + om * inv_d * (b - op.vmult_dist(x))
+            return x
         shp = (op.n_nodes, op.n_comp)
         inv_df = self.inv_diags[level].reshape(-1)
-        om = self.omegas[level]
         for _ in range(self.n_smooth):
             Av = op.vmult(x.reshape(shp)).reshape(-1)
             x = x + om * inv_df * (b - Av)
         return x
 
+    def _vcycle_dist(self, level: int, b):
+        """The V-cycle on distributed vectors."""
+        if level == 0:
+            return self._coarse_solve(b)
+        op = self.level_ops_apply[level]
+        t = self.transfer_ops[level - 1]
+        x = self._smooth(level, b.zeros_like(), b)
+        d = b - op.vmult_dist(x)
+        x_c = self._vcycle_dist(level - 1, t.restrict(d))
+        x = x + t.prolongate(x_c)
+        return self._smooth(level, x, b)
+
     def _vcycle(self, level: int, b):
-        op = self.level_ops[level]
+        op = self.level_ops_apply[level]
         shp = (op.n_nodes, op.n_comp)
         if level == 0:
             return self._coarse_solve(b.reshape(shp)).reshape(-1)
@@ -220,5 +276,8 @@ class PreconditionerGMG:
     def vmult(self, src):
         if self.inv_diags is None:
             self.initialize()
+        if self.distributed:
+            x = self._vcycle_dist(self.n_levels - 1, src.to(self.mg_dtype))
+            return x.to(src.dtype)
         x = self._vcycle(self.n_levels - 1, src.to(self.mg_dtype).reshape(-1))
         return x.reshape(src.shape).to(src.dtype)

@@ -8,7 +8,9 @@ dense direct solver (reference ``solver_l.cc``):
   SolverDirect (``solver_l.cc:6-24``) on small problems.
 
 Operators and preconditioners enter as callables on tensors shaped like
-the right-hand side.  The loops run eagerly on the host; each Arnoldi
+the right-hand side, or on distributed vectors (``parallel/dist.py``
+``DistVector``) under sharding, where every dot product sums its
+per-shard partials on the first device.  The loops run eagerly on the host; each Arnoldi
 step reads one scalar (the Givens residual estimate) to decide whether to
 go on.  The JAX package's ``gmres_fixed`` (a loop of a static length, which
 it takes only on a TPU backend) is not ported: the port's multigrid
@@ -22,6 +24,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from ns_gls_tpu_torch.parallel.dist import DistVector
 
 
 class SolveResult(NamedTuple):
@@ -37,6 +41,8 @@ def acc_dot(a, b):
     """Dot product with f64 accumulation for f32 vectors (the
     mixed-precision answer to ``config.h:6-7``'s f64 outer solve), rounded
     back to the vector dtype."""
+    if isinstance(a, DistVector):
+        return a.dot(b)
     if a.dtype == torch.float32:
         return torch.dot(a.reshape(-1).double(),
                          b.reshape(-1).double()).to(a.dtype)
@@ -45,6 +51,8 @@ def acc_dot(a, b):
 
 def acc_norm(a):
     """2-norm via :func:`acc_dot` (f64-accumulated sum of squares)."""
+    if isinstance(a, DistVector):
+        return a.norm()
     if a.dtype == torch.float32:
         a64 = a.reshape(-1).double()
         return torch.sqrt(torch.dot(a64, a64)).to(a.dtype)
@@ -61,22 +69,30 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     JAX reference: every cycle restarts from the true residual, the
     Arnoldi step uses modified Gram-Schmidt with f64-accumulated dots,
     and a restart that no longer reduces the true residual stops.
+    ``b`` and ``x0`` may be distributed vectors; the Arnoldi basis is then
+    kept per shard and the small Hessenberg work on the first device.
     """
-    shape = b.shape
     dtype = b.dtype
     dev = b.device
     m = restart
     tol = float(tol)
+    dist = isinstance(b, DistVector)
+    if dist:
+        mv, pc = A, M
+        bf, x = b, x0
+        V = b.basis(m + 1)
+    else:
+        shape = b.shape
 
-    def mv(v):
-        return A(v.reshape(shape)).reshape(-1)
+        def mv(v):
+            return A(v.reshape(shape)).reshape(-1)
 
-    def pc(v):
-        return M(v.reshape(shape)).reshape(-1)
+        def pc(v):
+            return M(v.reshape(shape)).reshape(-1)
 
-    bf = b.reshape(-1)
-    x = x0.reshape(-1)
-    V = torch.zeros((m + 1, bf.numel()), dtype=dtype, device=dev)
+        bf = b.reshape(-1)
+        x = x0.reshape(-1)
+        V = torch.zeros((m + 1, bf.numel()), dtype=dtype, device=dev)
     total_it = 0
     prev_beta = math.inf
     while total_it < m * max_restarts:
@@ -89,7 +105,8 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         g = [0.0] * (m + 1)
         g[0] = beta
         # rows of V are written before they are read within a cycle
-        V[0] = r / beta_t if beta > 0 else torch.zeros_like(r)
+        V[0] = (r / beta_t if beta > 0
+                else r.zeros_like() if dist else torch.zeros_like(r))
         j = 0
         res = beta
         while j < m and res > tol:
@@ -100,7 +117,8 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
                 w = w - hk * V[k]
                 hcol[k] = hk
             hj1 = acc_norm(w)
-            V[j + 1] = torch.where(hj1 > 0, w / hj1, torch.zeros_like(w))
+            V[j + 1] = (w.div_or_zero(hj1) if dist else
+                        torch.where(hj1 > 0, w / hj1, torch.zeros_like(w)))
             hcol[j + 1] = hj1
             hc = hcol.tolist()
             # previous Givens rotations on entries 0..j (scalar work)
@@ -126,7 +144,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
                 torch.tensor(g[:j], dtype=dtype, device=dev).reshape(-1, 1),
                 upper=True,
             ).reshape(-1)
-            z = (y[:, None] * V[:j]).sum(dim=0)
+            z = V.combine(y, j) if dist else (y[:, None] * V[:j]).sum(dim=0)
             x = x + pc(z)
         converged = beta <= tol
         stagnated = beta > 0.999 * prev_beta and total_it > 0
@@ -134,7 +152,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         prev_beta = beta
         if converged or stagnated:
             break
-    return SolveResult(x.reshape(shape), total_it)
+    return SolveResult(x if dist else x.reshape(shape), total_it)
 
 
 def richardson(A: Callable, b: torch.Tensor, x0: torch.Tensor,
@@ -176,14 +194,31 @@ class LinearSolverGMRES:
 
     def solve(self, b):
         tol = max(self.rel_tol * float(acc_norm(b)), self.abs_tol)
-        res = gmres(self.op.vmult, b, torch.zeros_like(b),
-                    M=self.preconditioner.vmult, tol=tol,
-                    restart=self.restart,
-                    max_restarts=max(1, self.n_max_iterations // self.restart))
+        max_restarts = max(1, self.n_max_iterations // self.restart)
+        op, pre = self.op, self.preconditioner
+        if hasattr(op, "to_dist"):
+            # halo-sharded operator: the Krylov loop runs on distributed
+            # vectors; a distributed V-cycle takes them as they are, any
+            # other preconditioner converts at its boundary
+            # (``ns_gls_tpu/solvers/linear.py:379-404``)
+            if getattr(pre, "distributed", False):
+                M = pre.vmult
+            else:
+                def M(x):
+                    return op.to_dist(pre.vmult(op.to_global(x)))
+            bd = op.to_dist(b)
+            res = gmres(op.vmult_dist, bd, bd.zeros_like(), M=M, tol=tol,
+                        restart=self.restart, max_restarts=max_restarts)
+            x = op.to_global(res.x)
+        else:
+            res = gmres(op.vmult, b, torch.zeros_like(b), M=pre.vmult,
+                        tol=tol, restart=self.restart,
+                        max_restarts=max_restarts)
+            x = res.x
         self.last_iterations = res.iterations
         if self.logger:
             self.logger(f"    [L] solved in {res.iterations} iterations.")
-        return res.x
+        return x
 
 
 class LinearSolverRichardson:

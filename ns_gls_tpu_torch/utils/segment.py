@@ -143,12 +143,16 @@ class SeamSums(NamedTuple):
     sources: torch.Tensor   # (n_rows,) every row belongs to one node
 
 
-def seam_sums(target: np.ndarray, n_out: int, device) -> SeamSums:
+def seam_sums(target: np.ndarray, n_out: int, device,
+              every_node: bool = True) -> SeamSums:
     """The table that sums, for every node 0..n_out-1, the rows p with
-    ``target[p]`` equal to it.  Every node needs a row."""
+    ``target[p]`` equal to it.  Every node needs a row, unless
+    ``every_node`` is false: a node without one then sums to zero (a
+    shard's window, whose ghost slots of constraint masters no tile of
+    the shard touches)."""
     target = np.asarray(target, np.int64).reshape(-1)
     counts = np.bincount(target, minlength=n_out)
-    if len(counts) != n_out or (counts == 0).any():
+    if len(counts) != n_out or (every_node and (counts == 0).any()):
         raise ValueError("every node needs at least one row")
     if len(target) >= 2**31:
         raise ValueError("the rows need 64-bit positions")

@@ -40,6 +40,8 @@ def test_import_loads_no_jax():
         "import ns_gls_tpu_torch.ops.matrix_based\n"
         "import ns_gls_tpu_torch.precond.ilu, ns_gls_tpu_torch.precond.amg\n"
         "import ns_gls_tpu_torch.utils.checkpoint\n"
+        "import ns_gls_tpu_torch.parallel.halo, "
+        "ns_gls_tpu_torch.parallel.sharding\n"
         "import bench_gpu, chip_smoke\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'ns_gls_tpu' "
@@ -83,19 +85,30 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     assert Driver(params, device="cpu").device == torch.device("cpu")
 
 
-def test_unported_configuration_raises():
-    """What the port does not cover yet: sharding (``n devices`` > 1)
-    raises when the driver is made; a degree above the fused kernels'
-    (1-6) raises when an f32 level's tables are built."""
+def test_unported_configuration_raises(monkeypatch):
+    """What the port does not cover yet: a degree above the fused
+    kernels' (1-6) raises when an f32 level's tables are built.  Sharding
+    (``n devices`` > 1) is ported: a driver builds on CPU shards, and
+    asking for more cards than there are raises."""
     from ns_gls_tpu_torch.config import Parameters
     from ns_gls_tpu_torch.driver import Driver
+    from ns_gls_tpu_torch.parallel.halo import HaloShardedOperator
 
     params = Parameters.from_dict({"preconditioner": "GMG",
                                    "nonlinear solver": "Newton",
                                    "gmg coarse grid solver": "direct",
+                                   "simulation name": "channel",
+                                   "n global refinements": 0,
                                    "n devices": 2})
-    with pytest.raises(NotImplementedError):
-        Driver(params, device="cpu")
+    drv = Driver(params, device="cpu")
+    drv.setup()
+    assert isinstance(drv.op, HaloShardedOperator)
+    assert drv.devices == (torch.device("cpu"),) * 2
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="requested 2 devices"):
+            Driver(params, device="cuda")
     with open(os.path.join(ROOT, "input", "channel.json")) as f:
         raw = json.load(f)
     params = Parameters.from_dict(raw | {"fe degree": 7,
@@ -125,20 +138,19 @@ SOLVER_OPTIONS = (
 def test_every_solver_option_is_ported(option):
     """A driver builds with each solver-stack option on the CPU."""
     from ns_gls_tpu_torch.config import Parameters
-    from ns_gls_tpu_torch.driver import Driver, _unsupported
+    from ns_gls_tpu_torch.driver import Driver
 
     params = Parameters.from_dict({"simulation name": "channel",
                                    "n global refinements": 0} | option)
-    assert _unsupported(params) == []
     Driver(params, device="cpu")
 
 
 def test_every_input_config_is_ported():
-    """Every configuration in ``input/`` passes ``_unsupported``, the
-    check of what the port covers (``input/rotation.json`` with GMG-LS
-    the last), and its simulation is built."""
+    """Every configuration in ``input/`` (``input/rotation.json`` with
+    GMG-LS the last to be ported) makes a driver on the CPU, and its
+    simulation is built."""
     from ns_gls_tpu_torch.config import Parameters
-    from ns_gls_tpu_torch.driver import _unsupported
+    from ns_gls_tpu_torch.driver import Driver
     from ns_gls_tpu_torch.models import make_simulation
 
     names = sorted(n for n in os.listdir(os.path.join(ROOT, "input"))
@@ -146,7 +158,7 @@ def test_every_input_config_is_ported():
     assert len(names) == 14 and "rotation.json" in names
     for name in names:
         p = Parameters.from_file(os.path.join(ROOT, "input", name))
-        assert _unsupported(p) == [], name
+        assert Driver(p, device="cpu").params is p, name
         make_simulation(p.simulation_name, p.dim)
 
 
