@@ -53,9 +53,10 @@ Phases (any failure exits non-zero and prints no result line):
    ragged bricks, multi-row slabs and several y chunks) and on the
    channel's level spaces, in every flavor x delta mode x consider_dt,
    two launches bit-identical, each timed at the finest level's shape
-   (the batched kernel's time there is logged only: no driver path gives
-   it that shape); the 2D and 3D kernels' registers, spills and shared
-   memory per block,
+   (the batched kernel too, though no driver path gives it that shape);
+   the 2D, 3D and batched 3D kernels' registers, spills and shared
+   memory per block (the 2D and batched ones' dynamic shared memory equal
+   to the host's formulas their plans are chosen by),
 10. channel 3D main path: 128 x 32 x 32 cells of Q2 (4,343,300 DoFs, six
     GMG levels, f64 outer, f32 levels on the 3D structured kernel, direct
     coarse) for 3 steps through ``Driver.run``; every Newton solve
@@ -1003,11 +1004,12 @@ def time_structured_args(tag, args, batched):
 
 
 def log_structured_build(tag, table_sets):
-    """Registers, spills and shared memory per block of the 2D and 3D
-    kernels as built, at each dimension and degree among ``table_sets``
-    (under the plan of the largest lattice of that degree, in the main
-    path's flavor); the 2D kernel's dynamic shared memory must be the
-    host's formula (``slab_smem_2d``), which its plans are chosen by."""
+    """Registers, spills and shared memory per block of the 2D, 3D and
+    batched 3D kernels as built, at each dimension and degree among
+    ``table_sets`` (under the plan of the largest lattice of that degree,
+    in the main path's flavor); the 2D and batched kernels' dynamic shared
+    memory must be the host's formula (``slab_smem_2d``,
+    ``batched_smem``), which their plans are chosen by."""
     from ns_gls_tpu_torch.ops import structured as st
 
     largest = {}
@@ -1032,6 +1034,22 @@ def log_structured_build(tag, table_sets):
             raise AssertionError(f"structured2d_kernel<{P}>: the launcher's "
                                  f"{a['dynamic_smem']} B of shared memory, "
                                  f"the host's formula {host} B")
+        if d == 3:
+            plan = st.batched_plan(P, t.cell_shape)
+            host = st.batched_smem(P, plan.xb, plan.zs, "increment", True)
+            a = st.StructuredKernel.attributes(P, plan, "increment", True,
+                                               batched=True)
+            log(f"[{tag}] structured3d_batched_kernel<{P}>: "
+                f"{a['registers']} registers, {a['local_bytes']} B local "
+                f"memory (spills), {a['static_smem']} B static + "
+                f"{a['dynamic_smem']} B dynamic shared memory per block "
+                f"(plan {tuple(plan)} at cells {t.cell_shape}, increment "
+                "with history)")
+            if a["dynamic_smem"] != host:
+                raise AssertionError(
+                    f"structured3d_batched_kernel<{P}>: the launcher's "
+                    f"{a['dynamic_smem']} B of shared memory, the host's "
+                    f"formula {host} B")
 
 
 def phase_structured2d_plans(tag, table_sets, errs):
@@ -2728,7 +2746,9 @@ def main() -> int:
         fine3 = drv_c3.mg_ops[-1]._fast.tables
         log_structured_build(9, [t for _, t, _ in sheared + levels3])
         t_s3 = time_structured(9, fine3, SC_CH, False)
-        time_structured(9, fine3, SC_CH, True)      # logged only
+        # the batched kernel at the channel's finest shape, which no
+        # driver path gives it: for its line in the kernels' JSON
+        t_s3b_fine = time_structured(9, fine3, SC_CH, True)
         # the last degree built (P = 6) at the sheared lattices' shapes
         s_high = {}
         for label, tables, sc in sheared:
@@ -2893,6 +2913,10 @@ def main() -> int:
                 # the last degree built (P = 6), sheared lattice of phase 9
                 p6=high,
             ))
+        # the batched kernel's times at 128 x 32 x 32 cells (phase 9)
+        kernels[-1].update(channel_fine={
+            k: t_s3b_fine[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                       "bound_ms", "bound_by")})
         # the 2D structured kernel on phase 18's Richardson and ILU
         # coarse-solver channel paths
         kernels[-2].update(richardson_launches=stack["richardson_launches"],

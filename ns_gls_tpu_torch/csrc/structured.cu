@@ -2,9 +2,9 @@
 // 3D variant that contracts all components together.
 //
 // Replaces the TPU kernels of ns_gls_tpu/ops/structured.py:
-//   structured2d_kernel<P>       <- _make_kernel_2d
-//   structured3d_kernel<P>       <- _make_kernel_3d
-//   structured3d_batched_kernel  <- _make_kernel_3d_batched
+//   structured2d_kernel<P>         <- _make_kernel_2d
+//   structured3d_kernel<P>         <- _make_kernel_3d
+//   structured3d_batched_kernel<P> <- _make_kernel_3d_batched
 // (the Pallas bodies of StructuredSweep).  Each computes the whole operator
 // apply on an affine lattice of cells: unfold the node lattice into cells,
 // evaluate u, u_lin and vec_old at every Gauss point (values and reference
@@ -26,11 +26,10 @@
 //   h      (n_c, 2)          h_min_vertex, measure-based h / P
 // with Nx = P*nx + 1, Yr = P*ny + 1, Zr = P*nz + 1.
 //
-// Each kernel's output and design are described at its code: the batched
-// 3D kernel (structured_body: sum-factorized along x only, cell-row tiles),
-// the 3D kernel and the 2D kernel (sum-factorized along every axis, the
-// node plane or row shared along the walk axis carried in a register, the
-// next slab copied while this one computes).  No atomics anywhere: two
+// Each kernel's output and design are described at its code: the 3D
+// kernel, the batched 3D kernel and the 2D kernel (sum-factorized along
+// every axis, the node plane or row shared along the walk axis carried in
+// a register, the next slab copied while this one computes).  No atomics anywhere: two
 // launches on the same inputs give the same bits; what two thread blocks
 // share is summed by the caller (ops/structured.py) in a fixed order.
 #include <cuda_runtime.h>
@@ -42,427 +41,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-// q-points per chunk the batched launcher aims for (one per thread)
-constexpr int kChunkQ = 256;
-// blocks the batched launcher aims for when it splits cell rows into x
-// segments
-constexpr int kTargetBlocks = 528;
-
-struct SDims {
-  int P, NQ, nx, ny, nz, XS, nseg, seg_cells;
-};
 
 // Class-grouped position of local node j of cell e on an axis of n cells:
 // classes 1..P-1 of n entries each, then class 0 of n + 1 entries.
 GLS_HD int cg_index(int P, int n, int e, int j) {
   const int k = j % P;
   return (k >= 1 ? (k - 1) * n : (P - 1) * n) + e + (j == P ? 1 : 0);
-}
-
-template <int D>
-GLS_HD int ipow(int b) {
-  int r = 1;
-#pragma unroll
-  for (int i = 0; i < D; ++i) r *= b;
-  return r;
-}
-
-// ===========================================================================
-// structured3d_batched_kernel: the 3D sweep factorized along x only, all
-// components of a work item through each contraction together
-// ===========================================================================
-//
-// Output: cell-row tiles out (C, nz, ny, R, Nx), R = (P+1)^2: a cell row is
-// the line of nx cells at one (ez, ey), (k, j) its node rows; row (row, r)
-// holds node row r integrated over that cell row only.  ops/structured.py
-// fold_tiles sums the node rows shared by two cell rows (fold_classes).
-//
-// Design.  One thread block per (x segment, cell row).  The block walks
-// along x in chunks of XS cells.  Per chunk it stages the R node rows x
-// (P*XS+1) nodes of every field in shared memory and sum-factorizes:
-//   1. x contraction: per (node row, cell, qx) the S1- and D1-weighted
-//      sums over the cell's P+1 nodes in x, every component of every field;
-//   2. one thread per q-point contracts the R node rows with products of
-//      the 1D tables (tabulated once per block), maps to physical
-//      gradients, runs the physics in registers and writes its 4*C
-//      test-function weights to shared memory;
-//   3. the adjoint of 2 over the NQ^2 q-rows, per (node row, cell, qx);
-//   4. the adjoint of 1, one thread per node: the node shared by two
-//      chunks is carried to the next chunk in shared memory and added
-//      there; the result goes to the block's cell-row tile.
-// Segments give coarse levels enough blocks: a segment that does not start
-// at x = 0 first recomputes the one cell to its left, only for the carry
-// into its first node column, and leaves its last node column to the next
-// segment.  It sums over (P+1)^2 node rows per q-point in step 2 and over
-// NQ^2 q-rows per node row in step 3, about 37 kFLOP per cell at P = 2,
-// every operand a shared-memory read.  Any degree.  No driver path selects
-// it (as in the JAX package); the gls-vmult lane `--batched` does.
-
-// The sweep of one block of the batched 3D kernel.
-__device__ __forceinline__ void structured_body(
-    const float* __restrict__ u, const float* __restrict__ ul,
-    const float* __restrict__ vo, const float* __restrict__ jinv,
-    const float* __restrict__ jxw, const float* __restrict__ hcell,
-    const float* __restrict__ S1g, const float* __restrict__ D1g,
-    float* __restrict__ out, const SDims dm, const int flavor,
-    const int consider_dt, const int cell_wise, const GlsScalars sc) {
-  extern __shared__ float smem[];
-  constexpr int D = 3;
-  constexpr int C = D + 1;
-  constexpr int T = D + 1;  // weight kinds per component: value, d/dxi_r
-  const int P = dm.P, NQ = dm.NQ, nx = dm.nx, ny = dm.ny, XS = dm.XS;
-  const int n1 = P + 1;
-  const int R = ipow<D - 1>(n1);    // node rows of a cell row
-  const int QR = ipow<D - 1>(NQ);   // q-rows of a cell row
-  const int NQD = QR * NQ;          // q-points per cell
-  const int Nx = P * nx + 1;
-  const int Yr = P * ny + 1;
-  const int XN = P * XS + 1;        // nodes staged per row (at most)
-  const int LX = NQ * XS;           // (cell, qx) columns per chunk (at most)
-  const int QS = QR * LX;           // q-points per chunk (at most)
-  const int RX = R * XN;
-  const int RL = R * LX;
-  const bool incr = flavor == GLS_INCREMENT;
-  const int lead_ul = incr ? C : D;
-  const bool need_dt_old =
-      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
-
-  const int seg = blockIdx.x % dm.nseg;
-  const int row = blockIdx.x / dm.nseg;   // cell row: ez*ny + ey
-  const int ey = row % ny;
-  const int ez = row / ny;
-  const int n_rows = ny * dm.nz;
-  const size_t nn = (size_t)Nx * Yr * (size_t)(P * dm.nz + 1);
-
-  float* sS1 = smem;                  // (NQ, n1)
-  float* sD1 = sS1 + NQ * n1;         // (NQ, n1)
-  float* sW = sD1 + NQ * n1;          // (D, QR, R): row weights; 0: values,
-                                      //   a >= 1: derivative along axis a
-  float* su = sW + D * QR * R;        // (C, R, XN) staged nodes
-  float* sul = su + C * RX;           // (C, R, XN)
-  float* svo = sul + C * RX;          // (D, R, XN)
-  float* sAu = svo + D * RX;          // (2, C, R, LX) x-contracted u: S, D;
-                                      //   reused for the adjoint (GS, GD)
-  float* sAl = sAu + 2 * C * RL;      // (2, C, R, LX) x-contracted u_lin
-  float* sAv = sAl + 2 * C * RL;      // (D, R, LX) x-contracted vec_old
-  float* susq = sAv + D * RL;         // (QS) |u*|^2 per q-point
-  float* sw = susq + QS;              // (T, C, QS) test-function weights
-  float* scarry = sw + T * C * QS;    // (2, C, R) x-seam carry, two buffers
-  int* sRow = reinterpret_cast<int*>(scarry + 2 * C * R);  // (R) row offsets
-
-  for (int i = threadIdx.x; i < NQ * n1; i += blockDim.x) {
-    sS1[i] = S1g[i];
-    sD1[i] = D1g[i];
-  }
-  // node row r = k*n1 + j; q-row qr = qz*NQ + qy
-  for (int i = threadIdx.x; i < QR * R; i += blockDim.x) {
-    const int qr = i / R, r = i - qr * R;
-    const int qz = qr / NQ, qy = qr - qz * NQ;
-    const int k = r / n1, j = r - k * n1;
-    const float sy = S1g[qy * n1 + j], dy = D1g[qy * n1 + j];
-    const float sz = S1g[qz * n1 + k], dz = D1g[qz * n1 + k];
-    sW[i] = sz * sy;
-    sW[QR * R + i] = sz * dy;
-    sW[2 * QR * R + i] = dz * sy;
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const int k = r / n1, j = r - k * n1;
-    sRow[r] = (cg_index(P, dm.nz, ez, k) * Yr + cg_index(P, ny, ey, j)) * Nx;
-  }
-  __syncthreads();
-
-  // this block's cells [x0, x1) of the cell row; a later segment starts
-  // with the cell left of x0, for the carry only
-  const int x0 = seg * dm.seg_cells;
-  const int x1 = min(nx, x0 + dm.seg_cells);
-  bool halo = seg > 0;
-  int cx = halo ? x0 - 1 : x0;
-  const int cx_first = cx;
-  const size_t cell_row0 = (size_t)row * nx;
-  int chunk = 0;
-
-  while (cx < x1) {
-    const int xs = halo ? 1 : min(XS, x1 - cx);  // cells in this chunk
-    const int xn = P * xs + 1;                   // nodes per row
-    const int lxn = NQ * xs;                     // (cell, qx) columns
-    const int nq = QR * lxn;                     // q = qr*lxn + ex*NQ + qx
-
-    // ---- phase 0: stage the chunk's node rows --------------------------
-    for (int i = threadIdx.x; i < R * xn; i += blockDim.x) {
-      const int r = i / xn, xl = i - r * xn;
-      const size_t g = (size_t)sRow[r] + P * cx + xl;
-      const int s = r * XN + xl;
-#pragma unroll
-      for (int c = 0; c < C; ++c) su[c * RX + s] = u[c * nn + g];
-      for (int c = 0; c < lead_ul; ++c) sul[c * RX + s] = ul[c * nn + g];
-      if (need_dt_old) {
-#pragma unroll
-        for (int c = 0; c < D; ++c) svo[c * RX + s] = vo[c * nn + g];
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 1: x contraction ----------------------------------------
-    for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
-      const int r = i / lxn, lx = i - r * lxn;
-      const int ex = lx / NQ, qx = lx - ex * NQ;
-      const int s0 = r * XN + P * ex;
-      const int a = r * LX + lx;
-      float vS[C], vD[C], lS[C], lD[C], oS[D];
-#pragma unroll
-      for (int c = 0; c < C; ++c) vS[c] = vD[c] = lS[c] = lD[c] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) oS[c] = 0.f;
-      for (int ii = 0; ii < n1; ++ii) {
-        const float s = sS1[qx * n1 + ii], dd = sD1[qx * n1 + ii];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float t = su[c * RX + s0 + ii];
-          vS[c] += s * t;
-          vD[c] += dd * t;
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c < lead_ul) {
-            const float t = sul[c * RX + s0 + ii];
-            lS[c] += s * t;
-            lD[c] += dd * t;
-          }
-        }
-        if (need_dt_old) {
-#pragma unroll
-          for (int c = 0; c < D; ++c) oS[c] += s * svo[c * RX + s0 + ii];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        sAu[c * RL + a] = vS[c];
-        sAu[(C + c) * RL + a] = vD[c];
-        sAl[c * RL + a] = lS[c];
-        sAl[(C + c) * RL + a] = lD[c];
-      }
-#pragma unroll
-      for (int c = 0; c < D; ++c) sAv[c * RL + a] = oS[c];
-    }
-    __syncthreads();
-
-    // ---- phase 2a (cell-wise delta): |u*|^2 at every q-point -----------
-    if (cell_wise) {
-      for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-        const int qr = q / lxn, lx = q - qr * lxn;
-        float us[D];
-#pragma unroll
-        for (int a = 0; a < D; ++a) us[a] = 0.f;
-        for (int r = 0; r < R; ++r) {
-          const float w0 = sW[qr * R + r];
-#pragma unroll
-          for (int a = 0; a < D; ++a) us[a] += w0 * sAl[a * RL + r * LX + lx];
-        }
-        float s2 = us[0] * us[0];
-#pragma unroll
-        for (int a = 1; a < D; ++a) s2 += us[a] * us[a];
-        susq[q] = s2;
-      }
-      __syncthreads();
-    }
-
-    // ---- phase 2: evaluate, physics, test-function weights -------------
-    for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-      const int qr = q / lxn, lx = q - qr * lxn;
-      const int ex = lx / NQ, qx = lx - ex * NQ;
-
-      // values and reference gradients (direction 0 = x, then the row axes)
-      float uv[C], ud[C][D], lv[C], ld[C][D], dto[D];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        uv[c] = lv[c] = 0.f;
-#pragma unroll
-        for (int a = 0; a < D; ++a) ud[c][a] = ld[c][a] = 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < D; ++a) dto[a] = 0.f;
-
-      for (int r = 0; r < R; ++r) {
-        float w[D];
-#pragma unroll
-        for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
-        const int a0 = r * LX + lx;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float aS = sAu[c * RL + a0], aD = sAu[(C + c) * RL + a0];
-          uv[c] += w[0] * aS;
-          ud[c][0] += w[0] * aD;
-#pragma unroll
-          for (int a = 1; a < D; ++a) ud[c][a] += w[a] * aS;
-        }
-        if (incr) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float aS = sAl[c * RL + a0], aD = sAl[(C + c) * RL + a0];
-            lv[c] += w[0] * aS;
-            ld[c][0] += w[0] * aD;
-#pragma unroll
-            for (int a = 1; a < D; ++a) ld[c][a] += w[a] * aS;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < D; ++c) lv[c] += w[0] * sAl[c * RL + a0];
-        }
-        if (need_dt_old) {
-#pragma unroll
-          for (int c = 0; c < D; ++c) dto[c] += w[0] * sAv[c * RL + a0];
-        }
-      }
-
-      // cell geometry
-      const size_t cell = cell_row0 + cx + ex;
-      float ji[D * D];
-#pragma unroll
-      for (int e = 0; e < D * D; ++e) ji[e] = jinv[cell * (D * D) + e];
-
-      // stabilization parameters
-      float d1, d2;
-      if (cell_wise) {
-        float msq = 0.f;
-        for (int qq = 0; qq < QR; ++qq)
-          for (int a = 0; a < NQ; ++a)
-            msq = fmaxf(msq, susq[qq * lxn + ex * NQ + a]);
-        gls_delta_cell(sc, hcell[cell * 2], msq, d1, d2);
-      } else {
-        float s2 = lv[0] * lv[0];
-#pragma unroll
-        for (int a = 1; a < D; ++a) s2 += lv[a] * lv[a];
-        gls_delta_q(sc, hcell[cell * 2 + 1], s2, d1, d2);
-      }
-
-      // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*D + x]
-      float ug[D][D], pg[D], gus[D][D], gps[D], uvel[D], us[D];
-#pragma unroll
-      for (int x = 0; x < D; ++x) {
-#pragma unroll
-        for (int a = 0; a < D; ++a) {
-          float g = 0.f, gl = 0.f;
-#pragma unroll
-          for (int r = 0; r < D; ++r) {
-            g += ud[a][r] * ji[r * D + x];
-            gl += ld[a][r] * ji[r * D + x];
-          }
-          ug[a][x] = g;
-          gus[a][x] = gl;
-        }
-        float g = 0.f, gl = 0.f;
-#pragma unroll
-        for (int r = 0; r < D; ++r) {
-          g += ud[D][r] * ji[r * D + x];
-          gl += ld[D][r] * ji[r * D + x];
-        }
-        pg[x] = g;
-        gps[x] = gl;
-        uvel[x] = uv[x];
-        us[x] = lv[x];
-      }
-
-      float vr[C], gr[C][D];
-      gls_physics<D>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
-                     uv[D], pg, us, gus, gps, dto, d1, d2, vr, gr);
-
-      const float w = jxw[cell * NQD + qx + NQ * qr];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        sw[c * QS + q] = vr[c] * w;
-#pragma unroll
-        for (int r = 0; r < D; ++r) {
-          float g = 0.f;
-#pragma unroll
-          for (int x = 0; x < D; ++x) g += gr[c][x] * ji[r * D + x];
-          sw[((1 + r) * C + c) * QS + q] = g * w;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 3: adjoint over the q-rows ------------------------------
-    // GS (values along x) -> sAu[c], GD (x-derivatives) -> sAu[C + c]
-    for (int i = threadIdx.x; i < R * lxn; i += blockDim.x) {
-      const int r = i / lxn, lx = i - r * lxn;
-      float gS[C], gD[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) gS[c] = gD[c] = 0.f;
-      for (int qr = 0; qr < QR; ++qr) {
-        float w[D];
-#pragma unroll
-        for (int a = 0; a < D; ++a) w[a] = sW[(a * QR + qr) * R + r];
-        const int q = qr * lxn + lx;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float t = w[0] * sw[c * QS + q];
-#pragma unroll
-          for (int a = 1; a < D; ++a)
-            t += w[a] * sw[((1 + a) * C + c) * QS + q];
-          gS[c] += t;
-          gD[c] += w[0] * sw[(C + c) * QS + q];
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        sAu[c * RL + r * LX + lx] = gS[c];
-        sAu[(C + c) * RL + r * LX + lx] = gD[c];
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 4: x adjoint, carry, write ------------------------------
-    const float* cin = scarry + (chunk & 1) * C * R;
-    float* cout = scarry + ((chunk + 1) & 1) * C * R;
-    const bool have_carry = cx > cx_first;
-    const bool row_end = cx + xs >= nx;   // the cell row's last chunk
-    for (int i = threadIdx.x; i < R * xn; i += blockDim.x) {
-      const int r = i / xn, xl = i - r * xn;
-      const int ex_lo = xl > 0 ? (xl - 1) / P : 0;
-      const int ex_hi = min(xl / P, xs - 1);
-      float acc[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = 0.f;
-      for (int ex = ex_lo; ex <= ex_hi; ++ex) {
-        const int ii = xl - P * ex;
-        for (int qx = 0; qx < NQ; ++qx) {
-          const float s = sS1[qx * n1 + ii], dd = sD1[qx * n1 + ii];
-          const int a0 = r * LX + ex * NQ + qx;
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            acc[c] += s * sAu[c * RL + a0] + dd * sAu[(C + c) * RL + a0];
-        }
-      }
-      const bool seam_out = xl == xn - 1 && !row_end;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float v = acc[c];
-        if (xl == 0 && have_carry) v += cin[c * R + r];
-        if (seam_out) {
-          cout[c * R + r] = v;
-        } else if (!halo) {
-          out[(((size_t)c * n_rows + row) * R + r) * Nx + P * cx + xl] = v;
-        }
-      }
-    }
-    __syncthreads();
-
-    cx += xs;
-    halo = false;
-    ++chunk;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-structured3d_batched_kernel(
-    const float* __restrict__ u, const float* __restrict__ ul,
-    const float* __restrict__ vo, const float* __restrict__ jinv,
-    const float* __restrict__ jxw, const float* __restrict__ hcell,
-    const float* __restrict__ S1g, const float* __restrict__ D1g,
-    float* __restrict__ out, SDims dm, int flavor, int consider_dt,
-    int cell_wise, GlsScalars sc) {
-  structured_body(u, ul, vo, jinv, jxw, hcell, S1g, D1g, out, dm, flavor,
-                  consider_dt, cell_wise, sc);
 }
 
 // ===========================================================================
@@ -523,8 +107,8 @@ structured3d_batched_kernel(
 //
 // Measured (tools/structured_levels.py, device time by torch.profiler,
 // NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): 370.1 us at 128 x
-// 32 x 32 cells of Q2 (the x-only design 1,328.4 us and the batched kernel
-// 667.6 us in the same process), 7.9x the 47.0 us bound.  The kernel is bound by
+// 32 x 32 cells of Q2 (the x-only design 1,328.4 us and the first batched
+// design 667.6 us in the same process), 7.9x the 47.0 us bound.  The kernel is bound by
 // latency, not by its arithmetic: tools/structured_ablation.py times it
 // with the slab copies or the physics taken out, and
 // tools/structured_stage_clocks.py counts the cycles of each stage.  Tried
@@ -1077,6 +661,866 @@ structured3d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
 }
 
 // ===========================================================================
+// structured3d_batched_kernel<P>: the 3D sweep, sum-factorized along z, x
+// and y, every 1D contraction one product over all components stacked
+// ===========================================================================
+//
+// Output: that of structured3d_kernel above, tiles (C, Zr, ny, P+1, Nx)
+// and seams (C, Zr, ny, P+1, nbx), summed by ops/structured.py
+// fold_bricks.
+//
+// Replaces _make_kernel_3d_batched (ns_gls_tpu/ops/structured.py:910):
+// the 3D kernel's function, with all components through each contraction
+// together.  No driver path of either package selects it
+// (StructuredSweep(..., batched=True) and the bench_gpu.py --batched
+// lanes do).
+//
+// What bounds it: the function's operations (utils/roofline.py
+// structured_cost; about 24 kFLOP a cell of Q2 at the f32 peak, 67
+// TFLOP/s: 11.8 us at 32^3 cells, 47.0 us at 128 x 32 x 32, increment
+// flavor with the history).
+//
+// Design.  The walk, output and loads are structured3d_kernel's: one
+// thread block per (x brick, cell row, z chunk) of a plan made at table
+// build (ops/structured.py batched_plan), walking its chunk in slabs; the
+// next slab's node planes and cell geometry are copied with cp.async into
+// a second buffer while this slab computes (TMA was not taken: the planes
+// are gathered through class-grouped y and z rows, one box per node row,
+// and the copies' issue is about 13% of the stage clocks); the node plane
+// shared by two cell layers is carried in a register, and fold_bricks sums
+// the x seams and the node rows shared by two cell rows.  Sum-factorized
+// along z, x and y and back (about 24 kFLOP a cell at P = 2), P a template
+// parameter (NQ = P + 1).  Each of the six 1D contractions is one product
+// C = A B over a slab: A's rows stack every field's components (E1-E3: u,
+// u_lin, vec_old, then their z- and x-derivatives; I3-I1: the four
+// test-function components and their weight kinds), K the P + 1 nodes
+// (2 NQ q-points going back), N both tables at once, [S1^T | D1^T] (its
+// transpose going back).  The physics runs per q-point in f32 registers
+// (gls_qpoint.cuh); the cell-wise delta takes a warp per cell.  No
+// atomics: two launches on the same inputs give the same bits.
+//
+// Tensor cores or FMAs, per stage (kSbFma), by the stage clocks
+// (tools/structured_stage_clocks.py --batched, NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md section 7): a product on the f64 tensor cores
+// (mma.sync.m16n8k4, f32 operands widened exactly, one rounding a stage;
+// the padded products use 25-100% of the forward MMAs and 25-77% of the
+// adjoint ones, 56% and 28% at P = 2) took 1.3-11x the cycles of the same
+// product on f32 FMAs in every stage at every degree 1-6 (FMA over tensor
+// cores 0.09-0.75; at P = 2 on 128 x 32 x 32 cells 0.15-0.44).  So every
+// stage runs on FMAs.  Why (tools/dmma_probe.py, same card): the products
+// are tiny (K <= 14, N <= 14), their operands live in f32 shared memory,
+// and a conversion to f64 and back runs at 20 a clock per SM against 116
+// f32 FMAs, so the conversions alone cost more than the FMAs they
+// replace; keeping the intermediates in f64 instead would double the
+// shared-memory bytes each stage moves, which bound it.
+//
+// Measured (tools/structured_levels.py --batched-baseline, device time by
+// torch.profiler, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6):
+// 133.9 us at 32^3 cells of Q2 (the x-only design it replaces 166.3 us,
+// structured3d_kernel 98.7 us, in the same process), 528.2 us at 128 x 32
+// x 32 (663.2 and 367.3 us): 11.4x the bound, no stage above 17% of the
+// cycles (the physics, the y contraction and the slab copies' issue the
+// largest).  Launch: 256 threads, 102 registers at P = 2, no spills; two
+// blocks per SM below P = 6 (101 KB at P = 2 in bricks of 4 cells, slabs
+// of 3 layers), one block of 115 KB at P = 6.
+
+// the six 1D contraction stages, in the order they run
+enum SbStage { SB_E1 = 0, SB_E2, SB_E3, SB_I3, SB_I2, SB_I1 };
+
+// Stages (a bit per SbStage) that run as f32 FMAs, one thread a row, in
+// place of f64 products on the tensor cores: every stage, at every degree,
+// by the stage clocks (the note above).  tools/structured_stage_clocks.py
+// builds the kernel with SB_FMA_MASK set to time every stage both ways.
+#ifdef SB_FMA_MASK
+constexpr unsigned kSbFma = SB_FMA_MASK;
+#else
+constexpr unsigned kSbFma = 0x3Fu;
+#endif
+
+// Cycles per stage, for tools/structured_stage_clocks.py (built with
+// SB_STAGE_CLOCKS): thread 0 of every block reads clock64() after each
+// stage's barrier and adds the differences to g_sb_stage at the end.
+#ifdef SB_STAGE_CLOCKS
+__device__ unsigned long long g_sb_stage[11];
+#define SB_CLOCK_BEGIN \
+  long long sb_st[11] = {0}; \
+  long long sb_t0 = clock64();
+#define SB_MARK(k)                      \
+  if (threadIdx.x == 0) {               \
+    const long long sb_t1 = clock64();  \
+    sb_st[k] += sb_t1 - sb_t0;          \
+    sb_t0 = sb_t1;                      \
+  }
+#define SB_MARK_SYNC(k) \
+  __syncthreads();      \
+  SB_MARK(k)
+#define SB_CLOCK_END                                               \
+  if (threadIdx.x == 0)                                            \
+    for (int q = 0; q < 11; ++q)                                   \
+      atomicAdd(&g_sb_stage[q], (unsigned long long)sb_st[q]);
+#else
+#define SB_CLOCK_BEGIN
+#define SB_MARK(k)
+#define SB_MARK_SYNC(k)
+#define SB_CLOCK_END
+#endif
+
+#ifndef SWEEP_HOST_REHEARSAL
+// c += a b on the tensor cores in f64, one warp: A 16 x 4 (this lane: rows
+// g and g + 8 of column t), B 4 x 8 (row t, column g), C 16 x 8 (rows g and
+// g + 8 of columns 2t and 2t + 1); g = lane / 4, t = lane % 4
+__device__ __forceinline__ void dmma_16x8x4(double (&c)[4], double a0,
+                                            double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+#endif
+
+// C = A B over the n_rows rows of one contraction stage St, B the K x N
+// table tab(k, n).  On the tensor cores: a warp takes 16 rows at a time,
+// the f32 operands widened to f64 (exactly), summed in f64 and rounded to
+// f32 once.  With kFma: one thread a row, f32 FMAs.  St gives a row's
+// state (St::Row: the stage's digits from row v on in steps of st, ok
+// while the row exists), a(r, k) (0 for a row past the end) and c(r, n, v)
+// (drops what the stage does not keep).
+template <int K, int N, bool kFma, class St, class Tab>
+__device__ __forceinline__ void sb_product(const St& st, int n_rows,
+                                           Tab tab) {
+  if constexpr (kFma) {
+    float bt[K][N];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int n = 0; n < N; ++n) bt[k][n] = tab(k, n);
+    for (auto r = st.row(threadIdx.x, blockDim.x); r.ok; st.next(r)) {
+      float a[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) a[k] = (float)st.a(r, k);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc = fmaf(bt[k][n], a[k], acc);
+        st.c(r, n, (double)acc);
+      }
+    }
+  } else {
+    constexpr int KS = (K + 3) / 4, NB = (N + 7) / 8;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int w0 = (threadIdx.x >> 5) * 16, step = (blockDim.x >> 5) * 16;
+    double b[KS][NB];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int k = 4 * ks + t, n = 8 * nb + g;
+        b[ks][nb] = k < K && n < N ? (double)tab(k, n) : 0.0;
+      }
+    auto r0 = st.row(w0 + g, step);
+    auto r1 = st.row(w0 + g + 8, step);
+    for (int m = w0; m < n_rows; m += step) {   // warp-uniform
+      double a0[KS], a1[KS];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int k = 4 * ks + t;
+        a0[ks] = k < K ? st.a(r0, k) : 0.0;
+        a1[ks] = k < K ? st.a(r1, k) : 0.0;
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        double c[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          dmma_16x8x4(c, a0[ks], a1[ks], b[ks][nb]);
+        const int n = 8 * nb + 2 * t;
+        if (n < N) {
+          st.c(r0, n, c[0]);
+          st.c(r1, n, c[2]);
+        }
+        if (n + 1 < N) {
+          st.c(r0, n + 1, c[1]);
+          st.c(r1, n + 1, c[3]);
+        }
+      }
+      st.next(r0);
+      st.next(r1);
+    }
+  }
+}
+
+// The stages.  Shared-memory layouts, floats, every extent padded to the
+// plan's brick (XB cells, XN = P XB + 1 nodes, LX = NQ XB q-columns) and
+// slab (ZS layers, ZN = P ZS + 1 node planes, LZ = NQ ZS q-layers); a row
+// in the padding computes values nothing reads.
+//   in   (NF, ZN, n1, XN)           staged node planes of every field
+//   A    (NF + NG, LZ, n1, XN)      along z: values, then z-derivatives of
+//                                   the NG fields with gradients
+//   X    (NF + 2 NG, LZ, n1, LX)    along x: A's planes, then XD
+//                                   (x-derivatives of the NG fields)
+//   Q    (NF + 3 NG, QS)            along y, at the q-points q = (iz NQ +
+//                                   qy) LX + ix: values (NF), d/dz, d/dx,
+//                                   d/dy (NG each)
+//   W    (4 kinds, 4 c, QS)         test-function weights: value, d/dxi_x,
+//                                   d/dxi_y, d/dxi_z
+//   Y    (4 c, 3, LZ, n1, LX)       back along y: value (with the y
+//                                   weights), x, z
+//   V    (4 c, 2, LZ, n1, XB, n1)   back along x, per cell: value (with
+//                                   the x weights), z
+//   O    (4 c, n1, ZS, XN, n1)      back along z, per cell layer
+// The forward stages' table is [S1^T | D1^T] (K = P + 1 nodes, N = 2 NQ),
+// the adjoint stages' its transpose (K = 2 NQ, N = P + 1).
+
+// E1, along z: row (m, e, f): node m = j XN + x of a plane, cell layer e,
+// field f; A: the layer's P + 1 node planes; C: S into A, D into Az
+template <int P>
+struct SbE1 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int PL, ZN, LZ, zs, NF, NG, AZ;
+  struct Row {
+    StridedDigits<3> d;
+    int ia, ic;
+    bool ok, grads;
+  };
+  __device__ void set(Row& r) const {
+    const int m = r.d.d[0], e = r.d.d[1], f = r.d.d[2];
+    r.ok = r.d.valid();
+    r.grads = f < NG;
+    r.ia = (f * ZN + P * e) * PL + m;
+    r.ic = (f * LZ + NQ * e) * PL + m;
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<3>({PL, zs, NF}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    return r.ok ? (double)in[r.ia + k * PL] : 0.0;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (!r.ok) return;
+    if (n < NQ) {
+      out[r.ic + n * PL] = (float)v;
+    } else if (r.grads) {
+      out[AZ + r.ic + (n - NQ) * PL] = (float)v;
+    }
+  }
+};
+
+// E2, along x: row (ex, L): cell ex of the brick, line L = (plane, q-layer,
+// node row) of A and Az; A: the cell's P + 1 nodes; C: S into X (plane for
+// plane), D into XD (the fields with gradients)
+template <int P>
+struct SbE2 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int XN, LX, xb, nL, nG, XD;
+  struct Row {
+    StridedDigits<2> d;
+    int ia, ic;
+    bool ok, grads;
+  };
+  __device__ void set(Row& r) const {
+    const int ex = r.d.d[0], L = r.d.d[1];
+    r.ok = r.d.valid();
+    r.grads = L < nG;
+    r.ia = L * XN + P * ex;
+    r.ic = L * LX + NQ * ex;
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<2>({xb, nL}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    return r.ok ? (double)in[r.ia + k] : 0.0;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (!r.ok) return;
+    if (n < NQ) {
+      out[r.ic + n] = (float)v;
+    } else if (r.grads) {
+      out[XD + r.ic + n - NQ] = (float)v;
+    }
+  }
+};
+
+// E3, along y: row (ix, M): q-column ix, M = plane p LZ + q-layer of X;
+// A: the P + 1 node rows; C: S into Q plane p, D into the y-derivatives
+// (p < NG)
+template <int P>
+struct SbE3 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int LX, lx, nM, mG, QD;
+  struct Row {
+    StridedDigits<2> d;
+    int ia, ic;
+    bool ok, grads;
+  };
+  __device__ void set(Row& r) const {
+    const int ix = r.d.d[0], M = r.d.d[1];
+    r.ok = r.d.valid();
+    r.grads = M < mG;
+    r.ia = M * (P + 1) * LX + ix;
+    r.ic = M * NQ * LX + ix;
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<2>({lx, nM}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    return r.ok ? (double)in[r.ia + k * LX] : 0.0;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (!r.ok) return;
+    if (n < NQ) {
+      out[r.ic + n * LX] = (float)v;
+    } else if (r.grads) {
+      out[QD + r.ic + (n - NQ) * LX] = (float)v;
+    }
+  }
+};
+
+// I3, back along y: row (ix, iz, ck), ck = c * 3 + kind (0: the values
+// with the d/dxi_y weights, 1: d/dxi_x, 2: d/dxi_z); A: the kind's
+// weights at the NQ q-rows (kind 0: then the y weights); C into Y
+template <int P>
+struct SbI3 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int LX, lx, LZ, QS;
+  struct Row {
+    StridedDigits<3> d;
+    int ia, ic;
+    bool ok, val;
+  };
+  __device__ void set(Row& r) const {
+    const int ix = r.d.d[0], iz = r.d.d[1], ck = r.d.d[2];
+    const int c = ck / 3, kd = ck - 3 * c;
+    r.ok = r.d.valid();
+    r.val = kd == 0;
+    r.ia = ((kd == 2 ? 3 : kd) * 4 + c) * QS + iz * NQ * LX + ix;
+    r.ic = (ck * LZ + iz) * (P + 1) * LX + ix;
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<3>({lx, LZ, 12}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    if (!r.ok) return 0.0;
+    if (k < NQ) return (double)in[r.ia + k * LX];
+    return r.val ? (double)in[r.ia + 8 * QS + (k - NQ) * LX] : 0.0;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (r.ok) out[r.ic + n * LX] = (float)v;
+  }
+};
+
+// I2, back along x: row (ex, izj, cz): cell ex, izj = q-layer n1 + node
+// row, cz = c * 2 + kind (0: values with the x weights, 1: z); A: Y at the
+// cell's NQ q-columns; C: the cell's P + 1 nodes into V
+template <int P>
+struct SbI2 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int LX, XB, xb, LZn1, YS;
+  struct Row {
+    StridedDigits<3> d;
+    int ia, ic;
+    bool ok, val;
+  };
+  __device__ void set(Row& r) const {
+    const int ex = r.d.d[0], izj = r.d.d[1], cz = r.d.d[2];
+    const int c = cz >> 1, kz = cz & 1;
+    r.ok = r.d.valid();
+    r.val = kz == 0;
+    r.ia = ((c * 3 + 2 * kz) * LZn1 + izj) * LX + NQ * ex;
+    r.ic = ((cz * LZn1 + izj) * XB + ex) * (P + 1);
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<3>({xb, LZn1, 8}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    if (!r.ok) return 0.0;
+    if (k < NQ) return (double)in[r.ia + k];
+    return r.val ? (double)in[r.ia + YS + k - NQ] : 0.0;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (r.ok) out[r.ic + n] = (float)v;
+  }
+};
+
+// I1, back along z: row (x, j, e, c): node x of the brick, node row j,
+// cell layer e, component c; A: V's values then z weights at the layer's
+// NQ q-layers, node x's parts from the cells on both sides summed (in
+// f64, exactly); C: the layer's P + 1 node planes into O
+template <int P>
+struct SbI1 {
+  static constexpr int NQ = P + 1;
+  const float* in;
+  float* out;
+  int xn, xb, zs, ZS, XN, VJ, VI, VK;
+  struct Row {
+    StridedDigits<4> d;
+    int ia, ic;
+    bool ok, left;
+  };
+  __device__ void set(Row& r) const {
+    const int x = r.d.d[0], j = r.d.d[1], e = r.d.d[2], c = r.d.d[3];
+    const int ex = min(x / P, xb - 1), i = x - P * ex;
+    r.ok = r.d.valid();
+    r.left = i == 0 && ex > 0;
+    r.ia = 2 * c * VK + e * NQ * VI + j * VJ + ex * (P + 1) + i;
+    r.ic = (((c * (P + 1) + j) * ZS + e) * XN + x) * (P + 1);
+  }
+  __device__ Row row(int v, int st) const {
+    Row r{StridedDigits<4>({xn, P + 1, zs, 4}, v, st)};
+    set(r);
+    return r;
+  }
+  __device__ void next(Row& r) const {
+    r.d.next();
+    set(r);
+  }
+  __device__ double a(const Row& r, int k) const {
+    if (!r.ok) return 0.0;
+    const int o = r.ia + (k < NQ ? k * VI : VK + (k - NQ) * VI);
+    const double v = (double)in[o];
+    return r.left ? v + (double)in[o - 1] : v;
+  }
+  __device__ void c(const Row& r, int n, double v) const {
+    if (r.ok) out[r.ic + n] = (float)v;
+  }
+};
+
+// shared-memory regions of one block, in floats: the staged node planes
+// and the cells' geometry (two buffers each), region 1 (A -> Q -> Y -> O),
+// region 2 (X -> W -> V) and the cells' max |u*|^2
+struct SbSmem {
+  size_t in, geo, r1, r2, cells;
+  __host__ __device__ size_t total() const {
+    return in + geo + r1 + r2 + cells;
+  }
+};
+
+__host__ __device__ inline SbSmem sb_smem(int P, int XB, int ZS, int NF,
+                                          int NG) {
+  const size_t n1 = P + 1, NQ = P + 1;
+  const size_t XN = (size_t)P * XB + 1, LX = NQ * XB;
+  const size_t ZN = (size_t)P * ZS + 1, LZ = NQ * ZS;
+  const size_t PL = n1 * XN, QS = LZ * NQ * LX, XF = LZ * n1 * LX;
+  const size_t cells = (size_t)ZS * XB;
+  return SbSmem{
+      2 * NF * ZN * PL, 2 * cells * (11 + NQ * NQ * NQ),
+      s3_max(s3_max((NF + NG) * LZ * PL, (NF + 3 * NG) * QS),
+             s3_max(12 * XF, 4 * n1 * ZS * XN * n1)),
+      s3_max(s3_max((NF + 2 * NG) * XF, 16 * QS), 8 * LZ * n1 * XB * n1),
+      cells};
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<P>)
+structured3d_batched_kernel(
+    const float* __restrict__ u, const float* __restrict__ ul,
+    const float* __restrict__ vo, const float* __restrict__ jinv,
+    const float* __restrict__ jxw, const float* __restrict__ hcell,
+    const float* __restrict__ S1g, const float* __restrict__ D1g,
+    float* __restrict__ tiles, float* __restrict__ seams, S3Dims dm,
+    int flavor, int consider_dt, int cell_wise, GlsScalars sc) {
+  extern __shared__ float smem[];
+  constexpr int n1 = P + 1, NQ = P + 1, NQ3 = NQ * NQ * NQ;
+  const int nx = dm.nx, ny = dm.ny, nz = dm.nz, XB = dm.XB, ZS = dm.ZS;
+  int blk = blockIdx.x;
+  const int kz = blk % dm.nzb;
+  blk /= dm.nzb;
+  const int bx = blk % dm.nbx;
+  const int ey = blk / dm.nbx;
+  const int x0 = bx * XB;
+  const int xb = min(XB, nx - x0);   // cells in this brick
+  const int xn = P * xb + 1;         // its nodes along x
+  const int Nx = P * nx + 1, Yr = P * ny + 1, Zr = P * nz + 1;
+  const int XN = P * XB + 1, LX = NQ * XB, ZN = P * ZS + 1, LZ = NQ * ZS;
+  const int PL = n1 * XN;
+  const int QS = LZ * NQ * LX;
+  const bool incr = flavor == GLS_INCREMENT;
+  const int lead_ul = incr ? 4 : 3;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + lead_ul + (need_dt_old ? 3 : 0);   // staged fields
+  const int NG = incr ? 8 : 4;                         // fields with grads
+
+  // the z chunk: owned layers [zb, ze), walked from lo (one layer below
+  // zb when the chunk does not start the column)
+  const int zb = kz * dm.ZC;
+  const int ze = min(zb + dm.ZC, nz);
+  const int lo = zb > 0 ? zb - 1 : 0;
+
+  const SbSmem sm = sb_smem(P, XB, ZS, NF, NG);
+  const int GB = ZS * XB * (11 + NQ3);   // one geometry buffer
+  float* sIn = smem;                     // (2, NF, ZN, n1, XN)
+  float* sGeo = sIn + sm.in;             // (2, [ZS, XB, 9 | ZS, XB, 2 |
+                                         //      ZS, XB, NQ^3])
+  float* sR1 = sGeo + sm.geo;            // A -> Q -> Y -> O
+  float* sR2 = sR1 + sm.r1;              // X -> W -> V
+  float* scell = sR2 + sm.r2;            // (ZS, XB) max |u*|^2 per cell
+
+  // the brick's first node of every staged field, and the class-grouped
+  // offset of each node row j of cell row ey
+  __shared__ const float* sField[11];
+  __shared__ int sRow[n1];
+  const size_t nn = (size_t)Nx * Yr * Zr;
+  if (threadIdx.x < NF) {
+    const int f = threadIdx.x;
+    sField[f] = (f < 4 ? u + f * nn
+                       : (f < 4 + lead_ul ? ul + (f - 4) * nn
+                                          : vo + (f - 4 - lead_ul) * nn)) +
+                P * x0;
+  }
+  if (threadIdx.x < n1)
+    sRow[threadIdx.x] = cg_index(P, ny, ey, threadIdx.x) * Nx;
+  __syncthreads();
+
+  // the node copies of a slab: thread group tg (of n_grp) keeps one node
+  // (row j, x) of the brick's planes and walks its share of the (plane,
+  // field) pairs
+  const int nrx = n1 * xn;
+  const int n_grp = blockDim.x / nrx;
+  const int tg = threadIdx.x / nrx;
+  const int t_j = (threadIdx.x - tg * nrx) / xn;
+  const int t_x = threadIdx.x - tg * nrx - t_j * xn;
+  const int t_src = sRow[t_j] + t_x;
+  const int YN = Yr * Nx;
+
+  // copy the node planes and cell geometry of the slab starting at cell
+  // layer zl0 into buffer buf (cp.async; the caller commits)
+  auto stage = [&](int zl0, int zs, int buf) {
+    const int zn = P * zs + 1;
+    if (tg < n_grp) {
+      float* dst0 = sIn + buf * NF * ZN * PL + t_j * XN + t_x;
+      for (StridedDigits<2> e({zn, NF}, tg, n_grp); e.valid(); e.next()) {
+        const int zl = e.d[0], f = e.d[1];
+        cp_async4(dst0 + (f * ZN + zl) * PL,
+                  sField[f] +
+                      (cg_index(P, nz, zl0 + zl / P, zl % P) * YN + t_src));
+      }
+    }
+    float* gJ = sGeo + buf * GB;
+    float* gH = gJ + ZS * XB * 9;
+    float* gQ = gH + ZS * XB * 2;
+    const size_t c0 = ((size_t)zl0 * ny + ey) * nx + x0;
+    const size_t lay = (size_t)ny * nx;   // cells per layer
+    for (StridedDigits<2> e({xb * 9, zs}); e.valid(); e.next())
+      cp_async4(gJ + e.d[1] * XB * 9 + e.d[0],
+                jinv + (c0 + e.d[1] * lay) * 9 + e.d[0]);
+    for (StridedDigits<2> e({xb * 2, zs}); e.valid(); e.next())
+      cp_async4(gH + e.d[1] * XB * 2 + e.d[0],
+                hcell + (c0 + e.d[1] * lay) * 2 + e.d[0]);
+    for (StridedDigits<2> e({xb * NQ3, zs}); e.valid(); e.next())
+      cp_async4(gQ + e.d[1] * XB * NQ3 + e.d[0],
+                jxw + (c0 + e.d[1] * lay) * NQ3 + e.d[0]);
+  };
+
+  // the 1D tables as the stages' B: forward [S1^T | D1^T] (nodes -> q-
+  // point values, derivatives), adjoint its transpose
+  auto fwd = [&](int k, int n) {
+    return n < NQ ? __ldg(S1g + n * n1 + k) : __ldg(D1g + (n - NQ) * n1 + k);
+  };
+  auto adj = [&](int k, int n) {
+    return k < NQ ? __ldg(S1g + k * n1 + n) : __ldg(D1g + (k - NQ) * n1 + n);
+  };
+
+  // the z carries of the output columns this thread owns, (c, j, x) =
+  // threadIdx.x + k * blockDim.x, fixed for the whole walk
+  const int n_cols = 4 * n1 * xn;
+  float carry[kMaxCols3];
+#pragma unroll
+  for (int k = 0; k < kMaxCols3; ++k) carry[k] = 0.f;
+
+  const int n_slabs = (ze - lo + ZS - 1) / ZS;
+  SB_CLOCK_BEGIN
+  stage(lo, min(ZS, ze - lo), 0);
+  cp_async_commit();
+  for (int s = 0; s < n_slabs; ++s) {
+    const int zl0 = lo + s * ZS;
+    const int zs = min(ZS, ze - zl0);   // cell layers in this slab
+    const int lz = NQ * zs;             // q-point layers in this slab
+    const int lx = NQ * xb;             // q-point columns of the brick
+    if (s + 1 < n_slabs) {
+      const int z1 = zl0 + ZS;
+      stage(z1, min(ZS, ze - z1), (s + 1) & 1);
+      cp_async_commit();
+    }
+    SB_MARK(0)
+    if (s + 1 < n_slabs) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    SB_MARK(1)
+    const float* sbuf = sIn + (s & 1) * NF * ZN * PL;
+    const float* gJ = sGeo + (s & 1) * GB;
+    const float* gH = gJ + ZS * XB * 9;
+    const float* gQ = gH + ZS * XB * 2;
+
+    // ---- E1: along z, in -> A, Az -------------------------------------
+    sb_product<n1, 2 * NQ, ((kSbFma >> SB_E1) & 1) != 0>(
+        SbE1<P>{sbuf, sR1, PL, ZN, LZ, zs, NF, NG, NF * LZ * PL},
+        PL * zs * NF, fwd);
+    __syncthreads();
+    SB_MARK(2)
+
+    // ---- E2: along x, A, Az -> X, XZ, XD -------------------------------
+    const int XF = LZ * n1 * LX;
+    sb_product<n1, 2 * NQ, ((kSbFma >> SB_E2) & 1) != 0>(
+        SbE2<P>{sR1, sR2, XN, LX, xb, (NF + NG) * LZ * n1, NG * LZ * n1,
+                (NF + NG) * XF},
+        xb * (NF + NG) * LZ * n1, fwd);
+    __syncthreads();
+    SB_MARK(3)
+
+    // ---- E3: along y, X -> Q -------------------------------------------
+    sb_product<n1, 2 * NQ, ((kSbFma >> SB_E3) & 1) != 0>(
+        SbE3<P>{sR2, sR1, LX, lx, (NF + 2 * NG) * LZ, NG * LZ,
+                (NF + 2 * NG) * QS},
+        lx * (NF + 2 * NG) * LZ, fwd);
+    __syncthreads();
+    SB_MARK(4)
+    const float* sQ = sR1;
+    float* sW = sR2;
+
+    // ---- E3a (cell-wise delta): max |u*|^2 over each cell's NQ^3
+    // q-points, one warp per cell and a shuffle reduction -> scell
+    if (cell_wise) {
+      const int lane = threadIdx.x & 31;
+      for (int w = threadIdx.x >> 5; w < zs * xb; w += blockDim.x >> 5) {
+        const int ezl = w / xb, ex = w - ezl * xb;
+        float m = 0.f;
+        for (int t = lane; t < NQ3; t += 32) {
+          const int qz = t / (NQ * NQ), qy = (t / NQ) % NQ, qx = t % NQ;
+          const int q = ((ezl * NQ + qz) * NQ + qy) * LX + ex * NQ + qx;
+          float us = 0.f;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float v = sQ[(4 + c) * QS + q];
+            us = fmaf(v, v, us);
+          }
+          m = fmaxf(m, us);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if (lane == 0) scell[ezl * XB + ex] = m;
+      }
+      __syncthreads();
+    }
+    SB_MARK(5)
+
+    // ---- physics: delta, the q-point algebra, test-function weights ----
+    for (StridedDigits<3> it({lx, NQ, lz}); it.valid(); it.next()) {
+      const int ix = it.d[0], qy = it.d[1], iz = it.d[2];
+      const int q = (iz * NQ + qy) * LX + ix;
+      const int ex = ix / NQ, qx = ix - ex * NQ;
+      const int ezl = iz / NQ, qz = iz - ezl * NQ;
+
+      // value and reference gradients (x, y, z) of field f at this q-point
+      auto val = [&](int f) { return sQ[f * QS + q]; };
+      auto grad = [&](int f, float (&gr)[3]) {
+        gr[0] = sQ[(NF + NG + f) * QS + q];
+        gr[1] = sQ[(NF + 2 * NG + f) * QS + q];
+        gr[2] = sQ[(NF + f) * QS + q];
+      };
+      float uv[4], ud[4][3];
+      float lv[4] = {0.f, 0.f, 0.f, 0.f};
+      float ld[4][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f},
+                        {0.f, 0.f, 0.f}};
+      float dto[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uv[c] = val(c);
+        grad(c, ud[c]);
+      }
+      if (incr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          lv[c] = val(4 + c);
+          grad(4 + c, ld[c]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) lv[c] = val(4 + c);
+      }
+      if (need_dt_old) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dto[c] = val(4 + lead_ul + c);
+      }
+
+      // the cell's geometry, staged with the slab
+      const int cl = ezl * XB + ex;
+      float ji[9];
+#pragma unroll
+      for (int e = 0; e < 9; ++e) ji[e] = gJ[cl * 9 + e];
+
+      // stabilization parameters
+      float d1, d2;
+      if (cell_wise) {
+        gls_delta_cell(sc, gH[cl * 2], scell[cl], d1, d2);
+      } else {
+        gls_delta_q(sc, gH[cl * 2 + 1],
+                    lv[0] * lv[0] + lv[1] * lv[1] + lv[2] * lv[2], d1, d2);
+      }
+
+      // reference -> physical gradients: g[x] = sum_r ref[r] * ji[r*3 + x]
+      float ug[3][3], pg[3];
+      float gus[3][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+      float gps[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          float g = 0.f, gl = 0.f;
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            g += ud[a][r] * ji[r * 3 + x];
+            gl += ld[a][r] * ji[r * 3 + x];
+          }
+          ug[a][x] = g;
+          gus[a][x] = gl;
+        }
+        float g = 0.f, gl = 0.f;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          g += ud[3][r] * ji[r * 3 + x];
+          gl += ld[3][r] * ji[r * 3 + x];
+        }
+        pg[x] = g;
+        gps[x] = gl;
+      }
+
+      float vr[4], gr[4][3];
+      const float uvel[3] = {uv[0], uv[1], uv[2]};
+      const float us[3] = {lv[0], lv[1], lv[2]};
+      gls_physics<3>(flavor, consider_dt != 0, need_dt_old, sc, uvel, ug,
+                     uv[3], pg, us, gus, gps, dto, d1, d2, vr, gr);
+
+      const float w = gQ[cl * NQ3 + qx + NQ * (qy + NQ * qz)];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sW[c * QS + q] = vr[c] * w;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          float g = 0.f;
+#pragma unroll
+          for (int x = 0; x < 3; ++x) g += gr[c][x] * ji[r * 3 + x];
+          sW[((1 + r) * 4 + c) * QS + q] = g * w;
+        }
+      }
+    }
+    __syncthreads();
+    SB_MARK(6)
+
+    // ---- I3: back along y, W -> Y --------------------------------------
+    sb_product<2 * NQ, n1, ((kSbFma >> SB_I3) & 1) != 0>(
+        SbI3<P>{sR2, sR1, LX, lx, LZ, QS}, lx * LZ * 12, adj);
+    __syncthreads();
+    SB_MARK(7)
+
+    // ---- I2: back along x, Y -> V (per cell) ---------------------------
+    sb_product<2 * NQ, n1, ((kSbFma >> SB_I2) & 1) != 0>(
+        SbI2<P>{sR1, sR2, LX, XB, xb, LZ * n1, LZ * n1 * LX},
+        xb * LZ * n1 * 8, adj);
+    __syncthreads();
+    SB_MARK(8)
+
+    // ---- I1: back along z, V -> O (per cell layer) ---------------------
+    const int VJ = XB * n1, VI = n1 * VJ;
+    sb_product<2 * NQ, n1, ((kSbFma >> SB_I1) & 1) != 0>(
+        SbI1<P>{sR2, sR1, xn, xb, zs, ZS, XN, VJ, VI, LZ * VI},
+        xn * n1 * zs * 4, adj);
+    __syncthreads();
+    SB_MARK(9)
+
+    // ---- the output, one column (c, j, x) per thread: the node plane
+    // shared by two cell layers summed with the carry in a register
+    const float* sO = sR1;
+#pragma unroll
+    for (int k = 0; k < kMaxCols3; ++k) {
+      const int it = threadIdx.x + k * blockDim.x;
+      if (it < n_cols) {
+        const int c = it / (n1 * xn);
+        const int r = it - c * (n1 * xn);
+        const int j = r / xn, xl = r - j * xn;
+        const float* op = sO + ((c * n1 + j) * ZS * XN + xl) * n1;
+        // where plane `plane` goes: the tile, or the seam entry of the
+        // brick's first node column
+        auto put = [&](int plane, float v) {
+          const size_t o =
+              (((size_t)c * Zr + cg_index(P, nz, plane / P, plane % P)) * ny +
+               ey) * n1 + j;
+          if (xl == 0 && bx > 0) {
+            seams[o * dm.nbx + bx] = v;
+          } else {
+            tiles[o * Nx + P * x0 + xl] = v;
+          }
+        };
+        for (int ezl = 0; ezl < zs; ++ezl) {
+          const int zg = zl0 + ezl;            // global cell layer
+          const float* ol = op + ezl * XN * n1;
+#pragma unroll
+          for (int kk = 0; kk <= P; ++kk) {
+            const float v = ol[kk];
+            if (kk == 0) {
+              if (zg >= zb) put(P * zg, v + carry[k]);
+            } else if (kk < P) {
+              if (zg >= zb) put(P * zg + kk, v);
+            } else {
+              carry[k] = v;
+            }
+          }
+        }
+        if (s == n_slabs - 1 && ze == nz) put(P * nz, carry[k]);
+      }
+    }
+    SB_MARK_SYNC(10)
+    // the next iteration's barrier orders these reads of O before E1
+    // rewrites that region
+  }
+  SB_CLOCK_END
+}
+
+// ===========================================================================
 // structured2d_kernel<P>: the 2D sweep, sum-factorized along y and x
 // ===========================================================================
 //
@@ -1625,12 +2069,6 @@ structured2d_kernel(const float* __restrict__ u, const float* __restrict__ ul,
   }
 }
 
-int ipow_host(int b, int e) {
-  int r = 1;
-  for (int i = 0; i < e; ++i) r *= b;
-  return r;
-}
-
 }  // namespace
 
 // ---- host side: the launchers (the host C++ rehearsal of the kernel
@@ -1687,6 +2125,63 @@ int launch3d(const float* u, const float* ul, const float* vo,
   }
   S3Dims dm{nx, ny, nz, XB, nbx, ZS, ZC, nzb};
   structured3d_kernel<P><<<nbx * ny * nzb, kThreads, bytes, stream>>>(
+      u, ul, vo, jinv, jxw, h, S1, D1, tiles, seams, dm, flavor, consider_dt,
+      cell_wise, sc);
+  return (int)cudaGetLastError();
+}
+
+// The launcher of structured3d_batched_kernel<P>: validates the plan as
+// launch3d does, sets the kernel's dynamic shared-memory limit once,
+// launches.
+template <int P>
+int launch3d_batched(const float* u, const float* ul, const float* vo,
+                     const float* jinv, const float* jxw, const float* h,
+                     const float* S1, const float* D1, float* tiles,
+                     float* seams, int nx, int ny, int nz, int flavor,
+                     int consider_dt, int cell_wise, GlsScalars sc, int XB,
+                     int ZS, int nzb, cudaStream_t stream) {
+  if (nx < 1 || ny < 1 || nz < 1 || XB < 1 || ZS < 1 || nzb < 1 ||
+      nzb > nz)
+    return (int)cudaErrorInvalidValue;
+  // output columns per thread, and the node copies' thread groups
+  if (4 * (P + 1) * (P * XB + 1) > kMaxCols3 * kThreads ||
+      (P + 1) * (P * XB + 1) > kThreads)
+    return (int)cudaErrorInvalidValue;
+  // offsets inside one field and inside shared memory are 32-bit
+  const size_t nn = (size_t)(P * nx + 1) * (P * ny + 1) * (P * nz + 1);
+  if (nn > (size_t)0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int ZC = (nz + nzb - 1) / nzb;
+  if ((nzb - 1) * ZC >= nz) return (int)cudaErrorInvalidValue;
+  const int nbx = (nx + XB - 1) / XB;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
+  const int NG = incr ? 8 : 4;
+  const size_t bytes = sb_smem(P, XB, ZS, NF, NG).total() * sizeof(float);
+  static int max_optin = 0;
+  static size_t attr_bytes = 0;
+  cudaError_t err;
+  if (max_optin == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(
+        &max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // (the field pointer and row tables are static shared memory beside it)
+  if (bytes + 11 * sizeof(float*) + (P + 1) * sizeof(int) > (size_t)max_optin)
+    return (int)cudaErrorInvalidValue;
+  if (bytes > attr_bytes) {
+    err = cudaFuncSetAttribute(structured3d_batched_kernel<P>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_bytes = bytes;
+  }
+  S3Dims dm{nx, ny, nz, XB, nbx, ZS, ZC, nzb};
+  structured3d_batched_kernel<P><<<nbx * ny * nzb, kThreads, bytes, stream>>>(
       u, ul, vo, jinv, jxw, h, S1, D1, tiles, seams, dm, flavor, consider_dt,
       cell_wise, sc);
   return (int)cudaGetLastError();
@@ -1753,62 +2248,74 @@ int launch2d(const float* u, const float* ul, const float* vo,
 
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// The batched 3D kernel, any degree.  Returns 0, a CUDA error code, or 1
-// (cudaErrorInvalidValue) when the chunk's tiles exceed the card's shared
-// memory per block.
+#ifdef SB_STAGE_CLOCKS
+// the batched kernel's cycles per stage summed over its blocks since the
+// last stage_zero (tools/structured_stage_clocks.py)
+extern "C" int stage_read(unsigned long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, g_sb_stage, sizeof(g_sb_stage));
+}
+extern "C" int stage_zero() {
+  unsigned long long z[11] = {0};
+  return (int)cudaMemcpyToSymbol(g_sb_stage, z, sizeof(z));
+}
+#endif
+
+// The batched 3D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb
+// cells per brick, zs cell layers per slab, nzb z chunks per column (ops/
+// structured.py batched_plan).  Returns 0, a CUDA error code, or 1
+// (cudaErrorInvalidValue) for a degree, plan or shape it does not take.
 extern "C" int structured3d_batched_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
-    float* out, int P, int NQ, int nx, int ny, int nz, int flavor,
-    int consider_dt, int cell_wise, float weight, float stau, float nu,
-    float c1, float c2, void* stream) {
-  constexpr int dim = 3;
-  const int C = dim + 1, T = dim + 1;
-  const int n1 = P + 1;
-  const int R = ipow_host(n1, dim - 1);
-  const int QR = ipow_host(NQ, dim - 1);
-  int XS = kChunkQ / (QR * NQ);
-  XS = XS < 1 ? 1 : (XS > nx ? nx : XS);
-  const int n_rows = ny * nz;
-  // x segments: enough blocks for the card, each segment at least two
-  // chunks long (a later segment recomputes one cell)
-  int nseg = (kTargetBlocks + n_rows - 1) / (n_rows > 0 ? n_rows : 1);
-  const int max_seg = nx / (2 * XS) > 1 ? nx / (2 * XS) : 1;
-  nseg = nseg < 1 ? 1 : (nseg > max_seg ? max_seg : nseg);
-  const int seg_cells = (nx + nseg - 1) / nseg;
-  nseg = (nx + seg_cells - 1) / (seg_cells > 0 ? seg_cells : 1);
-
-  const size_t XN = (size_t)P * XS + 1;
-  const size_t LX = (size_t)NQ * XS;
-  const size_t QS = QR * LX;
-  const size_t RX = R * XN, RL = R * LX;
-  const size_t floats = 2 * (size_t)NQ * n1 + (size_t)dim * QR * R +
-                        (2 * C + dim) * RX + (4 * C + dim) * RL + QS +
-                        (size_t)T * C * QS + 2 * (size_t)C * R + R;
-  const size_t bytes = floats * sizeof(float);
-
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int max_optin = 0;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)max_optin) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(structured3d_batched_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (n_rows == 0 || nx == 0) return 0;
+    float* tiles, float* seams, int P, int NQ, int nx, int ny, int nz,
+    int flavor, int consider_dt, int cell_wise, float weight, float stau,
+    float nu, float c1, float c2, int xb, int zs, int nzb, void* stream) {
   GlsScalars sc{weight, stau, nu, c1, c2};
-  SDims dm{P, NQ, nx, ny, nz, XS, nseg, seg_cells};
-  structured3d_batched_kernel<<<nseg * n_rows, kThreads, bytes,
-                                (cudaStream_t)stream>>>(
-      u, ul, vo, jinv, jxw, h, S1, D1, out, dm, flavor, consider_dt,
-      cell_wise, sc);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define SB_CASE(PP)                                                         \
+  if (P == PP && NQ == PP + 1)                                              \
+    return launch3d_batched<PP>(u, ul, vo, jinv, jxw, h, S1, D1, tiles,     \
+                                seams, nx, ny, nz, flavor, consider_dt,     \
+                                cell_wise, sc, xb, zs, nzb, st);
+  SB_CASE(1)
+  SB_CASE(2)
+  SB_CASE(3)
+  SB_CASE(4)
+  SB_CASE(5)
+  SB_CASE(6)
+#undef SB_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the compiler gave structured3d_batched_kernel<P>: registers per
+// thread, local memory (spills) and static shared memory per thread block
+// in bytes; and the dynamic shared memory of one block in bytes for a
+// brick of xb cells, slabs of zs layers and the flavor's fields.  Returns
+// 0 or a CUDA error code.
+extern "C" int structured3d_batched_attributes(int P, int xb, int zs,
+                                               int flavor, int consider_dt,
+                                               int* regs, int* local_bytes,
+                                               int* static_smem,
+                                               long long* dynamic_smem) {
+  cudaFuncAttributes a{};
+  cudaError_t err = cudaErrorInvalidValue;
+  if (P == 1) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<1>);
+  if (P == 2) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<2>);
+  if (P == 3) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<3>);
+  if (P == 4) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<4>);
+  if (P == 5) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<5>);
+  if (P == 6) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<6>);
+  if (err != cudaSuccess) return (int)err;
+  const bool incr = flavor == GLS_INCREMENT;
+  const bool need_dt_old =
+      consider_dt && (flavor == GLS_INCREMENT || flavor == GLS_RESIDUAL);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *static_smem = (int)a.sharedSizeBytes;
+  const int NF = 4 + (incr ? 4 : 3) + (need_dt_old ? 3 : 0);
+  *dynamic_smem =
+      (long long)(sb_smem(P, xb, zs, NF, incr ? 8 : 4).total() * sizeof(float));
+  return 0;
 }
 
 // The 2D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb cells per

@@ -28,11 +28,12 @@ What this module holds:
   integrate, ``index_add_``), for tensors on the CPU and as the
   reference the kernels are held to on the card.
 - :class:`StructuredKernel`: the ctypes binding of ``csrc/structured.cu``
-  (three kernels: 2D, 3D, and the batched 3D variant of the x-only
-  design); :func:`fold_classes`, which sums cell-row tiles into the
-  class-grouped lattice in a fixed order (:func:`fold_tiles`, the batched
-  kernel's output); :func:`brick_plan`, the 3D kernel's split into thread
-  blocks, and :func:`fold_bricks`, which sums its output;
+  (three kernels: 2D, 3D, and the batched 3D variant, whose 1D
+  contractions are products over all components stacked);
+  :func:`fold_classes`, which sums cell-row tiles into the class-grouped
+  lattice in a fixed order;
+  :func:`brick_plan` and :func:`batched_plan`, the 3D kernels' splits into
+  thread blocks, and :func:`fold_bricks`, which sums their output;
   :func:`slab_plan_2d`, the 2D kernel's, and :func:`fold_seams_2d`, which
   adds its x seams to the lattice it writes.
 - :class:`StructuredSweep`: the host wrapper one operator holds.
@@ -390,14 +391,6 @@ def fold_classes(t, cell_dim: int, loc_dim: int, P: int):
     return out
 
 
-def fold_tiles(tables: StructuredTables, tiles):
-    """Cell-row tiles of the batched 3D kernel, (C, nz, ny, P+1, P+1, Nx)
-    -> ``(C,) + lattice_shape``."""
-    P = tables.P
-    t = fold_classes(tiles, 1, 3, P)       # (C, Zr, ny, P+1, Nx)
-    return fold_classes(t, 2, 3, P)        # (C, Zr, Yr, Nx)
-
-
 class BrickPlan(NamedTuple):
     """How the 3D kernel splits a lattice into thread blocks: one block per
     (x brick of ``xb`` cells, cell row, z chunk of ``zc`` cell layers),
@@ -419,19 +412,17 @@ BRICKS = {1: ((8, 8), (16, 4)), 2: ((8, 2), (4, 4)), 3: ((4, 1), (2, 2)),
 WAVE = 2 * 132
 
 
-@functools.lru_cache(maxsize=64)
-def brick_plan(P: int, cell_shape: tuple) -> BrickPlan:
-    """The 3D kernel's blocks for a lattice of ``cell_shape`` (nx, ny, nz)
-    cells of degree P: of the brick shapes of ``BRICKS`` and the z
-    chunkings (a chunk recomputes the layer below it for its carry), the
-    one of least estimated time, waves of resident blocks x slabs per
-    block x a slab's time (a fixed part as long as 256 q-points, plus its
-    q-points); ties go to fewer blocks, then longer bricks.  A slab is no
-    deeper than the chunk's walk."""
+def _plan_3d(P: int, cell_shape: tuple, shapes, wave: int) -> BrickPlan:
+    """Of the brick shapes ``shapes`` (cells along x, cell layers per slab)
+    and the z chunkings (a chunk recomputes the layer below it for its
+    carry), the plan of least estimated time, waves of ``wave`` resident
+    blocks x slabs per block x a slab's time (a fixed part as long as 256
+    q-points, plus its q-points); ties go to fewer blocks, then longer
+    bricks.  A slab is no deeper than the chunk's walk."""
     nx, ny, nz = cell_shape
     nq3 = (P + 1) ** 3
     best = None
-    for xb0, zs0 in BRICKS.get(P, ((1, 1),)):
+    for xb0, zs0 in shapes:
         xb = min(xb0, nx)
         nbx = -(-nx // xb)
         nzb = 1
@@ -441,12 +432,69 @@ def brick_plan(P: int, cell_shape: tuple) -> BrickPlan:
             walk = zc + (1 if n_chunks > 1 else 0)
             zs = min(zs0, walk)
             blocks = nbx * ny * n_chunks
-            cost = (-(-blocks // WAVE) * -(-walk // zs)
+            cost = (-(-blocks // wave) * -(-walk // zs)
                     * (256 + xb * zs * nq3), blocks, -xb)
             if best is None or cost < best[0]:
                 best = (cost, BrickPlan(xb, nbx, zs, zc, n_chunks))
             nzb *= 2
     return best[1]
+
+
+@functools.lru_cache(maxsize=64)
+def brick_plan(P: int, cell_shape: tuple) -> BrickPlan:
+    """The 3D kernel's blocks for a lattice of ``cell_shape`` (nx, ny, nz)
+    cells of degree P (:func:`_plan_3d` over the shapes of ``BRICKS``)."""
+    return _plan_3d(P, cell_shape, BRICKS.get(P, ((1, 1),)), WAVE)
+
+
+# per degree: the batched 3D kernel's brick shapes (cells along x, cell
+# layers per slab), about 216 to 324 q-points a slab of 256 threads; every
+# one fits two blocks per SM but at P = 6 (one cell a slab, 115 KB).  At P
+# = 2, (4, 3) first: the fastest of the plans tools/structured_levels.py
+# --sweep timed at 32^3, 64 x 16 x 16 and 128 x 32 x 32 cells
+BATCHED_BRICKS = {1: ((16, 2), (8, 4), (32, 1)),
+                  2: ((4, 3), (8, 1), (4, 2), (2, 4)),
+                  3: ((4, 1), (2, 2), (1, 4)), 4: ((2, 1), (1, 2)),
+                  5: ((1, 1),), 6: ((1, 1),)}
+# the dynamic shared memory per block within which two blocks fit on an
+# H100's SM (228 KB, 1 KB of it reserved per block, and the kernel's static
+# shared memory)
+SMEM_TWO_BLOCKS = 112 * 1024
+
+
+def batched_smem(P: int, xb: int, zs: int, flavor: str,
+                 consider_dt: bool) -> int:
+    """Dynamic shared memory of one block of the batched 3D kernel in
+    bytes, as its launcher computes it (``csrc/structured.cu``
+    ``sb_smem``): two buffers of the slab's node planes of every staged
+    field and of its cells' geometry, the two regions the contraction
+    stages alternate between, and the cells' max |u*|^2."""
+    n1 = nq = P + 1
+    incr = flavor == "increment"
+    nf = 4 + (4 if incr else 3) + (3 if _need_dt_old(flavor, consider_dt)
+                                   else 0)
+    ng = 8 if incr else 4
+    xn, lx = P * xb + 1, nq * xb
+    zn, lz = P * zs + 1, nq * zs
+    pl, qs, xf = n1 * xn, lz * nq * lx, lz * n1 * lx
+    r1 = max((nf + ng) * lz * pl, (nf + 3 * ng) * qs, 12 * xf,
+             4 * n1 * zs * xn * n1)
+    r2 = max((nf + 2 * ng) * xf, 16 * qs, 8 * lz * n1 * xb * n1)
+    floats = (2 * nf * zn * pl + 2 * zs * xb * (11 + nq ** 3) + r1 + r2
+              + zs * xb)
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=64)
+def batched_plan(P: int, cell_shape: tuple) -> BrickPlan:
+    """The batched 3D kernel's blocks for a lattice of ``cell_shape`` (nx,
+    ny, nz) cells of degree P: :func:`_plan_3d` over the shapes of
+    ``BATCHED_BRICKS``, two blocks a wave per SM where the shape's shared
+    memory (in the flavor that needs the most) allows it, one where not."""
+    shapes = BATCHED_BRICKS.get(P, ((1, 1),))
+    two = all(batched_smem(P, *s, "increment", True) <= SMEM_TWO_BLOCKS
+              for s in shapes)
+    return _plan_3d(P, cell_shape, shapes, (2 if two else 1) * 132)
 
 
 def fold_bricks(tables: StructuredTables, tiles, seams, xb: int):
@@ -572,16 +620,16 @@ class StructuredKernel:
 
             lib = load_library("structured")
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn = lib.structured3d_batched_launch
-            fn.argtypes = [vp] * 9 + [ci] * 8 + [cf] * 5 + [vp]
-            fn.restype = ci
-            fn = lib.structured3d_launch
-            fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
-            fn.restype = ci
+            for fn in (lib.structured3d_launch,
+                       lib.structured3d_batched_launch):
+                fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [
+                    vp]
+                fn.restype = ci
             fn = lib.structured2d_launch
             fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
             for fn in (lib.structured3d_attributes,
+                       lib.structured3d_batched_attributes,
                        lib.structured2d_attributes):
                 fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3 + [
                     ctypes.POINTER(ctypes.c_longlong)]
@@ -596,21 +644,23 @@ class StructuredKernel:
         return "structured3d_batched" if batched else "structured3d"
 
     @classmethod
-    def attributes(cls, P: int, plan, flavor: str,
-                   consider_dt: bool) -> dict:
+    def attributes(cls, P: int, plan, flavor: str, consider_dt: bool,
+                   batched: bool = False) -> dict:
         """Registers per thread, local memory (spills) and static shared
         memory of ``structured3d_kernel<P>`` (``plan`` a
-        :class:`BrickPlan`) or ``structured2d_kernel<P>`` (a
-        :class:`SlabPlan2D`) as built, and the dynamic shared memory of one
-        block under ``plan`` in that flavor."""
+        :class:`BrickPlan`; ``batched``: ``structured3d_batched_kernel<P>``)
+        or ``structured2d_kernel<P>`` (a :class:`SlabPlan2D`) as built, and
+        the dynamic shared memory of one block under ``plan`` in that
+        flavor."""
         vals = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()]
         lib = cls._load()
         if isinstance(plan, SlabPlan2D):
-            fn, name, depth = (lib.structured2d_attributes,
-                               "structured2d_attributes", plan.ys)
+            name, depth = "structured2d_attributes", plan.ys
+        elif batched:
+            name, depth = "structured3d_batched_attributes", plan.zs
         else:
-            fn, name, depth = (lib.structured3d_attributes,
-                               "structured3d_attributes", plan.zs)
+            name, depth = "structured3d_attributes", plan.zs
+        fn = getattr(lib, name)
         err = fn(P, plan.xb, depth, FLAVORS.index(flavor), int(consider_dt),
                  *(ctypes.byref(v) for v in vals))
         if err != 0:
@@ -624,10 +674,10 @@ class StructuredKernel:
                batched: bool = False, plan=None):
         """Launch the kernel of the tables' dimension and return its
         output: the 2D kernel (lattice, seams) under ``plan`` (default
-        :func:`slab_plan_2d`; see :func:`fold_seams_2d`), the 3D kernel
-        (tiles, seams) under ``plan`` (default :func:`brick_plan`; see
-        :func:`fold_bricks`), the batched 3D kernel its cell-row tiles
-        (:func:`fold_tiles`).  Raises on what the kernel does not take."""
+        :func:`slab_plan_2d`; see :func:`fold_seams_2d`), the 3D kernels
+        (tiles, seams) under ``plan`` (default :func:`brick_plan`, batched
+        :func:`batched_plan`; see :func:`fold_bricks`).  Raises on what the
+        kernel does not take."""
         d, P, NQ = tables.d, tables.P, tables.NQ
         C = d + 1
         shp = lattice_shape(P, tables.cell_shape)
@@ -662,23 +712,18 @@ class StructuredKernel:
                 *case, *scal, plan.xb, plan.ys, plan.nyb, stream)
             hint = (f" (degree {P} with {NQ} Gauss points, or the plan "
                     f"{tuple(plan)}, is not one the kernel takes)")
-        elif not batched:
-            plan = plan or brick_plan(P, tables.cell_shape)
+        else:
+            plan = plan or (batched_plan if batched else brick_plan)(
+                P, tables.cell_shape)
             tiles = torch.empty((C, shp[0], ny, P + 1, shp[2]), **f32)
             seams = torch.empty((C, shp[0], ny, P + 1, plan.nbx), **f32)
             out = (tiles, seams)
-            err = lib.structured3d_launch(
-                *ptrs, tiles.data_ptr(), seams.data_ptr(), P, NQ, nx, ny, nz,
-                *case, *scal, plan.xb, plan.zs, plan.nzb, stream)
+            fn = (lib.structured3d_batched_launch if batched
+                  else lib.structured3d_launch)
+            err = fn(*ptrs, tiles.data_ptr(), seams.data_ptr(), P, NQ, nx,
+                     ny, nz, *case, *scal, plan.xb, plan.zs, plan.nzb, stream)
             hint = (f" (degree {P} with {NQ} Gauss points, or the plan "
                     f"{tuple(plan)}, is not one the kernel takes)")
-        else:
-            out = torch.empty((C, nz, ny, P + 1, P + 1, P * nx + 1), **f32)
-            err = lib.structured3d_batched_launch(
-                *ptrs, out.data_ptr(), P, NQ, nx, ny, nz, *case, *scal,
-                stream)
-            hint = (" (the chunk's shared-memory tiles exceed the card's "
-                    "per-block limit)")
         if err != 0:
             raise RuntimeError(f"structured kernel launch failed: CUDA error "
                                f"{err}{hint if err == 1 else ''}")
@@ -690,20 +735,18 @@ def structured_sweep(tables: StructuredTables, sc: dict, uT, ulT, voT,
                      flavor: str, consider_dt: bool, cell_wise: bool,
                      batched: bool = False):
     """The structured sweep: a CUDA kernel and the sum of what its blocks
-    share (the 2D kernel's x seams; the 3D kernel's x seams and node rows;
-    the batched kernel's cell-row tiles) for tensors on the card, the plain
-    version for tensors on the CPU.  ``batched`` selects the batched 3D
-    kernel (2D has one kernel)."""
+    share (the 2D kernel's x seams; the 3D kernels' x seams and node rows)
+    for tensors on the card, the plain version for tensors on the CPU.
+    ``batched`` selects the batched 3D kernel (2D has one kernel)."""
     if uT.is_cuda:
         out = StructuredKernel.launch(tables, sc, uT, ulT, voT, flavor,
                                       consider_dt, cell_wise, batched)
         if tables.d == 2:
             return fold_seams_2d(tables, *out,
                                  slab_plan_2d(tables.P, tables.cell_shape).xb)
-        if not batched:
-            return fold_bricks(tables, *out,
-                               brick_plan(tables.P, tables.cell_shape).xb)
-        return fold_tiles(tables, out)
+        plan = (batched_plan if batched else brick_plan)(tables.P,
+                                                         tables.cell_shape)
+        return fold_bricks(tables, *out, plan.xb)
     if uT.device.type != "cpu":
         raise TypeError(f"structured sweep: unsupported device {uT.device}")
     return structured_sweep_plain(tables, sc, uT, ulT, voT, flavor,

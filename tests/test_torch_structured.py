@@ -239,9 +239,9 @@ def test_structured_gates(case):
 def test_lattice_index_and_fold(dim, degree):
     """The class-grouped index map equals the FESpace numbering, and the
     kernel's output, folded, equals the scatter-add: in 3D the batched
-    kernel's cell-row tiles (built here from per-cell values summed along
-    x only), in 2D the lattice and x seams of the 2D kernel under its own
-    plan (:func:`kernel_layout_2d`)."""
+    kernel's tiles and x seams under its own plan (:func:`brick_layout`),
+    in 2D the lattice and x seams of the 2D kernel under its own plan
+    (:func:`kernel_layout_2d`)."""
     st = TSpace(lattice_mesh(tgen, dim), degree)
     P = degree
     cs = tuple(st.cell_shape)
@@ -270,21 +270,41 @@ def test_lattice_index_and_fold(dim, degree):
         np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref,
                                    rtol=1e-12, atol=1e-12)
         return
-    # tiles: per cell row, the x overlap-add of that row's cells
-    nx = cs[0]
-    Nx = P * nx + 1
-    rows = cs[1:][::-1]                       # ([nz,] ny)
-    tiles = np.zeros((C,) + rows + (n1,) * (dim - 1) + (Nx,))
-    rl = r_loc.reshape((C,) + rows + (nx,) + (n1,) * dim)
-    for ex in range(nx):
-        tiles[..., P * ex:P * ex + n1] += rl[(slice(None),) * (dim)
-                                             + (ex,)]
+    # the 3D kernels' tiles and seams under the batched kernel's own plan
+    plan = ts.batched_plan(P, cs)
+    tiles, seams = brick_layout(r_loc, P, cs, plan)
     tab = ts.StructuredTables(d=dim, P=P, NQ=P + 1, cell_shape=cs,
                               S1=None, D1=None, jinv=None, jxw=None, h=None)
-    out = ts.fold_tiles(tab, torch.as_tensor(tiles))
+    out = ts.fold_bricks(tab, torch.as_tensor(tiles), torch.as_tensor(seams),
+                         plan.xb)
     assert tuple(out.shape) == (C,) + shp
     np.testing.assert_allclose(out.reshape(C, -1).numpy(), ref, rtol=1e-12,
                                atol=1e-12)
+
+
+def brick_layout(r_loc, P, cell_shape, plan):
+    """Tiles (C, Zr, ny, P+1, Nx) and seams (C, Zr, ny, P+1, nbx) as the 3D
+    kernels lay them out under ``plan`` from per-cell values ``r_loc`` (C,
+    n_c, (P+1)^3): each cell row's integrals, z summed, the first node
+    column of every brick but the first in the seams (seam entry 0 NaN:
+    nothing writes it)."""
+    C = r_loc.shape[0]
+    nx, ny, nz = cell_shape
+    n1 = P + 1
+    shp = ts.lattice_shape(P, cell_shape)
+    tiles = np.zeros((C, shp[0], ny, n1, shp[2]))
+    seams = np.full((C, shp[0], ny, n1, plan.nbx), np.nan)
+    seams[..., 1:] = 0.0
+    cz = ts.class_index(P, nz)                       # (nz, P+1)
+    rl = r_loc.reshape(C, nz, ny, nx, n1, n1, n1)    # local (k, j, i)
+    for ez, ey, ex, k, j, i in np.ndindex(nz, ny, nx, n1, n1, n1):
+        v = rl[:, ez, ey, ex, k, j, i]
+        b = ex // plan.xb
+        if i == 0 and b > 0 and ex == b * plan.xb:
+            seams[:, cz[ez, k], ey, j, b] += v
+        else:
+            tiles[:, cz[ez, k], ey, j, P * ex + i] += v
+    return tiles, seams
 
 
 # the channel 3D level shapes (input/channel.json, dim 3, refinement 3),
@@ -347,18 +367,7 @@ def test_brick_tiles_fold(degree, plan):
     for c in range(C):
         np.add.at(ref[c], idx.reshape(-1), r_loc[c].reshape(-1))
 
-    tiles = np.zeros((C, shp[0], ny, n1, shp[2]))
-    seams = np.full((C, shp[0], ny, n1, plan.nbx), np.nan)
-    seams[..., 1:] = 0.0
-    cz = ts.class_index(P, nz)                       # (nz, P+1)
-    rl = r_loc.reshape(C, nz, ny, nx, n1, n1, n1)    # local (k, j, i)
-    for ez, ey, ex, k, j, i in np.ndindex(nz, ny, nx, n1, n1, n1):
-        v = rl[:, ez, ey, ex, k, j, i]
-        b = ex // plan.xb
-        if i == 0 and b > 0 and ex == b * plan.xb:
-            seams[:, cz[ez, k], ey, j, b] += v
-        else:
-            tiles[:, cz[ez, k], ey, j, P * ex + i] += v
+    tiles, seams = brick_layout(r_loc, P, cs, plan)
     tab = ts.StructuredTables(d=3, P=P, NQ=n1, cell_shape=cs, S1=None,
                               D1=None, jinv=None, jxw=None, h=None)
     out = ts.fold_bricks(tab, torch.as_tensor(tiles), torch.as_tensor(seams),

@@ -3,6 +3,7 @@
 lane's shape: the 3D kernel (default) or, with ``--dim 2``, the 2D one.
 
     python3 tools/structured_levels.py [--dim 3] [--baseline FILE.cu]
+                                       [--batched-baseline FILE.cu]
                                        [--variant FILE.cu] [--sweep]
                                        [--reps N]
     python3 tools/structured_levels.py --dim 2 [--baseline FILE.cu]
@@ -17,14 +18,23 @@ cells).  At each of those shapes, in the timing case of ``chip_smoke.py``
 phase 9 (increment flavor, BDF history, cell-wise delta, random lattices
 from ``numpy.random.default_rng(1)``):
 
-- holds ``structured3d`` (``csrc/structured.cu``, folded by
-  ``fold_bricks``) to ``structured_sweep_plain`` (max relative error, tol
-  1e-5) and relaunches it for bit-identity,
-- times the kernel alone by CUDA events (``us``: launches back to back,
-  which at the coarse levels also holds the host's launch rate) and by the
-  profiler's device time (``device_us``), the batched 3D kernel's device
-  time on the same inputs (``batched_device_us``), and the sweep's bound
+- holds ``structured3d`` and ``structured3d_batched``
+  (``csrc/structured.cu``, both folded by ``fold_bricks``) to
+  ``structured_sweep_plain`` (max relative error, tol 1e-5) and relaunches
+  each for bit-identity,
+- times ``structured3d`` alone by CUDA events (``us``: launches back to
+  back, which at the coarse levels also holds the host's launch rate) and
+  by the profiler's device time (``device_us``), the batched 3D kernel's
+  device time on the same inputs (``batched_device_us``), each one's sweep
+  (kernel and fold: ``sweep_device_us``, ``batched_sweep_device_us``, the
+  device time of all its kernels) and the sweep's bound
   (``utils/roofline.py`` ``structured_cost``),
+- with ``--batched-baseline FILE.cu``: builds FILE (a revision whose
+  ``structured3d_batched_launch`` takes no plan and writes cell-row tiles,
+  the design before the tensor cores, e.g. ``git show
+  <commit>:ns_gls_tpu_torch/csrc/structured.cu``), holds its batched
+  kernel to the plain version (1e-5) and times it and its sweep (kernel
+  and the cell-row fold) on the same inputs in the same process,
 - with ``--baseline FILE.cu``: builds FILE (another revision of
   ``csrc/structured.cu`` whose ``structured_sweep_launch`` takes the 3D
   kernel, e.g. from ``git show <commit>:ns_gls_tpu_torch/csrc/
@@ -34,7 +44,9 @@ from ``numpy.random.default_rng(1)``):
   brick layout (its ``structured3d_launch``, under this ``brick_plan``),
 - with ``--sweep``: also holds and times the kernel under other brick
   plans than ``brick_plan``'s (bricks of 4, 8, 16 cells, slabs of 1-4
-  layers, 1-8 z chunks).
+  layers, 1-8 z chunks), and the batched kernel under plans other than
+  ``batched_plan``'s (bricks of 1-16 cells, slabs of 1-4 layers, 1-8 z
+  chunks; device time, ``batched_sweep``).
 
 2D (``--dim 2``): the same for ``structured2d`` on the channel 2D driver
 (dim 2, degree 2, refinement 6: nine levels from 4 x 1 to 1024 x 256 cells
@@ -46,9 +58,10 @@ plan (``slab_plan_2d``) and the bound.  ``--baseline FILE.cu`` takes a
 revision whose ``structured_sweep_launch`` runs the 2D kernel with
 cell-row tiles (the x-only design, before ``structured2d_launch``): its
 kernel and its sweep (kernel and ``fold_classes``) on the same inputs,
-and then holds this revision's batched 3D kernel to FILE's bit for bit on
-the state of the lane ``bench_gpu.py 3 5 2 --increment --batched`` in
-every flavor x delta mode x consider_dt.  ``--variant FILE.cu``: another
+and then holds this revision's batched 3D kernel and FILE's to the plain
+version within 1e-5 on the state of the lane ``bench_gpu.py 3 5 2
+--increment --batched`` in every flavor x delta mode x consider_dt (their
+bits differ since the batched kernel sums in f64 on the tensor cores).  ``--variant FILE.cu``: another
 revision's ``structured2d_launch`` under this ``slab_plan_2d`` (and under
 the ``--sweep`` plans).  ``--sweep`` times other slab
 plans (bricks of 8-48 cells, slabs of 1-4 rows, 1-24 y chunks; by CUDA
@@ -201,24 +214,57 @@ def baseline_launch(fn, tables, sc, u, ul, vo, flavor, cdt, cw,
 
 
 def fold_baseline(tables, tiles):
-    """The baseline's cell-row tiles -> ``(C,) + lattice_shape``."""
+    """The baseline's cell-row tiles, 3D (C, nz, ny, P+1, P+1, Nx) or 2D
+    (C, ny, P+1, Nx) -> ``(C,) + lattice_shape``."""
     from ns_gls_tpu_torch.ops import structured as st
 
+    P = tables.P
     if tables.d == 3:
-        return st.fold_tiles(tables, tiles)
-    return st.fold_classes(tiles, 1, 2, tables.P).unsqueeze(2)
+        t = st.fold_classes(tiles, 1, 3, P)       # (C, Zr, ny, P+1, Nx)
+        return st.fold_classes(t, 2, 3, P)
+    return st.fold_classes(tiles, 1, 2, P).unsqueeze(2)
+
+
+def build_batched_baseline(path: str):
+    """The ``structured3d_batched_launch`` of a revision whose batched 3D
+    kernel takes no plan and writes cell-row tiles."""
+    fn = build_other(path, "batched_baseline").structured3d_batched_launch
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 9 + [ci] * 8 + [cf] * 5 + [vp]
+    fn.restype = ci
+    return fn
+
+
+def batched_baseline_launch(fn, tables, sc, u, ul, vo, flavor, cdt, cw):
+    """That revision's batched 3D kernel; returns its cell-row tiles."""
+    import torch
+
+    from ns_gls_tpu_torch.ops.structured import FLAVORS
+
+    P = tables.P
+    nx, ny, nz = tables.cell_shape
+    out = torch.empty((4, nz, ny, P + 1, P + 1, P * nx + 1),
+                      dtype=torch.float32, device=u.device)
+    err = fn(*(t.data_ptr() for t in (u, ul, vo, tables.jinv, tables.jxw,
+                                      tables.h, tables.S1, tables.D1, out)),
+             P, tables.NQ, nx, ny, nz, FLAVORS.index(flavor), int(cdt),
+             int(cw), *(sc[k] for k in ("weight", "stau", "nu", "c1", "c2")),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"batched baseline launch failed: CUDA error {err}")
+    return out
 
 
 def rel_err(a, ref):
     return float((a - ref).abs().max() / ref.abs().max())
 
 
-def sweep_plans(tables):
-    """Brick plans other than the default that the kernel may take."""
+def sweep_plans(tables, bricks=(4, 8, 16)):
+    """Brick plans other than the default that a 3D kernel may take."""
     from ns_gls_tpu_torch.ops.structured import BrickPlan
 
     nx, ny, nz = tables.cell_shape
-    for xb in (4, 8, 16):
+    for xb in bricks:
         for zs in (1, 2, 3, 4):
             for nzb in (1, 2, 4, 8):
                 if xb > nx or zs > nz or nzb > nz:
@@ -401,8 +447,8 @@ def main2d(args, card, base, var) -> int:
     torch.cuda.empty_cache()
 
     if base is not None:
-        # the batched 3D kernel against the baseline's, bit for bit, on the
-        # lane's state
+        # the batched 3D kernel and the baseline's, each against the plain
+        # version, on the lane's state
         op, _, u = bench_gpu.build(3, 5, 2, increment=True, batched=True)
         own = bench_gpu.sweep_args(op, u / torch.linalg.vector_norm(u))
         rec = dict(card=card, shape="gls-vmult 3 5 2 --increment --batched",
@@ -411,16 +457,17 @@ def main2d(args, card, base, var) -> int:
             for cw in (True, False):
                 for cdt in (True, False):
                     case = own[:5] + (flavor, cdt, cw)
-                    new = st.StructuredKernel.launch(*case, batched=True)
-                    old = baseline_launch(base, *case, batched=True)
-                    torch.cuda.synchronize()
+                    ref = st.structured_sweep_plain(*case)
+                    new = st.structured_sweep(*case, batched=True)
+                    old = fold_baseline(case[0], baseline_launch(
+                        base, *case, batched=True))
                     rec["cases"][f"{flavor}_cw{int(cw)}_cdt{int(cdt)}"] = (
-                        bool(torch.equal(new, old)))
-        rec["bit_identical"] = all(rec["cases"].values())
+                        rel_err(new, ref), rel_err(old, ref))
+        rec["max_rel_err"] = max(max(v) for v in rec["cases"].values())
         print(json.dumps(rec), flush=True)
-        if not rec["bit_identical"]:
-            raise AssertionError("the batched kernel's bits differ from the "
-                                 "baseline's")
+        if not rec["max_rel_err"] <= REL_TOL:
+            raise AssertionError("the batched kernel or the baseline's "
+                                 "disagrees with the plain version")
     return 0
 
 
@@ -428,6 +475,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="structured_levels.py")
     ap.add_argument("--dim", type=int, choices=(2, 3), default=3)
     ap.add_argument("--baseline", default=None)
+    ap.add_argument("--batched-baseline", default=None)
     ap.add_argument("--variant", default=None)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=100)
@@ -455,6 +503,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             print(f"structured: {line.strip()}", flush=True)
     base = build_baseline(args.baseline) if args.baseline else None
+    bbase = (build_batched_baseline(args.batched_baseline)
+             if args.batched_baseline else None)
     var = build_variant(args.variant, args.dim) if args.variant else None
     if args.dim == 2:
         return main2d(args, card, base, var)
@@ -477,26 +527,60 @@ def main(argv=None) -> int:
         ref = st.structured_sweep_plain(*case)
         a = st.structured_sweep(*case)
         b = st.structured_sweep(*case)
+        ab = st.structured_sweep(*case, batched=True)
+        bb = st.structured_sweep(*case, batched=True)
         torch.cuda.synchronize()
+        bplan = st.batched_plan(tables.P, tables.cell_shape)
+        battrs = st.StructuredKernel.attributes(tables.P, bplan, "increment",
+                                                True, batched=True)
         rec = dict(card=card, shape=label, cells=tables.cell_shape,
                    P=tables.P, plan=plan._asdict(),
                    max_rel_err=rel_err(a, ref),
                    bit_identical=bool(torch.equal(a, b)),
+                   batched_plan=bplan._asdict(),
+                   batched_max_rel_err=rel_err(ab, ref),
+                   batched_bit_identical=bool(torch.equal(ab, bb)),
+                   batched_attributes=battrs,
                    **st.StructuredKernel.attributes(tables.P, plan,
                                                     "increment", True))
-        if not (rec["max_rel_err"] <= REL_TOL and rec["bit_identical"]):
+        if not (rec["max_rel_err"] <= REL_TOL and rec["bit_identical"]
+                and rec["batched_max_rel_err"] <= REL_TOL
+                and rec["batched_bit_identical"]
+                and battrs["dynamic_smem"] == st.batched_smem(
+                    tables.P, bplan.xb, bplan.zs, "increment", True)):
             print(json.dumps(rec), flush=True)
-            raise AssertionError(f"{label}: kernel disagrees with the plain "
-                                 "version or with itself")
+            raise AssertionError(f"{label}: a kernel disagrees with the "
+                                 "plain version, with itself or with the "
+                                 "host's shared-memory formula")
 
         def kernel():
             return st.StructuredKernel.launch(*case)
 
+        def batched():
+            return st.StructuredKernel.launch(*case, batched=True)
+
         rec["us"] = 1e3 * time_cuda(kernel, args.reps, warmup=5)
         rec["device_us"] = device_time_us(kernel, "structured3d_kernel")
         rec["batched_device_us"] = device_time_us(
-            lambda: st.StructuredKernel.launch(*case, batched=True),
-            "structured3d_batched_kernel")
+            batched, "structured3d_batched_kernel")
+        rec["sweep_device_us"] = all_kernels_device_us(
+            lambda: st.structured_sweep(*case))
+        rec["batched_sweep_device_us"] = all_kernels_device_us(
+            lambda: st.structured_sweep(*case, batched=True))
+        if bbase is not None:
+            def old_batched():
+                return batched_baseline_launch(bbase, *case)
+
+            rec["batched_baseline_max_rel_err"] = rel_err(
+                fold_baseline(tables, old_batched()), ref)
+            rec["batched_baseline_device_us"] = device_time_us(
+                old_batched, "structured3d_batched_kernel")
+            rec["batched_baseline_sweep_device_us"] = all_kernels_device_us(
+                lambda: fold_baseline(tables, old_batched()))
+            rec["batched_device_us_again"] = device_time_us(
+                batched, "structured3d_batched_kernel")
+            rec["device_us_again"] = device_time_us(kernel,
+                                                    "structured3d_kernel")
         nbytes, flops = structured_cost(tables, "increment", True, True)
         bms, by = bound(nbytes, flops)
         rec.update(bound_us=1e3 * bms, bound_by=by)
@@ -532,6 +616,23 @@ def main(argv=None) -> int:
                         "structured3d_kernel", n=20)
                 except RuntimeError as e:
                     rec["sweep"][key] = str(e)[:80]
+            rec["batched_sweep"] = {}
+            for p in sweep_plans(tables, (1, 2, 4, 8, 16)):
+                key = f"xb{p.xb}_zs{p.zs}_nzb{p.nzb}"
+                if key in rec["batched_sweep"]:
+                    continue
+                try:
+                    out = st.StructuredKernel.launch(*case, batched=True,
+                                                     plan=p)
+                    err = rel_err(st.fold_bricks(tables, *out, p.xb), ref)
+                    if err > REL_TOL:
+                        raise RuntimeError(f"max rel err {err:.3e}")
+                    rec["batched_sweep"][key] = device_time_us(
+                        lambda: st.StructuredKernel.launch(
+                            *case, batched=True, plan=p),
+                        "structured3d_batched_kernel", n=20)
+                except RuntimeError as e:
+                    rec["batched_sweep"][key] = str(e)[:80]
         print(json.dumps(rec), flush=True)
         del u, ul, vo, ref, a, b
     return 0
