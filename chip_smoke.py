@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device: require CUDA; print the card's name and power limit,
 2. build: compile the CUDA kernels from ``ns_gls_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together: patch2d, prism, structured,
-   patch3d, seam_sum),
+   ``nvcc`` per library, all started together: patch2d, prism, structured,
+   patch3d, seam_sum, and the degree-7 libraries of the first four),
 3. patch-2D kernel vs plain: the patch-2D kernel against its plain
    PyTorch version on the card, on every level space of the Turek 2D
    chains of ``input/turek_2d_re100.json`` (Q2, m = 1, 2, 4, 8) and
@@ -152,9 +152,23 @@ Phases (any failure exits non-zero and prints no result line):
     applies and the f64 fine level's against the single-device
     operators; the replicated strategy on Turek 2D ref 2 (2 steps)
     against a single-device run,
-20. the kernel line (JSON) with launches, errors, times and bounds (and
-    the fused kernels' sharded launches and per-shard times),
-21. the result line (JSON).
+20. degree 7: each of the six fused kernels' P = 7 instance, from the
+    libraries built for that degree alone in phase 2 (``nvcc
+    -DNS_KERNEL_DEGREE=7``), against its plain version within 1e-6 on one
+    small shape in every flavor x delta mode x consider_dt, two launches
+    bit-identical; registers, spills and shared memory (the prism
+    kernel's from the build log), device time, plain time and bound,
+21. the slab-sharded structured operator
+    (``parallel/structured_sharded.py``) on four shards of the card, 3D
+    (16^3 cells of Q2) and 2D (64^2): each shard's kernel against its
+    plain version, one apply's exchange two class-0 planes a neighbour
+    pair, the sharded apply within 1e-6 of the one-device kernel apply,
+    each shard's device time and bound and the exchange's share
+    (``bench_gpu.py --shards``'s measurement),
+22. the kernel line (JSON) with launches, errors, times and bounds (and
+    the fused kernels' sharded launches and per-shard times, and each
+    kernel's P = 7 numbers),
+23. the result line (JSON).
 
 Imports nothing of the JAX package; needs the repository around it.
 """
@@ -351,9 +365,9 @@ def patch2d_inputs(tables, seed=0):
 SC = dict(weight=187.5, stau=100.0, nu=0.001, c1=0.2, c2=0.3)
 
 
-def compare_cases(name, launch, plain, cases):
+def compare_cases(name, launch, plain, cases, tol=KERNEL_REL_TOL):
     """Kernel against plain version on every case; returns (max abs err,
-    max rel err) and raises past the tolerance."""
+    max rel err) and raises past the tolerance ``tol``."""
     import torch
 
     worst_rel = 0.0
@@ -369,10 +383,10 @@ def compare_cases(name, launch, plain, cases):
         rel = err / float(ref.abs().max())
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, rel)
-        if rel > KERNEL_REL_TOL:
+        if rel > tol:
             raise AssertionError(
                 f"{name} kernel vs plain (flavor, consider_dt, cell_wise) "
-                f"= {case[-3:]}: rel err {rel:.3e} > {KERNEL_REL_TOL}"
+                f"= {case[-3:]}: rel err {rel:.3e} > {tol}"
             )
     return worst_abs, worst_rel
 
@@ -2602,6 +2616,192 @@ def phase_sharding(ref2d, ref3d, ref_sphere):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: every fused kernel at degree 7, from the libraries built for it
+# ---------------------------------------------------------------------------
+DEGREE7 = 7
+# the sources whose kernels are templates over the degree
+DEGREE_SOURCES = ["patch2d", "prism", "structured", "patch3d"]
+# kernel vs plain version at P = 7, relative to the plain max-abs
+DEGREE7_REL_TOL = 1e-6
+
+
+def degree7_sets():
+    """(kernel name, wrapper, plain version, cases, attributes or None,
+    profiler name, cost of the timing case) of each of the six fused
+    kernels at P = 7 on one small shape: the patch-2D kernel on the Turek
+    2D mesh refined once (88 patches of 2 x 2 cells), the prism and
+    patch-3D kernels on synthetic single patches of 2 x 2 (x 16 layers)
+    and 2^3 cells, the structured kernels on the sheared lattices of
+    phase 9 (37 x 5 and 19 x 3 x 2 cells).  Every case list is every
+    flavor x delta mode x consider_dt; the first case is the timing
+    case's (increment, the history, q-wise delta)."""
+    from ns_gls_tpu_torch.models.cylinder import SimulationCylinder
+    from ns_gls_tpu_torch.ops import patch2d as p2
+    from ns_gls_tpu_torch.ops import patch3d as p3
+    from ns_gls_tpu_torch.ops import prism as pr
+    from ns_gls_tpu_torch.ops import structured as st
+    from ns_gls_tpu_torch.utils import roofline as rf
+
+    P = DEGREE7
+    # increment first: the timing case
+    combos = [(f, cdt, cw) for cw in (False, True) for cdt in (True, False)
+              for f in ("increment", "fixed", "residual")]
+    out = []
+    ft = patch2d_operator(SimulationCylinder(2).create_mesh(1), P,
+                          "cuda")._fast.tables
+    (t2,) = ft.fams
+    u, ul, vo = patch2d_inputs(t2)
+    out.append(("patch2d_gls_sweep", p2.Patch2DKernel.launch,
+                p2.patch2d_sweep_plain,
+                [(t2, SC, u, ul, vo, *c) for c in combos],
+                lambda f, cdt: p2.Patch2DKernel.attributes(P, t2.plan, f,
+                                                           cdt),
+                "patch2d_kernel", lambda *a: rf.patch2d_cost(ft, *a)))
+    tp = synthetic_prism_tables(P, 2, PRISM_BRICK_NZ, "cuda")
+    u, ul, vo = prism_inputs(tp)
+    out.append(("prism_gls_sweep", pr.PrismKernel.launch,
+                pr.prism_sweep_plain,
+                [(tp, SC3, u, ul if c[0] == "increment"
+                  else ul[:3].contiguous(), vo, *c) for c in combos],
+                None, "prism_kernel", lambda *a: rf.prism_cost(tp, *a)))
+    t3 = synthetic_patch3d_tables(P, 2, "cuda")
+    u, ul, vo = patch3d_inputs(t3)
+    out.append(("patch3d_gls_sweep", p3.Patch3DKernel.launch,
+                p3.patch3d_sweep_plain,
+                [(t3, SC3, u, ul, vo, *c) for c in combos],
+                lambda f, cdt: p3.Patch3DKernel.attributes(
+                    P, t3.m, t3.plans[(f, cdt)], f, cdt),
+                "patch3d_kernel", lambda *a: rf.patch3d_cost(t3, *a)))
+    for dim, batched in ((3, False), (2, False), (3, True)):
+        ts = sheared_tables(dim, P, "cuda")
+        u, ul, vo = structured_inputs(ts)
+        name = st.StructuredKernel.kernel_name(dim, batched)
+        plan = (st.slab_plan_2d if dim == 2 else
+                st.batched_plan if batched else st.brick_plan)(
+                    P, ts.cell_shape)
+        out.append((name,
+                    lambda *a, b=batched: st.structured_sweep(*a,
+                                                              batched=b),
+                    st.structured_sweep_plain,
+                    [(ts, SC_SHEAR, u, ul, vo, *c) for c in combos],
+                    lambda f, cdt, b=batched, pl=plan:
+                        st.StructuredKernel.attributes(P, pl, f, cdt, b),
+                    f"{name}_kernel",
+                    lambda *a, t=ts: rf.structured_cost(t, *a)))
+    return out
+
+
+def phase_degree7():
+    """Each fused kernel's P = 7 instance, from the libraries built for
+    that degree alone (phase 2), against its plain version within
+    ``DEGREE7_REL_TOL`` in every flavor x delta mode x consider_dt, two
+    launches bit-identical; its registers, spills and shared memory, and
+    its device time, plain time and bound in the timing case.  Returns
+    {kernel name: numbers}."""
+    import torch
+
+    from ns_gls_tpu_torch.utils.roofline import bound
+    from ns_gls_tpu_torch.utils.timer import device_time_us
+
+    res = {}
+    for (name, launch, plain, cases, attrs, kname,
+         cost) in degree7_sets():
+        a, r = compare_cases(f"{name} P={DEGREE7}", launch, plain, cases,
+                             tol=DEGREE7_REL_TOL)
+        x, y = launch(*cases[0]), launch(*cases[0])
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            raise AssertionError(f"two {name} P={DEGREE7} launches on the "
+                                 "same inputs differ")
+        case = cases[0]
+        us = device_time_us(lambda: launch(*case), kname, n=20)
+        plain_ms = time_sweep(lambda: plain(*case), n=5)
+        bound_ms, by = bound(*cost(*case[5:]))
+        at = attrs(case[5], case[6]) if attrs else {}
+        res[name] = dict(ms=us / 1e3, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=by, max_abs_err=a, max_rel_err=r,
+                         registers=at.get("registers"),
+                         spill_bytes=at.get("spill_bytes",
+                                            at.get("local_bytes")),
+                         dynamic_smem=at.get("dynamic_smem"))
+        log(f"[20] {name} P={DEGREE7}: {len(cases)} cases, max rel err "
+            f"{r:.3e} (tol {DEGREE7_REL_TOL}), relaunch bit-identical; "
+            f"device time {us:.1f} us, plain {1e3 * plain_ms:.1f} us, "
+            f"bound {1e3 * bound_ms:.2f} us by {by}; {at or 'attributes: '
+            'the build log of phase 2'}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the slab-sharded structured operator on four shards of the card
+# ---------------------------------------------------------------------------
+# (dim, refinements): the gls-vmult hypercube of degree 2, 16^3 cells (4
+# slabs a shard) and 64^2 cells (16)
+SHARDED_STRUCTURED = ((3, 4), (2, 6))
+# the sharded apply against the one-device kernel apply, relative to its
+# max-abs (the shared planes' partial sums add in another order)
+SHARDED_STRUCTURED_TOL = 1e-6
+
+
+def phase_sharded_structured():
+    """``parallel/structured_sharded.py`` on ``SHARDS`` shards of the card
+    at each shape of ``SHARDED_STRUCTURED``: each shard's kernel against
+    its plain version in every flavor (the lane's delta mode and
+    consider_dt), the sharded apply against the one-device kernel apply
+    within ``SHARDED_STRUCTURED_TOL``, the exchange's elements, each
+    shard's kernel device time and bound (``bench_gpu.measure_shards``).
+    Returns (max abs err, {dim: numbers}, kernel launches)."""
+    import torch
+
+    import bench_gpu
+    from ns_gls_tpu_torch.ops import structured as st
+
+    worst, out, launches = 0.0, {}, {}
+    for dim, ref in SHARDED_STRUCTURED:
+        op, space, u = bench_gpu.build(dim, ref, 2)
+        sop, args, (ud, uld, vod) = bench_gpu.sharded_setup(op, SHARDS)
+        tables, sc, _, _, _, _, cdt, cw = args
+        errs = {}
+        for k, t in enumerate(sop.tables):
+            cases = [(t, sc, ud[k], uld[k], vod[k], f, cdt, cw)
+                     for f in st.FLAVORS]
+            compare_structured(f"{dim}D shard {k}", cases, False, errs)
+        worst = max([worst] + list(errs.values()))
+        reset_kernel_counts()
+        sop.elements_moved = 0
+        sop.apply(sc["weight"], sc["stau"], ud, uld, vod, args[5])
+        for name, n in kernel_counts().items():
+            if n:
+                launches[name] = launches.get(name, 0) + n
+        if sop.elements_moved != sop.exchange_elements:
+            raise AssertionError(f"{dim}D: the exchange moved "
+                                 f"{sop.elements_moved} elements, not "
+                                 f"{sop.exchange_elements}")
+        res = bench_gpu.measure_shards(op, SHARDS)
+        if not res["sharded_rel_err"] <= SHARDED_STRUCTURED_TOL:
+            raise AssertionError(f"{dim}D sharded apply vs one device: rel "
+                                 f"err {res['sharded_rel_err']:.3e} > "
+                                 f"{SHARDED_STRUCTURED_TOL}")
+        out[dim] = dict(res, n_dofs=space.n_nodes * (dim + 1))
+        log(f"[21] {dim}D {tables.cell_shape} cells of Q2 on {SHARDS} "
+            f"shards: shard kernels vs plain ok (max abs err "
+            f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }); sharded "
+            f"apply {res['sharded_us']:.1f} us vs one device "
+            f"{res['one_device_us']:.1f} us, rel err "
+            f"{res['sharded_rel_err']:.3e} (tol {SHARDED_STRUCTURED_TOL}); "
+            f"exchange {res['exchange_us']:.1f} us "
+            f"({100 * res['exchange_share']:.1f}% of the apply, "
+            f"{res['exchange_bytes']} B)")
+        for k, x in enumerate(res["shards"]):
+            log(f"[21]   shard {k} {x['cells']}: kernel device time "
+                f"{x['kernel_us']:.1f} us, bound {x['bound_us']:.2f} us by "
+                f"{x['bound_by']}")
+        del op, sop, ud, uld, vod
+        torch.cuda.empty_cache()
+    return worst, out, launches
+
+
 def scatter_bits(tag, label, fn):
     """Two calls of ``fn`` on equal inputs: the same bits?"""
     import torch
@@ -2647,10 +2847,17 @@ def main() -> int:
         from ns_gls_tpu_torch.utils.roofline import bound, prism_cost
 
         t0 = time.perf_counter()
-        cuda_build.build_libraries(KERNEL_SOURCES)
-        log(f"[2] built {', '.join(KERNEL_SOURCES)} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for name in KERNEL_SOURCES:
+        # the common libraries and the degree-7 ones (phase 20), one nvcc
+        # each, all started together
+        degree7 = [(name, DEGREE7) for name in DEGREE_SOURCES]
+        cuda_build.build_libraries(KERNEL_SOURCES + degree7)
+        keys = KERNEL_SOURCES + [cuda_build.library_key(*k)
+                                 for k in degree7]
+        log(f"[2] built {', '.join(keys)} in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({ {k: round(cuda_build.build_info[k]['seconds'], 1)
+                 for k in keys} } s each)")
+        for name in keys:
             for line in cuda_build.build_info[name]["log"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[2]   {name}: {line.strip()}")
@@ -2831,9 +3038,16 @@ def main() -> int:
         shard = phase_sharding(
             dict(stats=main["stats"], recs=main["recs"], u=main["step3"]),
             main3, sph)
+        log(f"[-] sharding phase done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+        # 20. every fused kernel at degree 7
+        p7 = phase_degree7()
+        # 21. the slab-sharded structured operator on four shards
+        ss_err, ss, ss_launches = phase_sharded_structured()
         log(f"[-] all phases done at {time.perf_counter() - t_start:.1f} s")
 
-        # 20. kernel line, card line; 21. result line
+        # 22. kernel line, card line; 23. result line
         # the patch-2D kernel: device time at m = 8 in the main path's
         # flavor, alone (ms) and with its seam sum (sweep_ms); launches
         # from phase 4, one seam sum after each
@@ -2935,6 +3149,29 @@ def main() -> int:
                      sharded_bound_ms=[x["bound_us"] / 1e3
                                        for x in sh["shards"]],
                      sharded_bound_by=sh["shards"][0]["bound_by"])
+        # phase 20: each kernel's P = 7 instance at its one shape
+        for k in kernels:
+            k["p7"] = p7[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   p7[k["name"]]["max_abs_err"])
+        # phase 21: the slab-sharded structured operator's launches, and
+        # each shard's kernel time and bound at the 3D and 2D shapes
+        for k in kernels:
+            dim = {"structured3d": 3, "structured2d": 2}.get(k["name"])
+            if dim is None:
+                continue
+            sh = ss[dim]
+            k["max_abs_err"] = max(k["max_abs_err"], ss_err)
+            k.update(sharded_structured_launches=ss_launches.get(k["name"],
+                                                                 0),
+                     sharded_shard_ms=[x["kernel_us"] / 1e3
+                                       for x in sh["shards"]],
+                     sharded_bound_ms=[x["bound_us"] / 1e3
+                                       for x in sh["shards"]],
+                     sharded_bound_by=sh["shards"][0]["bound_by"],
+                     sharded_apply_ms=sh["sharded_us"] / 1e3,
+                     sharded_exchange_ms=sh["exchange_us"] / 1e3,
+                     one_device_sweep_ms=sh["one_device_us"] / 1e3)
         for k in kernels:
             if k["launches"] <= 0:
                 raise AssertionError(f"{k['name']} was not launched on its "

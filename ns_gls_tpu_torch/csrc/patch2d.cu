@@ -680,8 +680,9 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 }  // namespace
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// Degrees 1-6 with NQ = P + 1 Gauss points; x bricks of xb cells, ys cell
-// rows per slab and nyb y chunks per patch (ops/patch2d.py patch2d_plan).
+// The library's degrees (NS_FOR_DEGREES) with NQ = P + 1 Gauss points; x
+// bricks of xb cells, ys cell rows per slab and nyb y chunks per patch
+// (ops/patch2d.py patch2d_plan).
 // Returns 0, a CUDA error code, or 1 (cudaErrorInvalidValue) for a degree,
 // plan or input it does not take.
 extern "C" int patch2d_sweep_launch(
@@ -697,12 +698,7 @@ extern "C" int patch2d_sweep_launch(
     return launch_tp<PP>(u, ul, vo, pnodes, jinv, jxw, h, S1, D1, tiles,    \
                          n_p, m, flavor, consider_dt, cell_wise, sc, xb,    \
                          ys, nyb, st);
-  P2_CASE(1)
-  P2_CASE(2)
-  P2_CASE(3)
-  P2_CASE(4)
-  P2_CASE(5)
-  P2_CASE(6)
+  NS_FOR_DEGREES(P2_CASE)
 #undef P2_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -718,12 +714,10 @@ extern "C" int patch2d_attributes(int P, int xb, int ys, int yc, int flavor,
                                   long long* dynamic_smem) {
   cudaFuncAttributes a{};
   cudaError_t err = cudaErrorInvalidValue;
-  if (P == 1) err = cudaFuncGetAttributes(&a, patch2d_kernel<1>);
-  if (P == 2) err = cudaFuncGetAttributes(&a, patch2d_kernel<2>);
-  if (P == 3) err = cudaFuncGetAttributes(&a, patch2d_kernel<3>);
-  if (P == 4) err = cudaFuncGetAttributes(&a, patch2d_kernel<4>);
-  if (P == 5) err = cudaFuncGetAttributes(&a, patch2d_kernel<5>);
-  if (P == 6) err = cudaFuncGetAttributes(&a, patch2d_kernel<6>);
+#define P2_ATTR(PP) \
+  if (P == PP) err = cudaFuncGetAttributes(&a, patch2d_kernel<PP>);
+  NS_FOR_DEGREES(P2_ATTR)
+#undef P2_ATTR
   if (err != cudaSuccess) return (int)err;
   if (xb < 1 || ys < 1 || yc < ys) return (int)cudaErrorInvalidValue;
   const bool incr = flavor == GLS_INCREMENT;

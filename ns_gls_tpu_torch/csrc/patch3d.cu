@@ -65,7 +65,7 @@
 //    (E1), then x (E2), then y (E3, one thread per q-point, which maps the
 //    reference gradients with its own 3 x 3 J^-1 and runs the physics in
 //    registers); the test-function weights are integrated back along y
-//    (I3), x (I2) and z (I1).  P is a template parameter (degrees 1-6,
+//    (I3), x (I2) and z (I1).  P is a template parameter (NS_FOR_DEGREES,
 //    NQ = P + 1), so the 1D tables and the short contractions live in
 //    registers.
 //  - All components together: E1 and E2 take every component of one field
@@ -743,8 +743,9 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 }  // namespace
 
 // ---- host launchers (plain C interface, bound with ctypes) ------------
-// Degrees 1-6 with NQ = P + 1 Gauss points; xb cells per x brick (a
-// divisor of m), zs cell layers per slab and nzb z chunks per column
+// The library's degrees (NS_FOR_DEGREES) with NQ = P + 1 Gauss points; xb
+// cells per x brick (a divisor of m), zs cell layers per slab and nzb z
+// chunks per column
 // (ops/patch3d.py patch3d_plan).  Returns 0, a CUDA error code, or 1
 // (cudaErrorInvalidValue) for a degree, plan or input it does not take.
 extern "C" int patch3d_sweep_launch(
@@ -760,12 +761,7 @@ extern "C" int patch3d_sweep_launch(
     return launch_tp<PP>(u, ul, vo, pnodes, jinv, jxw, h, S1, D1, tiles,    \
                          n_p, m, flavor, consider_dt, cell_wise, sc, xb,    \
                          zs, nzb, st);
-  P3_CASE(1)
-  P3_CASE(2)
-  P3_CASE(3)
-  P3_CASE(4)
-  P3_CASE(5)
-  P3_CASE(6)
+  NS_FOR_DEGREES(P3_CASE)
 #undef P3_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -781,12 +777,10 @@ extern "C" int patch3d_attributes(int P, int m, int xb, int zs, int nzb,
                                   long long* dynamic_smem) {
   cudaFuncAttributes a{};
   cudaError_t err = cudaErrorInvalidValue;
-  if (P == 1) err = cudaFuncGetAttributes(&a, patch3d_kernel<1>);
-  if (P == 2) err = cudaFuncGetAttributes(&a, patch3d_kernel<2>);
-  if (P == 3) err = cudaFuncGetAttributes(&a, patch3d_kernel<3>);
-  if (P == 4) err = cudaFuncGetAttributes(&a, patch3d_kernel<4>);
-  if (P == 5) err = cudaFuncGetAttributes(&a, patch3d_kernel<5>);
-  if (P == 6) err = cudaFuncGetAttributes(&a, patch3d_kernel<6>);
+#define P3_ATTR(PP) \
+  if (P == PP) err = cudaFuncGetAttributes(&a, patch3d_kernel<PP>);
+  NS_FOR_DEGREES(P3_ATTR)
+#undef P3_ATTR
   if (err != cudaSuccess) return (int)err;
   if (m < 1 || xb < 1 || m % xb != 0 || nzb < 1 || nzb > m)
     return (int)cudaErrorInvalidValue;

@@ -643,9 +643,10 @@ int launch_tp(const float* u, const float* ul, const float* vo,
 
 // ---- host launcher (plain C interface, bound with ctypes) -------------
 // xb, zs, nzb: cells per x brick (a divisor of m), cell layers per slab and
-// z chunks per column (ops/prism.py prism_plan).  Degrees 1-6 with NQ =
-// P + 1 Gauss points.  Returns 0, a CUDA error code, or 1
-// (cudaErrorInvalidValue) for a degree, plan or input it does not take.
+// z chunks per column (ops/prism.py prism_plan).  The library's degrees
+// (NS_FOR_DEGREES) with NQ = P + 1 Gauss points.  Returns 0, a CUDA error
+// code, or 1 (cudaErrorInvalidValue) for a degree, plan or input it does
+// not take.
 extern "C" int prism_sweep_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
@@ -659,12 +660,7 @@ extern "C" int prism_sweep_launch(
     return launch_tp<PP, PP + 1>(u, ul, vo, jinv, jxw, h, S1, D1, wz, out,  \
                                  n_p, m, nz, flavor, consider_dt, cell_wise, \
                                  sc, xb, zs, nzb, st);
-  PRISM_CASE(1)
-  PRISM_CASE(2)
-  PRISM_CASE(3)
-  PRISM_CASE(4)
-  PRISM_CASE(5)
-  PRISM_CASE(6)
+  NS_FOR_DEGREES(PRISM_CASE)
 #undef PRISM_CASE
   return (int)cudaErrorInvalidValue;
 }

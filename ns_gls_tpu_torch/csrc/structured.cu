@@ -2260,10 +2260,11 @@ extern "C" int stage_zero() {
 }
 #endif
 
-// The batched 3D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb
-// cells per brick, zs cell layers per slab, nzb z chunks per column (ops/
-// structured.py batched_plan).  Returns 0, a CUDA error code, or 1
-// (cudaErrorInvalidValue) for a degree, plan or shape it does not take.
+// The batched 3D kernel, the library's degrees (NS_FOR_DEGREES) with NQ =
+// P + 1 Gauss points: xb cells per brick, zs cell layers per slab, nzb z
+// chunks per column (ops/structured.py batched_plan).  Returns 0, a CUDA
+// error code, or 1 (cudaErrorInvalidValue) for a degree, plan or shape it
+// does not take.
 extern "C" int structured3d_batched_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
@@ -2277,12 +2278,7 @@ extern "C" int structured3d_batched_launch(
     return launch3d_batched<PP>(u, ul, vo, jinv, jxw, h, S1, D1, tiles,     \
                                 seams, nx, ny, nz, flavor, consider_dt,     \
                                 cell_wise, sc, xb, zs, nzb, st);
-  SB_CASE(1)
-  SB_CASE(2)
-  SB_CASE(3)
-  SB_CASE(4)
-  SB_CASE(5)
-  SB_CASE(6)
+  NS_FOR_DEGREES(SB_CASE)
 #undef SB_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2299,12 +2295,10 @@ extern "C" int structured3d_batched_attributes(int P, int xb, int zs,
                                                long long* dynamic_smem) {
   cudaFuncAttributes a{};
   cudaError_t err = cudaErrorInvalidValue;
-  if (P == 1) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<1>);
-  if (P == 2) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<2>);
-  if (P == 3) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<3>);
-  if (P == 4) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<4>);
-  if (P == 5) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<5>);
-  if (P == 6) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<6>);
+#define SB_ATTR(PP) \
+  if (P == PP) err = cudaFuncGetAttributes(&a, structured3d_batched_kernel<PP>);
+  NS_FOR_DEGREES(SB_ATTR)
+#undef SB_ATTR
   if (err != cudaSuccess) return (int)err;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
@@ -2318,11 +2312,11 @@ extern "C" int structured3d_batched_attributes(int P, int xb, int zs,
   return 0;
 }
 
-// The 2D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb cells per
-// brick, ys cell rows per slab, nyb y chunks (ops/structured.py
-// slab_plan_2d).  out (3, Yr, 1, Nx), seams (3, Yr, nbx).  Returns 0, a
-// CUDA error code, or 1 (cudaErrorInvalidValue) for a degree, plan or shape
-// it does not take.
+// The 2D kernel, the library's degrees (NS_FOR_DEGREES) with NQ = P + 1
+// Gauss points: xb cells per brick, ys cell rows per slab, nyb y chunks
+// (ops/structured.py slab_plan_2d).  out (3, Yr, 1, Nx), seams (3, Yr,
+// nbx).  Returns 0, a CUDA error code, or 1 (cudaErrorInvalidValue) for a
+// degree, plan or shape it does not take.
 extern "C" int structured2d_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
@@ -2336,12 +2330,7 @@ extern "C" int structured2d_launch(
     return launch2d<PP>(u, ul, vo, jinv, jxw, h, S1, D1, out, seams, nx,   \
                         ny, flavor, consider_dt, cell_wise, sc, xb, ys,    \
                         nyb, st);
-  S2_CASE(1)
-  S2_CASE(2)
-  S2_CASE(3)
-  S2_CASE(4)
-  S2_CASE(5)
-  S2_CASE(6)
+  NS_FOR_DEGREES(S2_CASE)
 #undef S2_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2357,12 +2346,10 @@ extern "C" int structured2d_attributes(int P, int xb, int ys, int flavor,
                                        long long* dynamic_smem) {
   cudaFuncAttributes a{};
   cudaError_t err = cudaErrorInvalidValue;
-  if (P == 1) err = cudaFuncGetAttributes(&a, structured2d_kernel<1>);
-  if (P == 2) err = cudaFuncGetAttributes(&a, structured2d_kernel<2>);
-  if (P == 3) err = cudaFuncGetAttributes(&a, structured2d_kernel<3>);
-  if (P == 4) err = cudaFuncGetAttributes(&a, structured2d_kernel<4>);
-  if (P == 5) err = cudaFuncGetAttributes(&a, structured2d_kernel<5>);
-  if (P == 6) err = cudaFuncGetAttributes(&a, structured2d_kernel<6>);
+#define S2_ATTR(PP) \
+  if (P == PP) err = cudaFuncGetAttributes(&a, structured2d_kernel<PP>);
+  NS_FOR_DEGREES(S2_ATTR)
+#undef S2_ATTR
   if (err != cudaSuccess) return (int)err;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =
@@ -2376,10 +2363,11 @@ extern "C" int structured2d_attributes(int P, int xb, int ys, int flavor,
   return 0;
 }
 
-// The 3D kernel, degrees 1-6 with NQ = P + 1 Gauss points: xb cells per
-// brick, zs cell layers per slab, nzb z chunks per column (ops/
-// structured.py brick_plan).  Returns 0, a CUDA error code, or 1
-// (cudaErrorInvalidValue) for a degree, plan or shape it does not take.
+// The 3D kernel, the library's degrees (NS_FOR_DEGREES) with NQ = P + 1
+// Gauss points: xb cells per brick, zs cell layers per slab, nzb z chunks
+// per column (ops/structured.py brick_plan).  Returns 0, a CUDA error
+// code, or 1 (cudaErrorInvalidValue) for a degree, plan or shape it does
+// not take.
 extern "C" int structured3d_launch(
     const float* u, const float* ul, const float* vo, const float* jinv,
     const float* jxw, const float* h, const float* S1, const float* D1,
@@ -2393,12 +2381,7 @@ extern "C" int structured3d_launch(
     return launch3d<PP>(u, ul, vo, jinv, jxw, h, S1, D1, tiles, seams, nx, \
                         ny, nz, flavor, consider_dt, cell_wise, sc, xb, zs, \
                         nzb, st);
-  S3_CASE(1)
-  S3_CASE(2)
-  S3_CASE(3)
-  S3_CASE(4)
-  S3_CASE(5)
-  S3_CASE(6)
+  NS_FOR_DEGREES(S3_CASE)
 #undef S3_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -2414,12 +2397,10 @@ extern "C" int structured3d_attributes(int P, int xb, int zs, int flavor,
                                        long long* dynamic_smem) {
   cudaFuncAttributes a{};
   cudaError_t err = cudaErrorInvalidValue;
-  if (P == 1) err = cudaFuncGetAttributes(&a, structured3d_kernel<1>);
-  if (P == 2) err = cudaFuncGetAttributes(&a, structured3d_kernel<2>);
-  if (P == 3) err = cudaFuncGetAttributes(&a, structured3d_kernel<3>);
-  if (P == 4) err = cudaFuncGetAttributes(&a, structured3d_kernel<4>);
-  if (P == 5) err = cudaFuncGetAttributes(&a, structured3d_kernel<5>);
-  if (P == 6) err = cudaFuncGetAttributes(&a, structured3d_kernel<6>);
+#define S3_ATTR(PP) \
+  if (P == PP) err = cudaFuncGetAttributes(&a, structured3d_kernel<PP>);
+  NS_FOR_DEGREES(S3_ATTR)
+#undef S3_ATTR
   if (err != cudaSuccess) return (int)err;
   const bool incr = flavor == GLS_INCREMENT;
   const bool need_dt_old =

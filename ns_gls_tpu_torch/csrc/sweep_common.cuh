@@ -4,6 +4,16 @@
 // and rows of the 1D tables held in registers.
 #pragma once
 
+// The degrees a library of the fused sweeps holds an instance of: 1-6 in
+// the library every run builds, or the one degree NS_KERNEL_DEGREE in a
+// library built for it alone (utils/cuda_build.py, at the first table
+// build of a degree above 6).  X(P) expands once per degree.
+#ifdef NS_KERNEL_DEGREE
+#define NS_FOR_DEGREES(X) X(NS_KERNEL_DEGREE)
+#else
+#define NS_FOR_DEGREES(X) X(1) X(2) X(3) X(4) X(5) X(6)
+#endif
+
 #ifndef SWEEP_HOST_REHEARSAL
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

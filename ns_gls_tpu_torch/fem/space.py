@@ -317,9 +317,16 @@ class FESpace:
             p = self.degree
             self.cell_shape = tuple(mesh.lattice_shape)
             self.node_shape = tuple(p * n + 1 for n in self.cell_shape)
-            loc = np.asarray(
-                np.round(el.support_points * p), dtype=np.int64
-            )  # (n_loc, dim) integer offsets, x fastest
+            # (n_loc, dim) integer offsets, x fastest: each coordinate's
+            # rank among the p + 1 1D nodes.  The JAX package rounds
+            # coordinate * p instead, which merges nodes from p = 7 on,
+            # where a Gauss-Lobatto node lies more than half a step from
+            # its equispaced place (ROADMAP queue 3: a deviation)
+            nodes_1d = np.unique(el.support_points[:, 0])
+            assert nodes_1d.shape[0] == p + 1
+            loc = np.abs(
+                el.support_points[..., None] - nodes_1d
+            ).argmin(axis=-1)
             coords = p * mesh.lattice[:, None, :] + loc[None, :, :]
 
             def class_rank(i, n):

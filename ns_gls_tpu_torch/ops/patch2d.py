@@ -61,7 +61,13 @@ import numpy as np
 import torch
 
 from ns_gls_tpu_torch.ops.prism import band_1d, tile_nodes
-from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
+from ns_gls_tpu_torch.ops.structured import (
+    SMEM_PER_BLOCK,
+    _delta,
+    _physics,
+    check_degree,
+    raise_smem,
+)
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
 
 FLAVORS = ("fixed", "increment", "residual")
@@ -85,7 +91,6 @@ class Patch2DPlan(NamedTuple):
 
 # SMs of an H100 SXM
 N_SM = 132
-SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
 # a slab's fixed time, in q-points' time (tools/patch2d_levels.py --sweep
 # on the Turek 2D levels: one slab costs ~2 us, a q-point ~7 ns, and a
 # second block on an SM shares its issue slots rather than hiding its
@@ -135,8 +140,8 @@ def patch2d_plan(P: int, m: int, n_patches: int) -> Patch2DPlan:
     flavor (increment with the history), the one of least estimated time,
     blocks per SM x slabs per block x a slab's time (``SLAB_FIXED`` plus
     its q-points); ties go to fewer blocks, then longer bricks, then
-    deeper slabs.  Raises for a degree the kernel does not take or a
-    shape nothing fits."""
+    deeper slabs.  Raises where not even the smallest block fits the
+    card's shared memory, or for a shape nothing fits."""
     check_degree("patch-2D", P)
     nq2 = (P + 1) ** 2
     best = None
@@ -161,6 +166,9 @@ def patch2d_plan(P: int, m: int, n_patches: int) -> Patch2DPlan:
                 if best is None or cost < best[0]:
                     best = (cost, Patch2DPlan(xb, nbx, ys, yc, n_chunks))
     if best is None:
+        need = smem_bytes(P, 1, 1, 1, "increment", True)
+        if need > SMEM_PER_BLOCK:
+            raise_smem("patch-2D", P, need)
         raise ValueError(f"no patch-2D plan fits: P={P}, m={m}")
     return best[1]
 
@@ -412,16 +420,17 @@ class Patch2DKernel:
     # launches of the CUDA kernel in this process: one per successful
     # ``launch``, nowhere else
     launches = 0
-    _lib = None
+    # per degree: the library that holds its instance
+    _libs: dict = {}
     # the last tables held to the kernel's needs (checked once per tables)
     _checked = None
 
     @classmethod
-    def _load(cls):
-        if cls._lib is None:
-            from ns_gls_tpu_torch.utils.cuda_build import load_library
+    def _load(cls, P: int):
+        if P not in cls._libs:
+            from ns_gls_tpu_torch.utils.cuda_build import degree_library
 
-            lib = load_library("patch2d")
+            lib = degree_library("patch2d", P)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn = lib.patch2d_sweep_launch
             fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
@@ -431,8 +440,8 @@ class Patch2DKernel:
             at.argtypes = [ci] * 6 + [ip, ip, ip,
                                       ctypes.POINTER(ctypes.c_longlong)]
             at.restype = ci
-            cls._lib = lib
-        return cls._lib
+            cls._libs[P] = lib
+        return cls._libs[P]
 
     @classmethod
     def _check_tables(cls, tables: Patch2DTables, device):
@@ -471,7 +480,7 @@ class Patch2DKernel:
               or out.device != u.device or not out.is_contiguous()):
             raise ValueError(f"out: need a contiguous float32 {shape} "
                              f"tensor on u's device")
-        err = cls._load().patch2d_sweep_launch(
+        err = cls._load(P).patch2d_sweep_launch(
             u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
             tables.patch_nodes.data_ptr(), tables.jinv.data_ptr(),
             tables.jxw.data_ptr(), tables.h.data_ptr(),
@@ -499,7 +508,7 @@ class Patch2DKernel:
         shared memory per block under ``plan``, in bytes."""
         regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         dyn = ctypes.c_longlong()
-        err = cls._load().patch2d_attributes(
+        err = cls._load(P).patch2d_attributes(
             P, plan.xb, plan.ys, plan.yc, FLAVORS.index(flavor),
             int(consider_dt), ctypes.byref(regs), ctypes.byref(local),
             ctypes.byref(static), ctypes.byref(dyn))

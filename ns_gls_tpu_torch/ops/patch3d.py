@@ -66,7 +66,13 @@ from ns_gls_tpu_torch.ops.prism import (
     integrate_tiles,
     tile_nodes,
 )
-from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
+from ns_gls_tpu_torch.ops.structured import (
+    SMEM_PER_BLOCK,
+    _delta,
+    _physics,
+    check_degree,
+    raise_smem,
+)
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
 
 
@@ -90,7 +96,6 @@ class Patch3DPlan(NamedTuple):
 # registers) fit two to an SM when their shared memory does
 N_SM = 132
 SMEM_PER_SM = 233472           # bytes; each block also reserves 1 KB
-SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
 THREADS = 256
 MAX_COLS = 2                   # I1 columns (component, node) per thread
 
@@ -148,8 +153,8 @@ def patch3d_brick(P: int, m: int, n_patches: int) -> int:
     """The x brick of patches of m^3 cells of degree P: the whole cell row
     where it fits, else the longest divisor of m with at most ``MAX_COLS``
     I1 columns per thread and a plan for every flavor x consider_dt.
-    Raises for a degree the kernel does not take or a shape nothing
-    fits."""
+    Raises where not even the smallest block fits the card's shared
+    memory, or for a shape nothing fits."""
     check_degree("patch-3D", P)
     for xb in (d for d in range(m, 0, -1) if m % d == 0):
         if 4 * (P + 1) * (P * xb + 1) > MAX_COLS * THREADS:
@@ -157,6 +162,9 @@ def patch3d_brick(P: int, m: int, n_patches: int) -> int:
         if all(any(True for _ in _z_plans(P, m, xb, n_patches, f, c))
                for f in FLAVORS for c in (True, False)):
             return xb
+    need = smem_bytes(P, 1, 1, min(m, 2), "increment", True)
+    if need > SMEM_PER_BLOCK:
+        raise_smem("patch-3D", P, need)
     raise ValueError(f"no patch-3D plan fits: P={P}, m={m}")
 
 
@@ -273,8 +281,10 @@ def make_patch3d_tables(P, NQ, m, n_nodes, pn, jinv_t, jxw_t, h_t, dev,
     rows = tile_nodes(pn, P, m, xb).transpose(0, 1, 2, 5, 3, 4)
 
     def f32(a, shape):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(shape),
-                               device=dev)
+        # contiguous: a reshape of the brick transposes may be a strided
+        # view, and the kernel reads every table as contiguous
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(a, np.float32).reshape(shape)), device=dev)
 
     QB = m * NQ ** 3 * xb
     return Patch3DTables(
@@ -388,14 +398,15 @@ class Patch3DKernel:
     # launches of the CUDA kernel in this process: one per successful
     # ``launch``, nowhere else
     launches = 0
-    _lib = None
+    # per degree: the library that holds its instance
+    _libs: dict = {}
 
     @classmethod
-    def _load(cls):
-        if cls._lib is None:
-            from ns_gls_tpu_torch.utils.cuda_build import load_library
+    def _load(cls, P: int):
+        if P not in cls._libs:
+            from ns_gls_tpu_torch.utils.cuda_build import degree_library
 
-            lib = load_library("patch3d")
+            lib = degree_library("patch3d", P)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn = lib.patch3d_sweep_launch
             fn.argtypes = [vp] * 10 + [ci] * 7 + [cf] * 5 + [ci] * 3 + [vp]
@@ -405,8 +416,8 @@ class Patch3DKernel:
             at.argtypes = [ci] * 7 + [ip, ip, ip,
                                       ctypes.POINTER(ctypes.c_longlong)]
             at.restype = ci
-            cls._lib = lib
-        return cls._lib
+            cls._libs[P] = lib
+        return cls._libs[P]
 
     @classmethod
     def launch(cls, tables: Patch3DTables, sc: dict, u, ul, vo,
@@ -438,7 +449,7 @@ class Patch3DKernel:
         out = torch.empty((n_p, m, plan.nbx, P * m + 1, P + 1,
                            P * plan.xb + 1, 4), dtype=torch.float32,
                           device=u.device)
-        err = cls._load().patch3d_sweep_launch(
+        err = cls._load(P).patch3d_sweep_launch(
             u.data_ptr(), ul.data_ptr(), vo.data_ptr(),
             tables.patch_nodes.data_ptr(), tables.jinv.data_ptr(),
             tables.jxw.data_ptr(), tables.h.data_ptr(),
@@ -466,7 +477,7 @@ class Patch3DKernel:
         shared memory per block under ``plan``, in bytes."""
         regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         dyn = ctypes.c_longlong()
-        err = cls._load().patch3d_attributes(
+        err = cls._load(P).patch3d_attributes(
             P, m, plan.xb, plan.zs, plan.nzb, FLAVORS.index(flavor),
             int(consider_dt),
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static),

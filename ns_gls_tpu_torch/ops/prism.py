@@ -60,7 +60,13 @@ from ns_gls_tpu_torch.fem.lagrange import (
     gauss_lobatto_points_1d,
     gauss_points_1d,
 )
-from ns_gls_tpu_torch.ops.structured import _delta, _physics, check_degree
+from ns_gls_tpu_torch.ops.structured import (
+    SMEM_PER_BLOCK,
+    _delta,
+    _physics,
+    check_degree,
+    raise_smem,
+)
 from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
 
 FLAVORS = ("fixed", "increment", "residual")
@@ -85,7 +91,6 @@ class PrismPlan(NamedTuple):
 THREADS = 256
 MAX_COLS = 4                   # I1 columns (component, node) per thread
 SLAB_Q = 512                   # q-points per slab the plan aims for
-SMEM_PER_BLOCK = 232448        # the opt-in limit of one block
 STATIC_SMEM = 11 * 8           # the kernel's field pointer table
 
 
@@ -117,8 +122,8 @@ def prism_plan(P: int, m: int, nz: int) -> PrismPlan:
     with the history), with slabs of about ``SLAB_Q`` q-points and each
     column in two z chunks when each still holds two slabs (the measured
     best on the Turek 3D levels, ``tools/prism_levels.py --sweep``).
-    Raises for a degree the kernel does not take or a shape nothing
-    fits."""
+    Raises where not even the smallest block fits the card's shared
+    memory, or for a shape nothing fits."""
     check_degree("prism", P)
     nq3 = (P + 1) ** 3
     for xb in (d for d in range(m, 0, -1) if m % d == 0):
@@ -134,6 +139,9 @@ def prism_plan(P: int, m: int, nz: int) -> PrismPlan:
         nzb = min(2 if nz >= 4 * zs else 1, nz)
         zc = -(-nz // nzb)
         return PrismPlan(xb, m // xb, zs, zc, -(-nz // zc))
+    need = smem_bytes(P, 1, 1, "increment", True) + STATIC_SMEM
+    if need > SMEM_PER_BLOCK:
+        raise_smem("prism", P, need)
     raise ValueError(f"no prism plan fits: P={P}, m={m}, nz={nz}")
 
 
@@ -443,20 +451,20 @@ class PrismKernel:
     # launches of the CUDA kernel in this process: one per successful
     # ``launch``, nowhere else
     launches = 0
-    _fn = None
+    # per degree: the launcher of the library that holds its instance
+    _fns: dict = {}
 
     @classmethod
-    def _load(cls):
-        if cls._fn is None:
-            from ns_gls_tpu_torch.utils.cuda_build import load_library
+    def _load(cls, P: int):
+        if P not in cls._fns:
+            from ns_gls_tpu_torch.utils.cuda_build import degree_library
 
-            lib = load_library("prism")
-            fn = lib.prism_sweep_launch
+            fn = degree_library("prism", P).prism_sweep_launch
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn.argtypes = [vp] * 10 + [ci] * 8 + [cf] * 5 + [ci] * 3 + [vp]
             fn.restype = ci
-            cls._fn = fn
-        return cls._fn
+            cls._fns[P] = fn
+        return cls._fns[P]
 
     @classmethod
     def launch(cls, tables: PrismTables, sc: dict, uP, ulP, voP,
@@ -494,7 +502,7 @@ class PrismKernel:
                 raise ValueError("tables must be contiguous on u's device")
         out = torch.empty((C, n_p, m, plan.nbx, P + 1, P * plan.xb + 1,
                            Nzn), dtype=torch.float32, device=uP.device)
-        fn = cls._load()
+        fn = cls._load(P)
         err = fn(
             uP.data_ptr(), ulP.data_ptr(), voP.data_ptr(),
             tables.jinv.data_ptr(), tables.jxw.data_ptr(),

@@ -44,10 +44,13 @@ stacked schedules, the bf16-split precision modes and the diagonal- and
 uniform-geometry compile-time variants.  The port is exact f32 with the
 full per-cell ``jinv``.
 
-Supported: dim 2/3, degrees 1-6 (every fused kernel's; the tables refuse
-others, :func:`check_degree`), affine cells, BDF/stationary (theta = 1),
-cell- or q-wise stabilization, fixed-point / Newton-increment / residual
-flavors, f32.  The operator uses another sweep for anything else.
+Supported: dim 2/3, any degree whose smallest thread block fits the
+card's shared memory (:func:`raise_smem`; degrees 1-6 are built into the
+kernels' common library, any other into a library of its own at first
+use, ``utils/cuda_build.py`` ``degree_library``), affine cells,
+BDF/stationary (theta = 1), cell- or q-wise stabilization, fixed-point /
+Newton-increment / residual flavors, f32.  The operator uses another
+sweep for anything else.
 """
 
 from __future__ import annotations
@@ -60,22 +63,30 @@ import numpy as np
 import torch
 
 FLAVORS = ("fixed", "increment", "residual")
-# the degrees every fused CUDA kernel of the port is built for (template
-# instances); the JAX package's Pallas kernels have no such limit.  Six is
-# where deal.II's precompiled matrix-free evaluators stop by default
-# (FE_EVAL_FACTORY_DEGREE_MAX), so the reference's own fast path has the
-# same cut
-KERNEL_DEGREES = (1, 2, 3, 4, 5, 6)
+# the opt-in shared memory of one thread block on an H100 (227 KB).  Like
+# the JAX package's Pallas kernels, the port's have no degree limit of
+# their own (``utils/cuda_build.py`` ``degree_library``): a degree is
+# refused only where the smallest thread block of its kernel needs more
+# than this (raise_smem)
+SMEM_PER_BLOCK = 232448
 
 
 def check_degree(kernel: str, P: int):
     """Raise, when the tables are built and before any launch, for a
-    degree the port's kernels are not built for."""
-    if P not in KERNEL_DEGREES:
-        raise ValueError(
-            f"the port's {kernel} kernel takes degrees "
-            f"{KERNEL_DEGREES[0]}-{KERNEL_DEGREES[-1]}, not {P} (a limit "
-            "of the port; the JAX package has none)")
+    degree no kernel instance can exist for (below 1)."""
+    if P < 1:
+        raise ValueError(f"the port's {kernel} kernel takes degrees 1 and "
+                         f"up, not {P}")
+
+
+def raise_smem(kernel: str, P: int, need: int):
+    """Raise, when the tables are built and before any launch, for a
+    degree whose smallest block of ``kernel`` needs ``need`` bytes of
+    shared memory, more than the card's limit."""
+    raise ValueError(
+        f"the {kernel} kernel at degree {P} needs {need} bytes of shared "
+        f"memory at its smallest thread block, above the card's "
+        f"{SMEM_PER_BLOCK} bytes a block (an H100's opt-in limit)")
 
 
 def _physics(d, flavor, sc, u_val, u_grad, p_val, p_grad,
@@ -235,6 +246,9 @@ def build_structured_tables(op):
 
     P = space.degree
     check_degree(f"structured {d}D", P)
+    # the plan of the dimension's kernel: raises where no block fits
+    (slab_plan_2d if d == 2 else brick_plan)(
+        P, tuple(int(n) for n in space.cell_shape))
     NQ = space.n_q1d
     nodes = gauss_lobatto_points_1d(P + 1)
     qpts, _ = gauss_points_1d(NQ)
@@ -412,6 +426,44 @@ BRICKS = {1: ((8, 8), (16, 4)), 2: ((8, 2), (4, 4)), 3: ((4, 1), (2, 2)),
 WAVE = 2 * 132
 
 
+def brick_smem(P: int, xb: int, zs: int, flavor: str,
+               consider_dt: bool) -> int:
+    """Dynamic shared memory of one block of the 3D kernel in bytes, as its
+    launcher computes it (``csrc/structured.cu`` ``s3_smem``): two buffers
+    of the slab's node planes of every staged field and of its cells'
+    geometry, the two regions the contraction stages alternate between,
+    and the cells' max |u*|^2."""
+    n1 = nq = P + 1
+    incr = flavor == "increment"
+    nf = 4 + (4 if incr else 3) + (3 if _need_dt_old(flavor, consider_dt)
+                                   else 0)
+    ng = 8 if incr else 4
+    xn, lx = P * xb + 1, nq * xb
+    zn, lz = P * zs + 1, nq * zs
+    pl, qs, xf = n1 * xn, lz * nq * lx, lz * n1 * lx
+    floats = (2 * nf * zn * pl + 2 * zs * xb * (11 + nq ** 3)
+              + max((nf + ng) * lz * pl, 16 * qs, 8 * lz * pl)
+              + max((nf + 2 * ng) * xf, 12 * xf) + zs * xb)
+    return 4 * floats
+
+
+def fitting_shapes(kernel: str, P: int, shapes, smem) -> tuple:
+    """Of the block shapes ``shapes`` (cells along x, cell layers or rows
+    per slab), those whose shared memory ``smem(P, xb, zs, flavor,
+    consider_dt)`` in the flavor that needs the most fits the card, else
+    the smallest block (1, 1) alone where that fits; raises
+    (:func:`raise_smem`) where not even that does."""
+    def need(s):
+        return smem(P, *s, "increment", True)
+
+    fit = tuple(s for s in shapes if need(s) <= SMEM_PER_BLOCK)
+    if fit:
+        return fit
+    if need((1, 1)) > SMEM_PER_BLOCK:
+        raise_smem(kernel, P, need((1, 1)))
+    return ((1, 1),)
+
+
 def _plan_3d(P: int, cell_shape: tuple, shapes, wave: int) -> BrickPlan:
     """Of the brick shapes ``shapes`` (cells along x, cell layers per slab)
     and the z chunkings (a chunk recomputes the layer below it for its
@@ -443,8 +495,11 @@ def _plan_3d(P: int, cell_shape: tuple, shapes, wave: int) -> BrickPlan:
 @functools.lru_cache(maxsize=64)
 def brick_plan(P: int, cell_shape: tuple) -> BrickPlan:
     """The 3D kernel's blocks for a lattice of ``cell_shape`` (nx, ny, nz)
-    cells of degree P (:func:`_plan_3d` over the shapes of ``BRICKS``)."""
-    return _plan_3d(P, cell_shape, BRICKS.get(P, ((1, 1),)), WAVE)
+    cells of degree P (:func:`_plan_3d` over the shapes of ``BRICKS`` that
+    fit the card, :func:`fitting_shapes`)."""
+    shapes = fitting_shapes("structured 3D", P, BRICKS.get(P, ((1, 1),)),
+                            brick_smem)
+    return _plan_3d(P, cell_shape, shapes, WAVE)
 
 
 # per degree: the batched 3D kernel's brick shapes (cells along x, cell
@@ -489,9 +544,11 @@ def batched_smem(P: int, xb: int, zs: int, flavor: str,
 def batched_plan(P: int, cell_shape: tuple) -> BrickPlan:
     """The batched 3D kernel's blocks for a lattice of ``cell_shape`` (nx,
     ny, nz) cells of degree P: :func:`_plan_3d` over the shapes of
-    ``BATCHED_BRICKS``, two blocks a wave per SM where the shape's shared
-    memory (in the flavor that needs the most) allows it, one where not."""
-    shapes = BATCHED_BRICKS.get(P, ((1, 1),))
+    ``BATCHED_BRICKS`` that fit the card (:func:`fitting_shapes`), two
+    blocks a wave per SM where the shapes' shared memory (in the flavor
+    that needs the most) allows it, one where not."""
+    shapes = fitting_shapes("batched structured 3D", P,
+                            BATCHED_BRICKS.get(P, ((1, 1),)), batched_smem)
     two = all(batched_smem(P, *s, "increment", True) <= SMEM_TWO_BLOCKS
               for s in shapes)
     return _plan_3d(P, cell_shape, shapes, (2 if two else 1) * 132)
@@ -531,7 +588,7 @@ SLABS_2D = {1: ((32, 8), (16, 8), (64, 2), (16, 4)),
             3: ((12, 4), (16, 2), (8, 4), (8, 2)),
             4: ((8, 4), (16, 2), (8, 2), (4, 2)),
             5: ((8, 2), (4, 4), (4, 2), (8, 1)),
-            6: ((8, 1), (4, 2), (4, 1))}
+            6: ((8, 1), (4, 2), (4, 1)), 7: ((8, 1), (4, 2), (4, 1))}
 # blocks of the 2D kernel resident at once on an H100: two per SM
 WAVE_2D = 2 * 132
 # the shared memory per block the plans stay within: two blocks per SM
@@ -560,7 +617,8 @@ def slab_smem_2d(P: int, xb: int, ys: int, flavor: str,
 def slab_plan_2d(P: int, cell_shape: tuple) -> SlabPlan2D:
     """The 2D kernel's blocks for a lattice of ``cell_shape`` (nx, ny)
     cells of degree P: of the brick shapes of ``SLABS_2D`` (those within
-    ``SMEM_2D`` in every flavor) and the y chunkings (a chunk recomputes
+    ``SMEM_2D`` in every flavor, else those within the card's limit,
+    :func:`fitting_shapes`) and the y chunkings (a chunk recomputes
     the cell row below it for its carry), the one of least estimated time,
     waves of resident blocks x slabs per block x a slab's time (a fixed
     part as long as 256 q-points, plus its q-points); ties go to taller
@@ -568,10 +626,12 @@ def slab_plan_2d(P: int, cell_shape: tuple) -> SlabPlan2D:
     bricks.  A slab is no deeper than the chunk's walk."""
     nx, ny = cell_shape
     nq2 = (P + 1) ** 2
+    shapes = SLABS_2D.get(P, ((1, 1),))
+    two = tuple(s for s in shapes
+                if slab_smem_2d(P, *s, "increment", True) <= SMEM_2D)
     best = None
-    for xb0, ys0 in SLABS_2D.get(P, ((1, 1),)):
-        if slab_smem_2d(P, xb0, ys0, "increment", True) > SMEM_2D:
-            continue
+    for xb0, ys0 in two or fitting_shapes("structured 2D", P, shapes,
+                                          slab_smem_2d):
         xb = min(xb0, nx)
         nbx = -(-nx // xb)
         yc_seen = set()
@@ -611,14 +671,15 @@ class StructuredKernel:
     # ``launch``, nowhere else
     launches = {"structured2d": 0, "structured3d": 0,
                 "structured3d_batched": 0}
-    _lib = None
+    # per degree: the library that holds its instances
+    _libs: dict = {}
 
     @classmethod
-    def _load(cls):
-        if cls._lib is None:
-            from ns_gls_tpu_torch.utils.cuda_build import load_library
+    def _load(cls, P: int):
+        if P not in cls._libs:
+            from ns_gls_tpu_torch.utils.cuda_build import degree_library
 
-            lib = load_library("structured")
+            lib = degree_library("structured", P)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             for fn in (lib.structured3d_launch,
                        lib.structured3d_batched_launch):
@@ -634,8 +695,8 @@ class StructuredKernel:
                 fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 3 + [
                     ctypes.POINTER(ctypes.c_longlong)]
                 fn.restype = ci
-            cls._lib = lib
-        return cls._lib
+            cls._libs[P] = lib
+        return cls._libs[P]
 
     @staticmethod
     def kernel_name(d: int, batched: bool) -> str:
@@ -653,7 +714,7 @@ class StructuredKernel:
         the dynamic shared memory of one block under ``plan`` in that
         flavor."""
         vals = [ctypes.c_int() for _ in range(3)] + [ctypes.c_longlong()]
-        lib = cls._load()
+        lib = cls._load(P)
         if isinstance(plan, SlabPlan2D):
             name, depth = "structured2d_attributes", plan.ys
         elif batched:
@@ -695,7 +756,7 @@ class StructuredKernel:
                 raise ValueError("tables must be contiguous on u's device")
         nx, ny = tables.cell_shape[0], tables.cell_shape[1]
         nz = tables.cell_shape[2] if d == 3 else 1
-        lib = cls._load()
+        lib = cls._load(P)
         scal = [sc[k] for k in ("weight", "stau", "nu", "c1", "c2")]
         ptrs = [t.data_ptr() for t in (uT, ulT, voT, tables.jinv, tables.jxw,
                                        tables.h, tables.S1, tables.D1)]
@@ -772,6 +833,8 @@ class StructuredSweep:
         self.tables = tables
         self.lattice_shape = lattice_shape(tables.P, tables.cell_shape)
         self.batched = bool(batched)
+        if self.batched:
+            batched_plan(tables.P, tables.cell_shape)   # raises if no fit
         self.consider_dt = op.consider_time_derivative
         self.cell_wise = op.cell_wise_stabilization
         self.nu = op.nu

@@ -42,7 +42,11 @@ def test_import_loads_no_jax():
         "import ns_gls_tpu_torch.utils.checkpoint\n"
         "import ns_gls_tpu_torch.parallel.halo, "
         "ns_gls_tpu_torch.parallel.sharding\n"
-        "import bench_gpu, chip_smoke\n"
+        "import ns_gls_tpu_torch.parallel.structured_sharded\n"
+        "import bench_gpu, bench_step_gpu, chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import step_configs_gpu, corridor_gpu, tolerance_proof_gpu, "
+        "wake_re3900_gpu\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'ns_gls_tpu' "
         "or m.startswith('ns_gls_tpu.'))))\n"
@@ -56,8 +60,11 @@ def test_import_loads_no_jax():
 
 def test_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)|ns_gls_tpu\.", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "bench_gpu.py")]
+    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "bench_gpu.py",
+                                             "bench_step_gpu.py")]
+    files += [os.path.join(ROOT, "tools", n)
+              for n in sorted(os.listdir(os.path.join(ROOT, "tools")))
+              if n.endswith("_gpu.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "ns_gls_tpu_torch")):
         files += [os.path.join(d, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
@@ -67,6 +74,28 @@ def test_sources_name_no_jax():
             if pattern.search(f.read()):
                 offenders.append(os.path.relpath(path, ROOT))
     assert offenders == []
+
+
+def _modules(package: str) -> set:
+    root = os.path.join(ROOT, package)
+    return {os.path.relpath(os.path.join(d, n), root)
+            for d, _, names in os.walk(root) if "__pycache__" not in d
+            for n in names if n.endswith(".py")}
+
+
+def test_port_modules_match_the_jax_package():
+    """The port is whole: its modules are the JAX package's but for the
+    two left out on purpose (``ops/assembly_independent.py``, NumPy only
+    and used by the JAX tests alone; ``utils/precision.py``, the TPU's
+    precision modes), and it adds only its entry point, its distributed
+    vectors and the ``utils/`` helpers of the port (kernel builds, device
+    choice, bounds, fixed-order sums)."""
+    jax_mods, port_mods = _modules("ns_gls_tpu"), _modules("ns_gls_tpu_torch")
+    assert jax_mods - port_mods == {"ops/assembly_independent.py",
+                                    "utils/precision.py"}
+    assert port_mods - jax_mods == {
+        "__main__.py", "parallel/dist.py", "utils/cuda_build.py",
+        "utils/device.py", "utils/roofline.py", "utils/segment.py"}
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
@@ -86,10 +115,13 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 def test_unported_configuration_raises(monkeypatch):
-    """What the port does not cover yet: a degree above the fused
-    kernels' (1-6) raises when an f32 level's tables are built.  Sharding
-    (``n devices`` > 1) is ported: a driver builds on CPU shards, and
-    asking for more cards than there are raises."""
+    """What the port does not cover: nothing the JAX package runs but a
+    degree whose smallest kernel block exceeds the card's shared memory
+    (``tests/test_torch_patch3d.py::test_degree_5_raises_at_table_build``).
+    Degree 7, which raised before its kernels built on demand, now sets
+    up a driver whose f32 levels run the structured sweep at that degree.
+    Sharding (``n devices`` > 1) is ported: a driver builds on CPU shards,
+    and asking for more cards than there are raises."""
     from ns_gls_tpu_torch.config import Parameters
     from ns_gls_tpu_torch.driver import Driver
     from ns_gls_tpu_torch.parallel.halo import HaloShardedOperator
@@ -115,8 +147,9 @@ def test_unported_configuration_raises(monkeypatch):
                                          "n global refinements": 1,
                                          "output granularity": 0.0})
     drv = Driver(params, device="cpu")
-    with pytest.raises(ValueError, match="degrees 1-6, not 7"):
-        drv.setup()
+    drv.setup()
+    levels = [op._fast for op in drv.mg_ops if op._fast is not None]
+    assert levels and all(sw.tables.P == 7 for sw in levels)
 
 
 # every configuration key this slice ported, with a value that selects it

@@ -191,11 +191,16 @@ def test_patch2d_plan_covers_every_cell_row_once(P):
 
 
 def test_patch2d_plan_refuses_other_degrees():
-    """A degree the kernel has no specialization for is refused with a
-    clear message when the plan is made, before any launch."""
-    for P in (0, 7):
-        with pytest.raises(ValueError, match="degrees 1-6"):
+    """A degree the kernel can have no instance for (below 1) is refused
+    with a clear message when the plan is made, before any launch; a
+    degree above the common library's 1-6 plans, its instance built on
+    demand (the first degree whose block exceeds the card's shared
+    memory is refused: ``test_torch_patch3d.py``,
+    ``test_degree_5_raises_at_table_build``)."""
+    for P in (0, -1):
+        with pytest.raises(ValueError, match="degrees 1 and up"):
             tp2.patch2d_plan(P, 8, 88)
+    assert tp2.patch2d_plan(7, 8, 88).xb >= 1
 
 
 def _turek_tables(n_ref, degree=2):

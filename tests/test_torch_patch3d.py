@@ -32,6 +32,7 @@ from ns_gls_tpu_torch.fem.space import FESpace as TSpace
 from ns_gls_tpu_torch.mesh import generators as tgen
 from ns_gls_tpu_torch.mesh.gmsh import read_msh as tread
 from ns_gls_tpu_torch.models.sphere import MESH_FILE
+from ns_gls_tpu_torch.ops import patch2d as tp2
 from ns_gls_tpu_torch.ops import patch3d as tp3
 from ns_gls_tpu_torch.ops import prism as tpr
 from ns_gls_tpu_torch.ops import structured as tst
@@ -286,29 +287,38 @@ def test_patch3d_bricks_match_whole_rows():
 @pytest.mark.parametrize("kind", ["patch3d", "prism", "patch2d",
                                   "structured"])
 def test_degree_5_raises_at_table_build(kind):
-    """The port's kernels are built for degrees 1-6 (degree 5 was the
-    first refused degree before they gained 5 and 6, hence the name); an
-    f32 operator of degree 7 on any fused-sweep space raises when its
-    tables are built, before any launch, naming that limit (on the CPU
-    too)."""
+    """The port's kernels take any degree whose smallest thread block fits
+    the card's shared memory (degrees 1-6 from the common library, others
+    from a library built for them; before that, degree 5 and then 7 was
+    the first refused degree, hence the name).  An f32 operator of the
+    first degree that does not fit raises when its tables are built,
+    before any launch, naming the card's limit (on the CPU too): degree 8
+    for the patch-3D kernel, 9 for the prism and structured 3D ones; the
+    2D kernels' first such degree is far above any space the tests can
+    build, so their plans are asked for it directly."""
     from ns_gls_tpu_torch.models.channel import SimulationChannel
 
+    match = "the card's 232448 bytes a block"
+    if kind == "patch2d":
+        P = next(P for P in range(8, 100)
+                 if tp2.smem_bytes(P, 1, 1, 1, "increment", True)
+                 > tst.SMEM_PER_BLOCK)
+        with pytest.raises(ValueError, match=match):
+            tp2.patch2d_plan(P, 1, 1)
+        tp2.patch2d_plan(P - 1, 1, 1)
+        return
     if kind == "patch3d":
-        mesh = general3d_mesh(tgen, 0)
+        mesh, P = general3d_mesh(tgen, 0), 8
     elif kind == "prism":
         m2 = tgen.subdivided_hyper_rectangle((2, 2), (0.0, 0.0), (1.1, 0.9))
         m2.lattice = None
-        mesh = tgen.extrude(m2, 2, 0.7)
-    elif kind == "patch2d":
-        mesh = tgen.subdivided_hyper_rectangle((1, 1), (0.0, 0.0),
-                                               (1.1, 0.9))
-        mesh.lattice = None
+        mesh, P = tgen.extrude(m2, 2, 0.7), 9
     else:
-        mesh = SimulationChannel(2).create_mesh(-2)
-    space = TSpace(mesh, 7)
+        mesh, P = SimulationChannel(3).create_mesh(-2), 9
+    space = TSpace(mesh, P)
     ti = TBDF(1)
     ti.update_dt(0.1)
     ca = TAff(space.n_nodes, space.dim + 1).close(F32, "cpu")
-    with pytest.raises(ValueError, match="degrees 1-6, not 7"):
+    with pytest.raises(ValueError, match=match):
         TOp(space, ca, ca, nu=0.02, c_1=4.0, c_2=2.0, time_integrator=ti,
             dtype=F32, device="cpu")
