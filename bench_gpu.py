@@ -309,14 +309,10 @@ def kernel_of(op):
     """(kernel wrapper, cost function, launch counts) of the operator's
     fused sweep: the structured kernels, the patch-2D (every family's
     launch), patch-3D or prism one."""
-    from ns_gls_tpu_torch.ops.patch2d import (
-        Patch2DKernel,
-        Patch2DSweep,
-        patch2d_tiles,
-    )
+    from ns_gls_tpu_torch.ops.patch2d import Patch2DSweep, patch2d_tiles
     from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel, Patch3DSweep
     from ns_gls_tpu_torch.ops.prism import PrismKernel, PrismSweep
-    from ns_gls_tpu_torch.ops.structured import StructuredKernel
+    from ns_gls_tpu_torch.ops.structured import KERNEL_NAMES, StructuredKernel
     from ns_gls_tpu_torch.utils.roofline import (
         patch2d_cost,
         patch3d_cost,
@@ -324,24 +320,22 @@ def kernel_of(op):
         structured_cost,
     )
 
+    from ns_gls_tpu_torch.utils.timer import counters
+
+    def launches(*names):
+        return lambda: {k: counters().get("launch." + k, 0) for k in names}
+
     sw = op._fast
     if isinstance(sw, Patch2DSweep):
-        from ns_gls_tpu_torch.utils.segment import SeamSumKernel
-
         return (patch2d_tiles, patch2d_cost,
-                lambda: {"patch2d_gls_sweep": Patch2DKernel.launches,
-                         "seam_sum": SeamSumKernel.launches})
+                launches("patch2d_gls_sweep", "seam_sum"))
     if isinstance(sw, Patch3DSweep):
-        from ns_gls_tpu_torch.utils.segment import SeamSumKernel
-
         return (Patch3DKernel.launch, patch3d_cost,
-                lambda: {"patch3d_gls_sweep": Patch3DKernel.launches,
-                         "seam_sum": SeamSumKernel.launches})
+                launches("patch3d_gls_sweep", "seam_sum"))
     if isinstance(sw, PrismSweep):
-        return (PrismKernel.launch, prism_cost,
-                lambda: {"prism_gls_sweep": PrismKernel.launches})
+        return (PrismKernel.launch, prism_cost, launches("prism_gls_sweep"))
     return ((lambda *a: StructuredKernel.launch(*a, sw.batched)),
-            structured_cost, lambda: dict(StructuredKernel.launches))
+            structured_cost, launches(*KERNEL_NAMES))
 
 
 def measure(op, u):

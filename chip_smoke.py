@@ -244,34 +244,31 @@ def config(overrides: dict, name: str = "turek_2d_re100.json"):
     return Parameters.from_dict(raw)
 
 
-def kernel_counts() -> dict:
-    """The launch counts of every kernel wrapper, by kernel name."""
-    from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
-    from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
-    from ns_gls_tpu_torch.ops.prism import PrismKernel
-    from ns_gls_tpu_torch.ops.structured import StructuredKernel
-    from ns_gls_tpu_torch.utils.segment import SeamSumKernel
+# the fused kernels by name: their launches are the ``launch.<name>``
+# counters of ``utils/timer.py``
+KERNEL_NAMES = ("patch2d_gls_sweep", "prism_gls_sweep", "structured2d",
+                "structured3d", "structured3d_batched", "patch3d_gls_sweep",
+                "seam_sum")
+# the counts at the last ``reset_kernel_counts``
+_launch_base: dict = {}
 
-    return {"patch2d_gls_sweep": Patch2DKernel.launches,
-            "prism_gls_sweep": PrismKernel.launches,
-            **StructuredKernel.launches,
-            "patch3d_gls_sweep": Patch3DKernel.launches,
-            "seam_sum": SeamSumKernel.launches}
+
+def launch_count(name: str) -> int:
+    """The launches of kernel ``name`` in this process."""
+    from ns_gls_tpu_torch.utils.timer import counters
+
+    return counters().get("launch." + name, 0)
+
+
+def kernel_counts() -> dict:
+    """The launch counts of every kernel wrapper since the last
+    ``reset_kernel_counts``, by kernel name."""
+    return {k: launch_count(k) - _launch_base.get(k, 0)
+            for k in KERNEL_NAMES}
 
 
 def reset_kernel_counts():
-    from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
-    from ns_gls_tpu_torch.ops.patch3d import Patch3DKernel
-    from ns_gls_tpu_torch.ops.prism import PrismKernel
-    from ns_gls_tpu_torch.ops.structured import StructuredKernel
-    from ns_gls_tpu_torch.utils.segment import SeamSumKernel
-
-    Patch2DKernel.launches = 0
-    PrismKernel.launches = 0
-    Patch3DKernel.launches = 0
-    SeamSumKernel.launches = 0
-    for name in StructuredKernel.launches:
-        StructuredKernel.launches[name] = 0
+    _launch_base.update({k: launch_count(k) for k in KERNEL_NAMES})
 
 
 # ---------------------------------------------------------------------------
@@ -489,10 +486,10 @@ def phase_patch2d_sweep(ft, flavor, consider_dt, cell_wise, tag=3):
     def sweep():
         return sg.seam_sum(ft.seams, kernel().reshape(-1, 3))
 
-    k0, s0 = p2.Patch2DKernel.launches, sg.SeamSumKernel.launches
+    k0, s0 = launch_count("patch2d_gls_sweep"), launch_count("seam_sum")
     sweep()
-    n_k = p2.Patch2DKernel.launches - k0
-    n_s = sg.SeamSumKernel.launches - s0
+    n_k = launch_count("patch2d_gls_sweep") - k0
+    n_s = launch_count("seam_sum") - s0
     us = device_time_us(kernel, "patch2d_kernel")
     sweep_us = (device_time_us(sweep, "patch2d_kernel")
                 + device_time_us(sweep, "seam_sum_kernel"))
@@ -1862,11 +1859,11 @@ def phase_family_sweep(label, ft, flavor="increment", consider_dt=True,
 
     u, ul, vo = patch2d_inputs(ft, seed=1)
     args = (ft, SC, u, ul, vo, flavor, consider_dt, cell_wise)
-    k0, s0 = p2.Patch2DKernel.launches, sg.SeamSumKernel.launches
+    k0, s0 = launch_count("patch2d_gls_sweep"), launch_count("seam_sum")
     tiles = p2.patch2d_tiles(*args)
     got = sg.seam_sum(ft.seams, tiles)
-    n_k = p2.Patch2DKernel.launches - k0
-    n_s = sg.SeamSumKernel.launches - s0
+    n_k = launch_count("patch2d_gls_sweep") - k0
+    n_s = launch_count("seam_sum") - s0
     plain_tiles = torch.cat([
         p2.patch2d_sweep_plain(t, SC, u, ul, vo, flavor, consider_dt,
                                cell_wise).reshape(-1, 3) for t in ft.fams])
@@ -1912,15 +1909,13 @@ class Patch2DApplies:
         return sum(k for k, _ in self.applies[i])
 
     def __enter__(self):
-        from ns_gls_tpu_torch.ops.patch2d import Patch2DKernel
-        from ns_gls_tpu_torch.utils.segment import SeamSumKernel
-
         for op, rec in zip(self.ops, self.applies):
             def counted(*a, apply=op._fast.apply, rec=rec, **kw):
-                k0, s0 = Patch2DKernel.launches, SeamSumKernel.launches
+                k0 = launch_count("patch2d_gls_sweep")
+                s0 = launch_count("seam_sum")
                 out = apply(*a, **kw)
-                rec.append((Patch2DKernel.launches - k0,
-                            SeamSumKernel.launches - s0))
+                rec.append((launch_count("patch2d_gls_sweep") - k0,
+                            launch_count("seam_sum") - s0))
                 return out
 
             op._fast.apply = counted

@@ -54,7 +54,12 @@ from ns_gls_tpu_torch.solvers.linear import (
 from ns_gls_tpu_torch.solvers.nonlinear import make_nonlinear_solver
 from ns_gls_tpu_torch.utils.device import resolve_device
 from ns_gls_tpu_torch.utils.logging import get_logger
-from ns_gls_tpu_torch.utils.timer import timer
+from ns_gls_tpu_torch.utils.timer import (
+    counters,
+    counters_since,
+    host_sync,
+    timer,
+)
 
 
 def pressure_pin_candidates(space) -> np.ndarray:
@@ -186,7 +191,8 @@ class ConstraintSetBuilder:
             fn.set_time(t)
             inhom[pos] = fn(self.space.node_pos[nodes], comp)
         return self.homogeneous._replace(
-            inhom=torch.as_tensor(inhom, dtype=self.dtype, device=self.device)
+            inhom=host_sync(torch.as_tensor, inhom, dtype=self.dtype,
+                            device=self.device)
         )
 
 
@@ -228,7 +234,8 @@ class Driver:
         torch.backends.cudnn.allow_tf32 = False
         self.params = params
         self.log = get_logger()
-        # per time step: Newton and GMRES iterations, seconds
+        # per time step: Newton and GMRES iterations, seconds, and the
+        # change of every counter of ``utils/timer.py``
         self.step_stats = []
         self._t0 = 0.0
         # simulated time after the last completed step
@@ -421,9 +428,14 @@ class Driver:
         nl.setup_jacobian = self._setup_jacobian
         nl.setup_preconditioner = self._setup_preconditioner
         nl.evaluate_rhs = self.op.evaluate_rhs
-        nl.evaluate_residual = self.op.evaluate_residual
+        nl.evaluate_residual = self._evaluate_residual
         nl.solve_with_jacobian = self._solve_with_jacobian
         self.nonlinear_solver = nl
+
+        # the applies the counters tell apart (``utils/timer.py``)
+        self.op.apply_counter = "fine_apply"
+        for op_l in self.mg_ops + self.mg_ops_apply:
+            op_l.apply_counter = "level_apply"
 
         # ---- state ----------------------------------------------------------
         self.solution = SolutionHistory.zeros(
@@ -677,11 +689,16 @@ class Driver:
         with timer("setup_jacobian"):
             self.op.set_linearization_point(u)
 
+    def _evaluate_residual(self, u):
+        with timer("residual"):
+            return self.op.evaluate_residual(u)
+
     def _setup_preconditioner(self, u):
         with timer("setup_preconditioner"):
             if self.mg_ops:
-                for op_l, u_l in zip(self.mg_ops, self._level_chain(u)):
-                    op_l.set_linearization_point(u_l)
+                with timer("level_state"):
+                    for op_l, u_l in zip(self.mg_ops, self._level_chain(u)):
+                        op_l.set_linearization_point(u_l)
             gran = self.params.preconditioner_update_granularity
             if gran == "newton":
                 rebuild = True
@@ -719,7 +736,7 @@ class Driver:
             return
         w = self.time_integrator.weights
         vec_old = self.solution.weighted_old_sum(tuple(
-            torch.tensor(x, dtype=self.op.dtype, device=self.device)
+            host_sync(torch.tensor, x, dtype=self.op.dtype, device=self.device)
             for x in w
         ))
         vo = self._level_chain(vec_old)
@@ -776,6 +793,7 @@ class Driver:
 
         while t < p.t_final and counter <= max_steps:
             t_step = _time.perf_counter()
+            counts = counters()
             self._step_linear_its = 0
             with timer("loop"):
                 u_max = self.op.get_max_u(self.solution.current)
@@ -810,7 +828,7 @@ class Driver:
                 new_u = distribute(self.csets.full, new_u)
                 self.solution.current = new_u
 
-                norm = float(torch.linalg.vector_norm(new_u))
+                norm = host_sync(float, torch.linalg.vector_norm(new_u))
                 self.log(f"    [S] l2-norm of solution: {norm:.8g}")
 
                 t += dt
@@ -826,6 +844,8 @@ class Driver:
                 newton_residual=self.nonlinear_solver.last_residual,
                 gmres=self._step_linear_its,
                 seconds=_time.perf_counter() - t_step,
+                # every counter's change over the step
+                counters=counters_since(counts),
             ))
             if self.time_integrator.order == 0:
                 break

@@ -24,6 +24,7 @@ from ns_gls_tpu_torch.models.base import (
     SimulationBase,
 )
 from ns_gls_tpu_torch.utils.point_eval import PointEvaluator
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 class SimulationCylinder(SimulationBase):
@@ -411,8 +412,8 @@ class SimulationCylinder(SimulationBase):
         p_diff = float(vals[0, self.dim] - vals[1, self.dim])
         rec = dict(
             t=t,
-            drag=float(drag) * self._scaling,
-            lift=float(lift) * self._scaling,
+            drag=host_sync(float, drag) * self._scaling,
+            lift=host_sync(float, lift) * self._scaling,
             p_diff=p_diff,
         )
         self._history.append(rec)

@@ -28,6 +28,7 @@ from ns_gls_tpu_torch.ops.navier_stokes import (
     fe_integrate,
 )
 from ns_gls_tpu_torch.utils.segment import class_sum, target_sums
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 _CHUNK = 2048
 
@@ -39,7 +40,7 @@ def _sums(op, name: str, source: torch.Tensor, index=None):
     hit = cache.get(name)
     if hit is None or hit[0] is not source:
         idx = source if index is None else index(source)
-        hit = (source, target_sums(idx.cpu().numpy(), op.device))
+        hit = (source, target_sums(host_sync(idx.cpu).numpy(), op.device))
         cache[name] = hit
     return hit[1]
 
@@ -131,7 +132,8 @@ def compute_diagonal(op: NavierStokesOperator) -> torch.Tensor:
     ca = op.constraints_homogeneous
     if ca.n:
         diag = diag.reshape(-1)
-        diag[ca.rows] = 1.0
+        # copies the number to the device and waits for the stream
+        host_sync(diag.__setitem__, ca.rows, 1.0)
         diag = diag.reshape(op.n_nodes, op.n_comp)
     return diag
 
@@ -198,7 +200,7 @@ def constrained_matrix(op: NavierStokesOperator, emat: torch.Tensor,
     import scipy.sparse as sp
 
     C = op.n_comp
-    emat = emat.detach().cpu().numpy().astype(np.float64)
+    emat = host_sync(emat.detach().cpu).numpy().astype(np.float64)
     gdofs = (
         op.space.cell_nodes.astype(np.int64)[:, :, None] * C
         + np.arange(C)[None, None, :]
@@ -212,7 +214,7 @@ def constrained_matrix(op: NavierStokesOperator, emat: torch.Tensor,
     ca = op.constraints_homogeneous
     mask = np.ones(n, dtype=bool)
     if ca.n:
-        mask[ca.rows.cpu().numpy()] = False
+        mask[host_sync(ca.rows.cpu).numpy()] = False
         D = sp.diags(mask.astype(np.float64))
         A = D @ A @ D + sp.diags((~mask).astype(np.float64))
     return A, rows, cols, mask

@@ -26,6 +26,7 @@ import torch
 
 from ns_gls_tpu_torch.fem import constraints as cstr
 from ns_gls_tpu_torch.utils.segment import class_gather, class_sum
+from ns_gls_tpu_torch.utils.timer import count
 
 
 class ELLMatrix(NamedTuple):
@@ -85,6 +86,11 @@ class NavierStokesOperatorMatrixBased:
     lazily per linearization point (``invalidate_system`` semantics,
     ``operator_ns.cc:227-232``).
     """
+
+    # the counter (``utils/timer.py``) that each apply adds one to, named
+    # by the operator's owner ("fine_apply", "level_apply"); None counts
+    # nothing
+    apply_counter = None
 
     def __init__(self, op):
         self.op = op  # a NavierStokesOperator holding space/state
@@ -184,6 +190,8 @@ class NavierStokesOperatorMatrixBased:
         return self._ell
 
     def vmult(self, u):
+        if self.apply_counter is not None:
+            count(self.apply_counter)
         ch = self.constraints_homogeneous
         u_eff = cstr.distribute(ch, u, homogeneous=True)
         r = ell_spmv(self.ell, u_eff.reshape(-1)).reshape(u.shape)

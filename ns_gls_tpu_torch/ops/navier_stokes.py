@@ -46,6 +46,7 @@ from ns_gls_tpu_torch.fem import constraints as cstr
 from ns_gls_tpu_torch.fem.constraints import ConstraintArrays
 from ns_gls_tpu_torch.fem.space import FESpace
 from ns_gls_tpu_torch.utils.device import resolve_device
+from ns_gls_tpu_torch.utils.timer import count, host_sync
 
 
 # --------------------------------------------------------------------------
@@ -162,6 +163,11 @@ class NavierStokesOperator:
     space.  It is on by default and the tests switch
     it off to hold the sweeps against each other.
     """
+
+    # the counter (``utils/timer.py``) that each apply adds one to, named
+    # by the operator's owner ("fine_apply", "level_apply"); None counts
+    # nothing
+    apply_counter = None
 
     def __init__(
         self,
@@ -670,6 +676,8 @@ class NavierStokesOperator:
     # ------------------------------------------------------------------
     def vmult(self, u):
         """Matrix-free sandwich: dst = Cᵀ A C u ; dst[constrained] = u."""
+        if self.apply_counter is not None:
+            count(self.apply_counter)
         ch = self.constraints_homogeneous
         u_eff = cstr.distribute(ch, u, homogeneous=True)
         r = self._sweep(u_eff, residual_form=False)
@@ -835,7 +843,8 @@ class NavierStokesOperator:
             return
         w = self.time_integrator.weights
         vec_old = history.weighted_old_sum(tuple(
-            torch.tensor(x, dtype=self.dtype, device=self.device) for x in w
+            host_sync(torch.tensor, x, dtype=self.dtype, device=self.device)
+            for x in w
         ))
         self.set_previous_vectors(vec_old, history.vectors[1])
 
@@ -843,11 +852,13 @@ class NavierStokesOperator:
         tau = self.time_integrator.current_dt
         self._weight_host = float(self.time_integrator.primary_weight)
         self._stau_host = 0.0 if tau == 0.0 else 1.0 / tau
+        # two copies of host numbers to the device, each a wait for the
+        # stream
         self.state = self.state._replace(
-            weight=torch.tensor(self._weight_host, dtype=self.dtype,
-                                device=self.device),
-            stau=torch.tensor(self._stau_host, dtype=self.dtype,
-                              device=self.device),
+            weight=host_sync(torch.tensor, self._weight_host,
+                             dtype=self.dtype, device=self.device),
+            stau=host_sync(torch.tensor, self._stau_host, dtype=self.dtype,
+                           device=self.device),
         )
 
     # -- diagnostics -------------------------------------------------------
@@ -856,4 +867,4 @@ class NavierStokesOperator:
         b = self.batch
         u_loc = u[b.cell_nodes][..., : self.dim]
         val = torch.einsum("qi,eic->eqc", b.S, u_loc)
-        return float(torch.sqrt((val**2).sum(-1).max()))
+        return host_sync(float, torch.sqrt((val**2).sum(-1).max()))

@@ -69,6 +69,7 @@ from ns_gls_tpu_torch.ops.structured import (
     raise_smem,
 )
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
+from ns_gls_tpu_torch.utils.timer import count
 
 FLAVORS = ("fixed", "increment", "residual")
 
@@ -413,13 +414,16 @@ def patch2d_sweep_plain(tables: Patch2DTables, sc: dict, u, ul, vo,
     return out.contiguous()
 
 
+# launches of the CUDA kernel in this process: one per successful
+# ``Patch2DKernel.launch``, nowhere else (``utils/timer.py`` counters)
+LAUNCH_COUNTER = "launch.patch2d_gls_sweep"
+count(LAUNCH_COUNTER, 0)
+
+
 class Patch2DKernel:
     """ctypes binding of ``csrc/patch2d.cu``; the library is built at
     first use (``utils/cuda_build.py``)."""
 
-    # launches of the CUDA kernel in this process: one per successful
-    # ``launch``, nowhere else
-    launches = 0
     # per degree: the library that holds its instance
     _libs: dict = {}
     # the last tables held to the kernel's needs (checked once per tables)
@@ -497,7 +501,7 @@ class Patch2DKernel:
             raise RuntimeError(
                 f"patch-2D kernel launch failed: CUDA error {err}{hint}"
             )
-        cls.launches += 1
+        count(LAUNCH_COUNTER)
         return out
 
     @classmethod

@@ -74,6 +74,7 @@ from ns_gls_tpu_torch.ops.structured import (
     raise_smem,
 )
 from ns_gls_tpu_torch.utils.segment import SeamSums, seam_sum, seam_sums
+from ns_gls_tpu_torch.utils.timer import count
 
 
 # ---------------------------------------------------------------------------
@@ -391,13 +392,16 @@ def patch3d_sweep_plain(tables: Patch3DTables, sc: dict, u, ul, vo,
             .contiguous())
 
 
+# launches of the CUDA kernel in this process: one per successful
+# ``Patch3DKernel.launch``, nowhere else (``utils/timer.py`` counters)
+LAUNCH_COUNTER = "launch.patch3d_gls_sweep"
+count(LAUNCH_COUNTER, 0)
+
+
 class Patch3DKernel:
     """ctypes binding of ``csrc/patch3d.cu``; the library is built at
     first use (``utils/cuda_build.py``)."""
 
-    # launches of the CUDA kernel in this process: one per successful
-    # ``launch``, nowhere else
-    launches = 0
     # per degree: the library that holds its instance
     _libs: dict = {}
 
@@ -466,7 +470,7 @@ class Patch3DKernel:
             raise RuntimeError(
                 f"patch-3D kernel launch failed: CUDA error {err}{hint}"
             )
-        cls.launches += 1
+        count(LAUNCH_COUNTER)
         return out
 
     @classmethod

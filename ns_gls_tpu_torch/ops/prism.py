@@ -68,6 +68,7 @@ from ns_gls_tpu_torch.ops.structured import (
     raise_smem,
 )
 from ns_gls_tpu_torch.utils.segment import ClassGather, class_gather, class_sum
+from ns_gls_tpu_torch.utils.timer import count
 
 FLAVORS = ("fixed", "increment", "residual")
 
@@ -444,13 +445,16 @@ def prism_sweep_plain(tables: PrismTables, sc: dict, uP, ulP, voP,
     return torch.stack(out)
 
 
+# launches of the CUDA kernel in this process: one per successful
+# ``PrismKernel.launch``, nowhere else (``utils/timer.py`` counters)
+LAUNCH_COUNTER = "launch.prism_gls_sweep"
+count(LAUNCH_COUNTER, 0)
+
+
 class PrismKernel:
     """ctypes binding of ``csrc/prism.cu``; the library is built at first
     use (``utils/cuda_build.py``)."""
 
-    # launches of the CUDA kernel in this process: one per successful
-    # ``launch``, nowhere else
-    launches = 0
     # per degree: the launcher of the library that holds its instance
     _fns: dict = {}
 
@@ -520,7 +524,7 @@ class PrismKernel:
             raise RuntimeError(
                 f"prism kernel launch failed: CUDA error {err}{hint}"
             )
-        cls.launches += 1
+        count(LAUNCH_COUNTER)
         return out
 
 

@@ -62,6 +62,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ns_gls_tpu_torch.utils.timer import count
+
 FLAVORS = ("fixed", "increment", "residual")
 # the opt-in shared memory of one thread block on an H100 (227 KB).  Like
 # the JAX package's Pallas kernels, the port's have no degree limit of
@@ -663,14 +665,18 @@ def fold_seams_2d(tables: StructuredTables, out, seams, xb: int):
     return out
 
 
+# launches of each CUDA kernel in this process: one per successful
+# ``StructuredKernel.launch``, nowhere else (``utils/timer.py`` counters)
+LAUNCH_PREFIX = "launch."
+KERNEL_NAMES = ("structured2d", "structured3d", "structured3d_batched")
+for _name in KERNEL_NAMES:
+    count(LAUNCH_PREFIX + _name, 0)
+
+
 class StructuredKernel:
     """ctypes binding of ``csrc/structured.cu``; the library is built at
     first use (``utils/cuda_build.py``)."""
 
-    # launches of each CUDA kernel in this process: one per successful
-    # ``launch``, nowhere else
-    launches = {"structured2d": 0, "structured3d": 0,
-                "structured3d_batched": 0}
     # per degree: the library that holds its instances
     _libs: dict = {}
 
@@ -788,7 +794,7 @@ class StructuredKernel:
         if err != 0:
             raise RuntimeError(f"structured kernel launch failed: CUDA error "
                                f"{err}{hint if err == 1 else ''}")
-        cls.launches[cls.kernel_name(d, batched)] += 1
+        count(LAUNCH_PREFIX + cls.kernel_name(d, batched))
         return out
 
 

@@ -49,6 +49,7 @@ from ns_gls_tpu_torch.parallel.sharding import (
     shard_state,
 )
 from ns_gls_tpu_torch.utils.segment import TargetSums
+from ns_gls_tpu_torch.utils.timer import count
 
 
 class Partition(NamedTuple):
@@ -406,7 +407,10 @@ class HaloShardedOperator(WrappedOperator):
         return DistVector(r[:n_own] for r in rs)
 
     def vmult_dist(self, ud: DistVector) -> DistVector:
-        """dst = Cᵀ A C u on owned rows; dst[constrained] = u."""
+        """dst = Cᵀ A C u on owned rows; dst[constrained] = u (``vmult``
+        goes through here)."""
+        if self.apply_counter is not None:
+            count(self.apply_counter)
         r = self._apply(ud, False)
         return DistVector(cstr.copy_constrained(s.cstr_own, rp, up)
                           for s, rp, up in zip(self.shards, r.parts,

@@ -37,6 +37,7 @@ from ns_gls_tpu_torch.ops.navier_stokes import (
 from ns_gls_tpu_torch.parallel.dist import on_device
 from ns_gls_tpu_torch.utils.device import resolve_device
 from ns_gls_tpu_torch.utils.segment import TargetSums, class_sum, target_sums
+from ns_gls_tpu_torch.utils.timer import count
 
 
 def make_device_mesh(devices) -> tuple:
@@ -164,6 +165,11 @@ class WrappedOperator:
     it wraps (every delegate that can replace ``op.state`` is visible to
     the wrapper through the state's identity)."""
 
+    # the counter (``utils/timer.py``) that each apply adds one to, named
+    # by the operator's owner ("fine_apply", "level_apply"); None counts
+    # nothing
+    apply_counter = None
+
     def __init__(self, op: NavierStokesOperator, devices):
         self.op = op
         self.devices = make_device_mesh(devices)
@@ -284,6 +290,8 @@ class ShardedOperator(WrappedOperator):
         return sum_partials(partials, op.device)
 
     def vmult(self, u):
+        if self.apply_counter is not None:
+            count(self.apply_counter)
         ch = self.op.constraints_homogeneous
         u_eff = cstr.distribute(ch, u, homogeneous=True)
         r = cstr.condense_transpose(ch, self._sweep(u_eff, False))

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ns_gls_tpu_torch.utils.segment import class_gather, class_sum
+from ns_gls_tpu_torch.utils.timer import host_sync, timer
 
 # aggregation levels at most (the JAX package's default ``max_levels``)
 MAX_LEVELS = 10
@@ -360,19 +361,24 @@ class PreconditionerAMG:
                             device=data.device)
         dense[c["rows"], c["cols"]] = datas[-1].to(torch.float64)
         self.levels = tuple(levels)
-        self.coarse_lu = torch.linalg.lu_factor(dense)
+        # its check of the factorization reads the device
+        self.coarse_lu = host_sync(torch.linalg.lu_factor, dense)
 
     def initialize(self):
         from ns_gls_tpu_torch.ops.assembly import element_matrices
 
-        emat = element_matrices(self.op)
-        if self._maps is None:
-            self._host_build(emat)
-        elif self.smoother == "ilu":
-            from ns_gls_tpu_torch.ops.assembly import constrained_matrix
+        with timer("amg_init::element_matrices"):
+            emat = element_matrices(self.op)
+        first = self._maps is None
+        if first:
+            with timer("amg_init::host_build"):
+                self._host_build(emat)
+        with timer("amg_init::refresh"):
+            if not first and self.smoother == "ilu":
+                from ns_gls_tpu_torch.ops.assembly import constrained_matrix
 
-            self._ilu_levels(constrained_matrix(self.op, emat)[0])
-        self.refresh(emat)
+                self._ilu_levels(constrained_matrix(self.op, emat)[0])
+            self.refresh(emat)
 
     # ------------------------------------------------------------------
     # apply

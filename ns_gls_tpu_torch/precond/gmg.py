@@ -34,14 +34,15 @@ import torch
 
 from ns_gls_tpu_torch.fem import transfer as tr
 from ns_gls_tpu_torch.parallel.dist import DistVector
+from ns_gls_tpu_torch.utils.timer import count, host_sync, timer
 
 
 def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
     """Start vector of the power iteration on ``level``: normal samples
     from ``numpy.random.default_rng(31 + level)``."""
     rng = np.random.default_rng(31 + level)
-    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
-                           device=device)
+    return host_sync(torch.as_tensor, rng.standard_normal(shape),
+                     dtype=dtype, device=device)
 
 
 class PreconditionerGMG:
@@ -135,19 +136,20 @@ class PreconditionerGMG:
             assemble_dense,
             compute_inverse_diagonal,
         )
-        from ns_gls_tpu_torch.utils.timer import timer
 
+        count("rebuild")
         inv_diags, omegas = [], []
-        with timer("mg_init::smoother_state"):
-            for lvl in range(self.n_levels):
-                if lvl == 0 and not self._needs_level0_args:
-                    inv_diags.append(None)
-                    omegas.append(None)
-                    continue
+        for lvl in range(self.n_levels):
+            if lvl == 0 and not self._needs_level0_args:
+                inv_diags.append(None)
+                omegas.append(None)
+                continue
+            with timer("mg_init::diagonal"):
                 dinv = compute_inverse_diagonal(self.level_ops[lvl])
                 if self.distributed:
                     dinv = self.level_ops_apply[lvl].to_dist(dinv)
-                inv_diags.append(dinv)
+            inv_diags.append(dinv)
+            with timer("mg_init::power_iteration"):
                 omegas.append(self._estimate_omega(lvl, dinv))
         self.inv_diags = inv_diags
         self.omegas = omegas
@@ -166,7 +168,9 @@ class PreconditionerGMG:
         elif self.coarse_grid_solver == "direct" and n_coarse <= 8000:
             with timer("mg_init::coarse_lu"):
                 A = assemble_dense(op0)
-                self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))
+                # its check of the factorization reads the device
+                self.coarse_lu = host_sync(torch.linalg.lu_factor,
+                                           A.to(torch.float64))
         elif self.coarse_grid_solver in ("direct", "AMG"):
             # large coarse levels / AMG requests: aggregation AMG on the
             # assembled coarse matrix with a matrix-free level 0; "use
@@ -186,7 +190,8 @@ class PreconditionerGMG:
             for lvl, om in enumerate(omegas):
                 if om is not None:
                     self.logger(
-                        f"    [M]  - level: {lvl}, omega: {float(om):.4f}"
+                        f"    [M]  - level: {lvl}, omega: "
+                        f"{host_sync(float, om):.4f}"
                     )
 
     # ------------------------------------------------------------------
@@ -244,40 +249,60 @@ class PreconditionerGMG:
             x = x + om * inv_df * (b - Av)
         return x
 
+    # The stages of the cycle run in flat scopes (``vcycle::smooth``, ...;
+    # none holds the recursive call), so their labels are the same on
+    # every level.
     def _vcycle_dist(self, level: int, b):
         """The V-cycle on distributed vectors."""
         if level == 0:
-            return self._coarse_solve(b)
+            with timer("coarse"):
+                return self._coarse_solve(b)
         op = self.level_ops_apply[level]
         t = self.transfer_ops[level - 1]
-        x = self._smooth(level, b.zeros_like(), b)
-        d = b - op.vmult_dist(x)
-        x_c = self._vcycle_dist(level - 1, t.restrict(d))
-        x = x + t.prolongate(x_c)
-        return self._smooth(level, x, b)
+        with timer("smooth"):
+            x = self._smooth(level, b.zeros_like(), b)
+        with timer("residual"):
+            d = b - op.vmult_dist(x)
+        with timer("restrict"):
+            d_c = t.restrict(d)
+        x_c = self._vcycle_dist(level - 1, d_c)
+        with timer("prolongate"):
+            x = x + t.prolongate(x_c)
+        with timer("smooth"):
+            return self._smooth(level, x, b)
 
     def _vcycle(self, level: int, b):
         op = self.level_ops_apply[level]
         shp = (op.n_nodes, op.n_comp)
         if level == 0:
-            return self._coarse_solve(b.reshape(shp)).reshape(-1)
+            with timer("coarse"):
+                return self._coarse_solve(b.reshape(shp)).reshape(-1)
         # pre-smooth from zero initial guess
-        x = self._smooth(level, torch.zeros_like(b), b)
-        d = b - op.vmult(x.reshape(shp)).reshape(-1)
-        d_c = tr.restrict(self.transfers[level - 1], d.reshape(shp))
+        with timer("smooth"):
+            x = self._smooth(level, torch.zeros_like(b), b)
+        with timer("residual"):
+            d = b - op.vmult(x.reshape(shp)).reshape(-1)
+        with timer("restrict"):
+            d_c = tr.restrict(self.transfers[level - 1], d.reshape(shp))
         x_c = self._vcycle(level - 1, d_c.reshape(-1))
         op_c = self.level_ops[level - 1]
-        x = x + tr.prolongate(
-            self.transfers[level - 1],
-            x_c.reshape(op_c.n_nodes, op_c.n_comp),
-        ).reshape(-1)
-        return self._smooth(level, x, b)
+        with timer("prolongate"):
+            x = x + tr.prolongate(
+                self.transfers[level - 1],
+                x_c.reshape(op_c.n_nodes, op_c.n_comp),
+            ).reshape(-1)
+        with timer("smooth"):
+            return self._smooth(level, x, b)
 
     def vmult(self, src):
         if self.inv_diags is None:
             self.initialize()
-        if self.distributed:
-            x = self._vcycle_dist(self.n_levels - 1, src.to(self.mg_dtype))
-            return x.to(src.dtype)
-        x = self._vcycle(self.n_levels - 1, src.to(self.mg_dtype).reshape(-1))
-        return x.reshape(src.shape).to(src.dtype)
+        count("vcycle")
+        with timer("vcycle"):
+            if self.distributed:
+                x = self._vcycle_dist(self.n_levels - 1,
+                                      src.to(self.mg_dtype))
+                return x.to(src.dtype)
+            x = self._vcycle(self.n_levels - 1,
+                             src.to(self.mg_dtype).reshape(-1))
+            return x.reshape(src.shape).to(src.dtype)

@@ -37,14 +37,15 @@ import torch
 
 from ns_gls_tpu_torch.fem import transfer as tr
 from ns_gls_tpu_torch.precond.gmg import PreconditionerGMG
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
     """Start vector of the power iteration on ``level``: normal samples
     from ``numpy.random.default_rng(47 + level)``."""
     rng = np.random.default_rng(47 + level)
-    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
-                           device=device)
+    return host_sync(torch.as_tensor, rng.standard_normal(shape),
+                     dtype=dtype, device=device)
 
 
 def _assignment(target, source, device, what: str):
@@ -120,10 +121,11 @@ class PreconditionerGMGLS(PreconditionerGMG):
         from ns_gls_tpu_torch.utils.timer import timer
 
         inv_diags, omegas = [None], [None]
-        with timer("mg_ls_init::smoother_state"):
-            for lvl in range(1, self.n_levels):
+        for lvl in range(1, self.n_levels):
+            with timer("mg_ls_init::diagonal"):
                 dinv = compute_inverse_diagonal(self.level_ops[lvl])
-                inv_diags.append(dinv)
+            inv_diags.append(dinv)
+            with timer("mg_ls_init::power_iteration"):
                 omegas.append(self._estimate_omega(lvl, dinv))
         self.inv_diags = inv_diags
         self.omegas = omegas
@@ -144,13 +146,16 @@ class PreconditionerGMGLS(PreconditionerGMG):
             # AMG and identity
             with timer("mg_ls_init::coarse_lu"):
                 A = assemble_dense(op0)
-                self.coarse_lu = torch.linalg.lu_factor(A.to(torch.float64))
+                # its check of the factorization reads the device
+                self.coarse_lu = host_sync(torch.linalg.lu_factor,
+                                           A.to(torch.float64))
 
         if self.logger:
             for lvl, om in enumerate(omegas):
                 if om is not None:
                     self.logger(
-                        f"    [M]  - level: {lvl}, omega: {float(om):.4f}"
+                        f"    [M]  - level: {lvl}, omega: "
+                        f"{host_sync(float, om):.4f}"
                     )
 
     # ------------------------------------------------------------------

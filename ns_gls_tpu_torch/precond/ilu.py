@@ -9,7 +9,8 @@ ILU(0)) and reaches the solve from its jitted GMRES through
 fallback: the element matrices come from the device, the constrained
 matrix is factored on the host, and every apply copies the vector from
 the card to the host, runs SuperLU's solve in f64 there and copies the
-result back (one synchronisation of the card per apply).  The apply
+result back (three host syncs an apply on the card: the wait and the two
+copies).  The apply
 counts its calls and their host seconds (``n_applies``,
 ``apply_seconds``), the copies and the wait for the card included, so a
 run can state what the host solve costs.  A triangular solve on the
@@ -22,6 +23,8 @@ import time
 
 import numpy as np
 import torch
+
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 class PreconditionerILU:
@@ -50,12 +53,12 @@ class PreconditionerILU:
         if self._ilu is None:
             self.initialize()
         if x.is_cuda:
-            torch.cuda.synchronize(x.device)
+            host_sync(torch.cuda.synchronize, x.device)
         t0 = time.perf_counter()
-        y = self._ilu.solve(
-            x.detach().cpu().numpy().astype(np.float64).reshape(-1))
-        out = torch.as_tensor(y.reshape(tuple(x.shape)), dtype=x.dtype,
-                              device=x.device)
+        y = self._ilu.solve(host_sync(x.detach().cpu).numpy()
+                            .astype(np.float64).reshape(-1))
+        out = host_sync(torch.as_tensor, y.reshape(tuple(x.shape)),
+                        dtype=x.dtype, device=x.device)
         self.apply_seconds += time.perf_counter() - t0
         self.n_applies += 1
         return out

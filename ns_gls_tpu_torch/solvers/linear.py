@@ -10,12 +10,14 @@ dense direct solver (reference ``solver_l.cc``):
 Operators and preconditioners enter as callables on tensors shaped like
 the right-hand side, or on distributed vectors (``parallel/dist.py``
 ``DistVector``) under sharding, where every dot product sums its
-per-shard partials on the first device.  The loops run eagerly on the host; each Arnoldi
-step reads one scalar (the Givens residual estimate) to decide whether to
-go on.  The JAX package's ``gmres_fixed`` (a loop of a static length, which
-it takes only on a TPU backend) is not ported: the port's multigrid
-coarse solve iterates with ``gmres`` everywhere, as the JAX package does
-off the TPU.
+per-shard partials on the first device.  The loops run eagerly on the
+host; each Arnoldi step reads its Hessenberg column on the host (the
+Givens rotations, and the residual estimate that decides whether to go
+on) and copies the rotated column back: two host syncs, counted by
+``utils/timer.py`` ``host_sync``.  The JAX package's ``gmres_fixed`` (a
+loop of a static length, which it takes only on a TPU backend) is not
+ported: the port's multigrid coarse solve iterates with ``gmres``
+everywhere, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ns_gls_tpu_torch.parallel.dist import DistVector
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 class SolveResult(NamedTuple):
@@ -98,7 +101,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     while total_it < m * max_restarts:
         r = bf - mv(x)
         beta_t = acc_norm(r)
-        beta = float(beta_t)
+        beta = host_sync(float, beta_t)
         H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
         cs = [0.0] * m
         sn = [0.0] * m
@@ -120,7 +123,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
             V[j + 1] = (w.div_or_zero(hj1) if dist else
                         torch.where(hj1 > 0, w / hj1, torch.zeros_like(w)))
             hcol[j + 1] = hj1
-            hc = hcol.tolist()
+            hc = host_sync(torch.Tensor.tolist, hcol)
             # previous Givens rotations on entries 0..j (scalar work)
             for k in range(j):
                 t0 = cs[k] * hc[k] + sn[k] * hc[k + 1]
@@ -135,13 +138,14 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
             g_j1 = -s_new * g[j]
             g[j + 1] = g_j1
             g[j] = c_new * g[j]
-            H[:, j] = torch.tensor(hc, dtype=dtype, device=dev)
+            H[:, j] = host_sync(torch.tensor, hc, dtype=dtype, device=dev)
             j += 1
             res = abs(g_j1)
         if j > 0:
             y = torch.linalg.solve_triangular(
                 H[:j, :j],
-                torch.tensor(g[:j], dtype=dtype, device=dev).reshape(-1, 1),
+                host_sync(torch.tensor, g[:j], dtype=dtype,
+                          device=dev).reshape(-1, 1),
                 upper=True,
             ).reshape(-1)
             z = V.combine(y, j) if dist else (y[:, None] * V[:j]).sum(dim=0)
@@ -164,12 +168,12 @@ def richardson(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     tol = float(tol)
     x = x0
     it = 0
-    res = float(torch.linalg.vector_norm((b - A(x0)).reshape(-1)))
+    res = host_sync(float, torch.linalg.vector_norm((b - A(x0)).reshape(-1)))
     while res > tol and it < max_iter:
         r = b - A(x)
         x = x + M(r)
         it += 1
-        res = float(torch.linalg.vector_norm(r.reshape(-1)))
+        res = host_sync(float, torch.linalg.vector_norm(r.reshape(-1)))
     return SolveResult(x, it)
 
 
@@ -193,7 +197,7 @@ class LinearSolverGMRES:
         pass
 
     def solve(self, b):
-        tol = max(self.rel_tol * float(acc_norm(b)), self.abs_tol)
+        tol = max(self.rel_tol * host_sync(float, acc_norm(b)), self.abs_tol)
         max_restarts = max(1, self.n_max_iterations // self.restart)
         op, pre = self.op, self.preconditioner
         if hasattr(op, "to_dist"):
@@ -237,7 +241,7 @@ class LinearSolverRichardson:
         pass
 
     def solve(self, b):
-        tol = max(self.rel_tol * float(torch.linalg.vector_norm(
+        tol = max(self.rel_tol * host_sync(float, torch.linalg.vector_norm(
             b.reshape(-1))), self.abs_tol)
         res = richardson(self.op.vmult, b, torch.zeros_like(b),
                          M=self.preconditioner.vmult, tol=tol,
@@ -268,7 +272,8 @@ class LinearSolverDirect:
                 " GMG instead (the sparse-direct equivalent is only provided"
                 " for small/coarse problems)"
             )
-        self._lu = torch.linalg.lu_factor(assemble_dense(self.op))
+        # its check of the factorization reads the device
+        self._lu = host_sync(torch.linalg.lu_factor, assemble_dense(self.op))
 
     def solve(self, b):
         if self._lu is None:

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from ns_gls_tpu_torch.solvers.linear import acc_norm
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 class NonlinearSolverError(RuntimeError):
@@ -69,7 +70,7 @@ class NonLinearSolverNewton(NonLinearSolverBase):
     def solve(self, solution):
         self.setup_jacobian(solution)
         rhs = self.evaluate_residual(solution)
-        l2 = float(acc_norm(rhs))
+        l2 = host_sync(float, acc_norm(rhs))
         l2_0 = l2
         it = 0
         self._log(f"    [N] step {it}; residual = {l2:.6e}")
@@ -82,7 +83,7 @@ class NonLinearSolverNewton(NonLinearSolverBase):
             solution = solution + inc
             self.setup_jacobian(solution)
             rhs = self.evaluate_residual(solution)
-            l2_prev, l2 = l2, float(acc_norm(rhs))
+            l2_prev, l2 = l2, host_sync(float, acc_norm(rhs))
             it += 1
             self._log(f"    [N] step {it}; residual = {l2:.6e}")
             if (self.relative and it >= 2 and l2 >= l2_prev
@@ -150,10 +151,10 @@ class NonLinearSolverPicard(NonLinearSolverBase):
             rhs = self.evaluate_rhs()
             self.setup_preconditioner(solution)
             solution = self.solve_with_jacobian(rhs)
-            l2_prev, l2 = l2, float(acc_norm(prev - solution))
+            l2_prev, l2 = l2, host_sync(float, acc_norm(prev - solution))
             tol = self.tolerance
             if self.relative:
-                tol = tol * float(acc_norm(solution))
+                tol = tol * host_sync(float, acc_norm(solution))
             it += 1
             self._log(f"    [P] step {it}; increment = {l2:.6e}")
             if l2 <= tol:

@@ -13,6 +13,7 @@ import torch
 
 from ns_gls_tpu_torch.fem.element import tabulate_at
 from ns_gls_tpu_torch.fem.space import FESpace
+from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 def locate_points(space: FESpace, points: np.ndarray, tol: float = 1e-8):
@@ -139,6 +140,6 @@ class PointEvaluator:
     def __call__(self, u: torch.Tensor) -> np.ndarray:
         """u: (n_nodes, C) tensor -> (n_p, C) host array (only the
         probes' nodes leave the device)."""
-        idx = torch.as_tensor(self.nodes, device=u.device)
-        u_loc = u[idx].double().cpu().numpy()      # (n_p, n_loc, C)
+        idx = host_sync(torch.as_tensor, self.nodes, device=u.device)
+        u_loc = host_sync(u[idx].double().cpu).numpy()  # (n_p, n_loc, C)
         return np.einsum("pi,pic->pc", self.S, u_loc)

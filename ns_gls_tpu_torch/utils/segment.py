@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ns_gls_tpu_torch.utils.timer import count
+
 
 class ClassGather(NamedTuple):
     classes: tuple                  # per class: (n_k, K) source positions
@@ -184,13 +186,16 @@ def seam_sum_plain(ss: SeamSums, src: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# launches of the CUDA kernel in this process: one per successful
+# ``SeamSumKernel.launch``, nowhere else (``utils/timer.py`` counters)
+LAUNCH_COUNTER = "launch.seam_sum"
+count(LAUNCH_COUNTER, 0)
+
+
 class SeamSumKernel:
     """ctypes binding of ``csrc/seam_sum.cu``; the library is built at
     first use (``utils/cuda_build.py``)."""
 
-    # launches of the CUDA kernel in this process: one per successful
-    # ``launch``, nowhere else
-    launches = 0
     _fn = None
 
     @classmethod
@@ -230,7 +235,7 @@ class SeamSumKernel:
         if err != 0:
             raise RuntimeError(f"seam-sum kernel launch failed: CUDA error "
                                f"{err}")
-        cls.launches += 1
+        count(LAUNCH_COUNTER)
         return out
 
 

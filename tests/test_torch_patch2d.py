@@ -35,6 +35,7 @@ from ns_gls_tpu_torch.ops.time_integration import (
 )
 from ns_gls_tpu_torch.utils.device import torch_threads
 from ns_gls_tpu_torch.utils.segment import seam_sum_plain
+from ns_gls_tpu_torch.utils.timer import counters
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -278,7 +279,7 @@ def test_kernel_launch_raises_on_cpu_tensors():
     sc = dict(weight=1.0, stau=1.0, nu=0.02, c1=4.0, c2=2.0)
     with pytest.raises(TypeError):
         tp2.Patch2DKernel.launch(t, sc, u, u, u, "increment", True, False)
-    assert tp2.Patch2DKernel.launches == 0
+    assert counters()["launch.patch2d_gls_sweep"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -10,26 +10,34 @@ degree" and "n global refinements", e.g. ``input/channel.json --dim 3
 continues from that state for ``--steps`` more under ``torch.profiler``
 (a stationary config, e.g. ``input/sphere_amg.json``, is one solve: the
 warm-up solves it and the profiled run solves it again from the start)
-and prints: seconds per profiled step, the device busy share (summed
-kernel time over the profiled steps' seconds, and over the profiled wall,
-which also holds the profiler's start and stop), the top device operations
-by total time, for each fused kernel its launches, device time, and time
+and prints: seconds per profiled step and each step's counters
+(``Driver.step_stats``), the benchmark's summary of the profiled stretch
+(``benchmark/harness/trace.py``: the device busy time as the union of the
+device operations' intervals, the stretch, the top device operations),
+the idle gaps by the innermost ``bench.*`` or program span open where
+each starts, the program's spans (``benchmark/harness/program.py``: each
+``ns.*`` label's calls, host seconds and owned device and idle seconds,
+and the per-layer readings taken from them), the top operations by
+device time, for each fused kernel its launches, device time, and time
 above its bound per step (each apply's bound at its level's shape,
 ``utils/roofline.py``), the weak-outflow face sweep's calls, host and
 device time where the config has outflow faces (a ``face_sweep``
-profiler scope around each call), and the driver's scope timers.
+profiler scope around each call), and the program's scope timers and
+counters.
 
 A step of thousands of GMRES iterations (``input/hoffmann_2d_reinf.json``:
 ~1,800) holds millions of operations, more events than the profiler can
 hold in a 96 GiB host: ``--sample N`` records only a window of N
 preconditioner applications (one per outer GMRES iteration) of the
-profiled steps, after ``--skip K`` of them, and prints the same shares
-over the window's wall time (the step's own totals from the driver).
+profiled steps, after ``--skip K`` of them, and prints the same summary
+over the window (the step's own totals from the driver).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import sys
 import time
@@ -109,37 +117,19 @@ def annotate_face_sweeps(drv, counting):
     return tally
 
 
-def kernels_in_scope(prof, name: str) -> float:
-    """Seconds of device time of the kernels that ran inside the device
-    ranges of the profiler scope ``name`` (the scope's own device time
-    also counts the idle gaps between them)."""
-    import bisect
-
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.name == name and e.device_type == DeviceType.CUDA)
-    starts = [a for a, _ in spans]
-    total = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.end <= spans[i][1]:
-            total += e.time_range.end - e.time_range.start
-    return total / 1e6
-
-
 def main():
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from benchmark.harness import program, trace
     from ns_gls_tpu_torch.config import Parameters, _load_json
     from ns_gls_tpu_torch.driver import Driver
     from ns_gls_tpu_torch.utils.logging import set_verbose
-    from ns_gls_tpu_torch.utils.timer import get_collection
+    from ns_gls_tpu_torch.utils.timer import (
+        get_collection,
+        print_wall_time_statistics,
+    )
 
     ap = argparse.ArgumentParser()
     ap.add_argument("config", nargs="?",
@@ -193,21 +183,31 @@ def main():
                                         active=args.sample, repeat=1)
         apply = drv.preconditioner.vmult
 
+        span = record_function(trace.WINDOW)
+
         def sampled(src):
             out = apply(src)
             window["n"] = n = window.get("n", 0) + 1
-            prof.step()
             if n in marks:
                 torch.cuda.synchronize()
                 window[n] = time.perf_counter()
+            if n == marks[1]:
+                span.__exit__(None, None, None)
+            prof.step()
+            if n == marks[0]:
+                span.__enter__()
             return out
 
         drv.preconditioner.vmult = sampled
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=sched) as prof:
-        drv.run(max_steps=counter - 1 + args.steps)
-        torch.cuda.synchronize()
+        # the stretch the summary reads: the whole run, or the sampled
+        # window (opened and closed by ``sampled``)
+        with (contextlib.nullcontext() if args.sample
+              else record_function(trace.WINDOW)):
+            drv.run(max_steps=counter - 1 + args.steps)
+            torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = drv.step_stats[n0:]
     if args.sample:
@@ -222,11 +222,6 @@ def main():
               f"are over the window")
 
     events = prof.key_averages()
-
-    # kernel-level events only (the aten rows repeat their kernels' time)
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation)
     import subprocess
 
     print("device: " + subprocess.run(
@@ -242,14 +237,35 @@ def main():
           + f"{[round(s['seconds'], 4) for s in stats]} s per step with the "
           f"profiler on; Newton {[s['newton'] for s in stats]}, "
           f"GMRES {[s['gmres'] for s in stats]}")
-    # both shares: ``wall`` also holds the profiler's start and stop,
-    # which dwarf a short window; the steps' own seconds do not
-    step_s = wall if args.sample else sum(s["seconds"] for s in stats)
-    busy_s = busy_us / 1e6
-    print(f"device busy: {busy_s:.4f} s = "
-          f"{100 * busy_s / max(step_s, 1e-9):.1f}% of the profiled "
-          f"{'window' if args.sample else 'steps'}' {step_s:.3f} s, "
-          f"{100 * busy_s / wall:.1f}% of the profiled wall {wall:.3f} s")
+    for i, s in enumerate(stats):
+        print(f"profiled step {i} counters: "
+              f"{ {k: v for k, v in s['counters'].items() if v} }")
+    raw_events = list(prof.events())
+    summary = trace.summarize(prof, top=args.top)
+    busy_s, step_s = summary["busy_s"], summary["window_s"]
+    print(f"device busy {busy_s:.4f} s of the {step_s:.4f} s stretch "
+          f"(union of the device operations' intervals; idle "
+          f"{100 * (1 - busy_s / max(step_s, 1e-12)):.1f}%)")
+    for name, sec in summary["device_ops"]:
+        print(f"  device op {sec:.4f} s  {name[:160]}")
+    print("idle gaps by the innermost bench.* or program span open where "
+          "each starts:")
+    for name, sec in program.idle_gaps(raw_events, top=args.top):
+        print(f"  idle {sec:.4f} s  {name}")
+    prog = program.summarize(raw_events)
+    print(f"program spans (owned seconds; unowned device "
+          f"{prog['unowned_device_s']:.4f} s, idle "
+          f"{prog['unowned_idle_s']:.4f} s):")
+    for label, r in sorted(prog["labels"].items(),
+                           key=lambda kv: -kv[1]["device_s"]
+                           - kv[1]["idle_s"]):
+        print(f"  {label}: calls {r['calls']}, host {r['host_s']:.4f} s, "
+              f"device {r['device_s']:.4f} s, idle {r['idle_s']:.4f} s")
+        for op, sec in prog["top_ops"].get(label, []):
+            print(f"      {sec:.4f} s  {op[:120]}")
+    if not args.sample:
+        print("per-layer readings from the program spans: "
+              + json.dumps(program.span_metrics(prog, len(stats))))
     print(events.table(sort_by="self_device_time_total", row_limit=args.top))
     # the fused kernels against their bounds: device time over the
     # profiled steps (or the window) less the summed bound of their
@@ -271,14 +287,14 @@ def main():
               + ("" if args.sample else
                  f" ({above / max(len(stats), 1):.3f} ms per step)"))
     if faces is not None:
-        dev_s = kernels_in_scope(prof, "face_sweep")
+        dev_s = trace.kernels_in_scope(raw_events, "face_sweep")
         print(f"face sweep: {faces['calls']} calls in {span}, host "
               f"{faces['host_s']:.4f} s "
               f"({100 * faces['host_s'] / max(step_s, 1e-9):.1f}% of the "
               f"wall time), kernels {dev_s:.4f} s of device time "
               f"({100 * dev_s / max(busy_s, 1e-12):.1f}% of the device busy "
               f"time)")
-    get_collection().print_all()
+    print_wall_time_statistics()
 
 
 if __name__ == "__main__":
