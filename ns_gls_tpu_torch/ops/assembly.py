@@ -1,7 +1,24 @@
-"""Exact element matrices, operator diagonal, and dense global assembly —
-derived from the *same* q-point physics as the matrix-free apply by
-forward-mode differentiation (``torch.func.jacfwd``; the operator is
-linear, so the Jacobian of the local apply *is* the element matrix).
+"""Exact element matrices, operator diagonal, and dense global assembly,
+derived from the *same* q-point physics as the matrix-free apply.
+
+The element matrices come from forward-mode differentiation
+(``torch.func.jacfwd``; the operator is linear, so the Jacobian of the
+local apply *is* the element matrix).  The diagonal needs none of the
+rest of them: entry (i, c) of a cell's diagonal is component c of the
+local apply of basis function (i, c) at node i,
+
+    sum_q S[q, i] jxw[q] v[q, c]
+      + sum_(q, r) D[q, i, r] (g[q, c] . Jinv[q, r]) jxw[q],
+
+where (v, g) is the q-point physics of (S[q, i] e_c, grad phi_i(x_q)
+e_c), the value and gradient the evaluation gives that function.  So
+the physics runs once a basis function, as under ``jacfwd``, but the
+evaluation (a gather of the tables) and the integration (node i,
+component c) are the diagonal's alone.  The numbers and the operations
+are the element matrices', so in f32 on the CPU the diagonal is theirs
+to the bit on the 2D elements; in 3D at Q2 the physics' contractions
+pair the tables with all basis functions at once, and round otherwise
+in about one q-point value in a hundred.
 
 Replaces the reference's basis-vector tricks:
 - ``MatrixFreeTools::compute_diagonal`` (``operator_ns.cc:195-225``)
@@ -24,13 +41,16 @@ from torch.func import jacfwd, vmap
 
 from ns_gls_tpu_torch.ops.navier_stokes import (
     NavierStokesOperator,
+    _apply_jinv,
     fe_evaluate,
     fe_integrate,
 )
 from ns_gls_tpu_torch.utils.segment import class_sum, target_sums
-from ns_gls_tpu_torch.utils.timer import host_sync
+from ns_gls_tpu_torch.utils.timer import count, host_sync
 
 _CHUNK = 2048
+# numbers in the largest transient of a chunk of ``element_diagonals``
+_DIAG_ELEMENTS = 1 << 25
 
 
 def _sums(op, name: str, source: torch.Tensor, index=None):
@@ -82,8 +102,8 @@ def _cq_cell_tree(op: NavierStokesOperator) -> dict:
     return op._cq(s)
 
 
-def _element_fn(op: NavierStokesOperator, diagonal_only: bool):
-    """Batched (over cells) element matrix or element diagonal."""
+def _element_fn(op: NavierStokesOperator):
+    """Batched (over cells) element matrix."""
     n_loc = op.space.element.n_loc
     C = op.n_comp
     f = _local_apply(op)
@@ -91,19 +111,16 @@ def _element_fn(op: NavierStokesOperator, diagonal_only: bool):
     def emat(jinv, jxw, cq):
         u0 = torch.zeros((n_loc, C), dtype=op.dtype, device=op.device)
         J = jacfwd(lambda u: f(u, jinv, jxw, cq))(u0)
-        J = J.reshape(n_loc * C, n_loc * C)
-        if diagonal_only:
-            return torch.diagonal(J).reshape(n_loc, C)
-        return J
+        return J.reshape(n_loc * C, n_loc * C)
 
     cq_dims = {k: (None if k == "weight" else 0) for k in _cq_cell_tree(op)}
     return vmap(emat, in_dims=(0, 0, cq_dims))
 
 
-def element_matrices(op: NavierStokesOperator, diagonal_only=False):
+def element_matrices(op: NavierStokesOperator):
     """Dense element matrices (n_c, n_loc*C, n_loc*C) in the flattened
-    local dof order (i * C + c), or their diagonals (n_c, n_loc, C)."""
-    fn = _element_fn(op, diagonal_only)
+    local dof order (i * C + c)."""
+    fn = _element_fn(op)
     cq = _cq_cell_tree(op)
     b = op.batch
     n_c = op.space.mesh.n_cells
@@ -115,6 +132,63 @@ def element_matrices(op: NavierStokesOperator, diagonal_only=False):
     return torch.cat(parts, dim=0)
 
 
+def element_diagonals(op: NavierStokesOperator) -> torch.Tensor:
+    """The element matrices' diagonals (n_c, n_loc, C), from the q-point
+    physics of each basis function alone (the module docstring), in
+    chunks of cells whose largest transient holds ``_DIAG_ELEMENTS``
+    numbers."""
+    b = op.batch
+    cq = _cq_cell_tree(op)
+    n_c, n_q = b.jxw.shape
+    n_loc = b.S.shape[1]
+    C, d = op.n_comp, op.dim
+    T = n_loc * C
+    chunk = max(1, _DIAG_ELEMENTS // (T * n_q * C * d))
+    eye = torch.eye(C, dtype=op.dtype, device=op.device)
+    # basis function t = i * C + c: val[t, q, c'] = S[q, i] delta(c, c')
+    val1 = (b.S.T[:, None, :, None] * eye[None, :, None, :]).reshape(
+        T, n_q, C)
+    # ``fe_integrate``'s contractions, (n_loc, q) and (n_loc, (q, r))
+    s_t = b.S.T[None]
+    d_t = b.D.transpose(0, 1).reshape(1, n_loc, n_q * d)
+    parts = []
+    for lo in range(0, n_c, chunk):
+        sl = slice(lo, min(lo + chunk, n_c))
+        jinv, jxw = b.jinv[sl], b.jxw[sl]
+        e = jxw.shape[0]
+        # grad[e, t, q, c', x] = grad phi_i(x_q)[x] delta(c, c')
+        g = _apply_jinv(b.D, jinv).transpose(1, 2)
+        grad = (g[:, :, None, :, None, :]
+                * eye[None, None, :, None, :, None]).reshape(
+                    e, T, n_q, C, d)
+        cq_sl = {k: (v if k == "weight" else v[sl].unsqueeze(1))
+                 for k, v in cq.items()}
+        val = val1.expand(e, T, n_q, C)
+        if op.increment_form:
+            val_res, grad_res = op.qpoint_increment(val, grad, cq_sl)
+        else:
+            val_res, grad_res = op.qpoint_fixed_point(val, grad, cq_sl,
+                                                      residual=False)
+        # component c of basis function (i, c)'s residual, weighted as
+        # ``fe_integrate`` weights it: vr[e, i, q, c], gr[e, i, q, r, c]
+        vr = val_res.reshape(e, n_loc, C, n_q, C).diagonal(dim1=2, dim2=4)
+        vr = vr * jxw[:, None, :, None]
+        gw = grad_res.reshape(e, n_loc, C, n_q, C, d).diagonal(
+            dim1=2, dim2=4).movedim(-1, -2)
+        gw = gw * jxw[:, None, :, None, None]
+        gr = (gw.unsqueeze(-2) * jinv[:, None, :, None]).sum(dim=-1)
+        gr = gr.transpose(-1, -2)
+        # node i's C basis functions through the element matrices' own
+        # (n_loc x K) (K x C) products; row i is the diagonal
+        m = e * n_loc
+        r = (torch.bmm(s_t.expand(m, -1, -1), vr.reshape(m, n_q, C))
+             + torch.bmm(d_t.expand(m, -1, -1),
+                         gr.reshape(m, n_q * d, C)))
+        parts.append(torch.diagonal(r.reshape(e, n_loc, n_loc, C),
+                                    dim1=1, dim2=2).transpose(1, 2))
+    return torch.cat(parts, dim=0)
+
+
 def compute_diagonal(op: NavierStokesOperator) -> torch.Tensor:
     """Diagonal of the (constrained) operator, shape (n_nodes, C).
 
@@ -123,7 +197,8 @@ def compute_diagonal(op: NavierStokesOperator) -> torch.Tensor:
     unconstrained diagonal entries are dropped — exact for Dirichlet /
     pressure-pin constraints, approximate for slip/periodic rows; the
     Jacobi smoother tolerates this.)"""
-    d_loc = element_matrices(op, diagonal_only=True)
+    count("diagonal")
+    d_loc = element_diagonals(op)
     diag = torch.zeros((op.n_nodes, op.n_comp), dtype=op.dtype,
                        device=op.device)
     ts = _sums(op, "diag", op.batch.cell_nodes)

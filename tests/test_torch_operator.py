@@ -146,6 +146,91 @@ def test_diagonal_and_dense_matrix(increment):
            opt.vmult(torch.as_tensor(v)).numpy())
 
 
+def _port_operator(space, constraints, increment, cell_wise, fuse,
+                   dtype=torch.float64):
+    """A port operator (f64 unless ``dtype`` says) with a BDF-2 history
+    and a linearization point from one numpy seed."""
+    it = TBDF(2)
+    for dt in (0.01, 0.008):
+        it.update_dt(dt)
+    op = TOp(space, constraints.homogeneous, constraints.full, nu=0.001,
+             c_1=0.2, c_2=0.3, time_integrator=it,
+             increment_form=increment, cell_wise_stabilization=cell_wise,
+             fuse_tables=fuse, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(0)
+    hist = [rng.standard_normal((space.n_nodes, space.dim + 1))
+            for _ in range(3)]
+    op.set_previous_solution(THist.from_numpy(hist, dtype, "cpu"))
+    op.set_linearization_point(torch.as_tensor(hist[0] * 1.5, dtype=dtype))
+    return op
+
+
+@pytest.fixture(scope="module")
+def diagonal_spaces():
+    """The Turek 2D mesh at refinement 1 (Q1 and Q2) and the Turek 3D
+    mesh (400 cells, Q2), with the driver's constraint sets, built once;
+    by (dim, degree)."""
+    from ns_gls_tpu_torch.mesh.cylinder import cylinder_mesh_3d
+
+    out = {}
+    for dim, degree, mesh in ((2, 1, _refine(tmesh(), 1)),
+                              (2, 2, _refine(tmesh(), 1)),
+                              (3, 2, cylinder_mesh_3d())):
+        space = TSpace(mesh, degree)
+        out[dim, degree] = (space, tdrv.ConstraintSetBuilder(
+            space, TCyl(dim).get_boundary_descriptor(), torch.float64,
+            "cpu"))
+    return out
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("cell_wise", [True, False])
+@pytest.mark.parametrize("increment", [True, False])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_diagonal_from_qpoint_blocks(diagonal_spaces, dim, increment,
+                                     cell_wise, fuse):
+    """``compute_diagonal`` (the q-point physics of each basis function
+    alone) against the diagonals of the ``jacfwd`` element matrices
+    summed into the nodes, with ones on the constrained rows."""
+    from ns_gls_tpu_torch.ops import assembly as ta
+
+    op = _port_operator(*diagonal_spaces[dim, 2], increment, cell_wise,
+                        fuse)
+    C = op.n_comp
+    emat = ta.element_matrices(op)
+    d_loc = torch.diagonal(emat, dim1=1, dim2=2).reshape(len(emat), -1, C)
+    ref = np.zeros((op.n_nodes, C))
+    np.add.at(ref, op.batch.cell_nodes.numpy(), d_loc.numpy())
+    rows = op.constraints_homogeneous.rows.numpy()
+    assert len(rows)
+    ref.reshape(-1)[rows] = 1.0
+    diag = ta.compute_diagonal(op).numpy()
+    _close(diag, ref)
+    assert np.all(diag.reshape(-1)[rows] == 1.0)
+
+
+@pytest.mark.parametrize("cell_wise", [True, False])
+@pytest.mark.parametrize("increment", [True, False])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_element_diagonals_bits_f32(diagonal_spaces, degree, increment,
+                                    cell_wise):
+    """In f32, as the multigrid levels keep them, ``element_diagonals``
+    gives the ``jacfwd`` element matrices' diagonals to the bit on the
+    CPU: the same physics on the same numbers and the same
+    (n_loc x K) (K x C) products.  The driver tests with f32 levels
+    count GMRES iterations that follow the diagonal's last bit."""
+    from ns_gls_tpu_torch.ops import assembly as ta
+
+    op = _port_operator(*diagonal_spaces[2, degree], increment, cell_wise,
+                        True, dtype=torch.float32)
+    emat = ta.element_matrices(op)
+    ref = torch.diagonal(emat, dim1=1, dim2=2).reshape(len(emat), -1,
+                                                        op.n_comp)
+    got = ta.element_diagonals(op)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref), (got != ref).sum().item()
+
+
 def _qpoint_inputs(d, seed):
     """Random q-point component lists (64 points) for the physics of
     ``ops/structured.py`` in d dimensions, as numpy arrays."""

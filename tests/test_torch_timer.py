@@ -12,10 +12,11 @@ every counter in the step's record; one ``vcycle`` per preconditioner
 application; the fine applies one per Arnoldi step and one per GMRES
 cycle; the level applies the V-cycle's and the power iterations'
 (V-cycles x smoothed levels x (2 x sweeps + 1) + rebuilds x smoothed
-levels x power steps); every rebuild and V-cycle stage a scope of the
-step, and a range in the trace of a rebuild and a V-cycle under
-``torch.profiler``, nested as its label says (a whole step under the
-profiler takes over a minute on the CPU).
+levels x power steps); one ``diagonal`` a smoothed level a rebuild;
+every rebuild and V-cycle stage a scope of the step, and a range in the
+trace of a rebuild and a V-cycle under ``torch.profiler``, nested as its
+label says (a whole step under the profiler takes over a minute on the
+CPU).
 """
 
 import os
@@ -43,7 +44,8 @@ set_verbose(False)
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "input", "channel.json")
 # the program's own counters (the kernels' ``launch.*`` besides)
-COUNTERS = ("host_sync", "fine_apply", "level_apply", "vcycle", "rebuild")
+COUNTERS = ("host_sync", "fine_apply", "level_apply", "vcycle", "rebuild",
+            "diagonal")
 # the rebuild's and the V-cycle's stages, by the end of their labels
 STAGES = ("setup_preconditioner::level_state",
           "setup_preconditioner::mg_init::diagonal",
@@ -268,6 +270,21 @@ def test_step_level_applies(step):
     assert st["level_apply"] == (
         st["vcycle"] * smoothed * (2 * pc.n_smooth + 1)
         + st["rebuild"] * smoothed * pc.eig_n_iterations)
+
+
+def test_diagonal_counter(step):
+    """One ``diagonal`` a smoothed level in each rebuild of the step, and
+    one more a smoothed level in another ``initialize``."""
+    drv, _ = step
+    pc = drv.preconditioner
+    smoothed = pc.n_levels - 1
+    assert not pc._needs_level0_args
+    st = drv.step_stats[-1]["counters"]
+    assert st["rebuild"] > 0
+    assert st["diagonal"] == smoothed * st["rebuild"]
+    before = tm.counters()
+    pc.initialize()
+    assert tm.counters_since(before)["diagonal"] == smoothed
 
 
 def test_step_spans(step):
