@@ -13,10 +13,11 @@ zoo ``multigrid.cc:372-433``):
 - later setups keep the aggregates and refresh every matrix value on the
   device from new element matrices (the structure-frozen refresh: fixed
   slot maps from element entries to the level matrices),
-- apply on the device: a V-cycle with damped Jacobi smoothing (Gershgorin
-  damping) on padded-ELL level matrices; level 0 applies the operator
-  itself instead of its matrix (the unaggregated Q2 level would gather
-  hundreds of entries per row, and the linearization stays current),
+- apply on the device (counted as ``amg_cycle``): a V-cycle with damped
+  Jacobi smoothing (Gershgorin damping) on padded-ELL level matrices;
+  level 0 applies the operator itself instead of its matrix (the
+  unaggregated Q2 level would gather hundreds of entries per row, and
+  the linearization stays current),
 - "amg smoother": "ilu" (the reference's ML-AMG smooths with Ifpack ILU,
   ``preconditioner.cc:49-77``): every setup also assembles each stored
   level's matrix on the host, factors it with SuperLU's ILU (scipy) and
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from ns_gls_tpu_torch.utils.segment import class_gather, class_sum
-from ns_gls_tpu_torch.utils.timer import host_sync, timer
+from ns_gls_tpu_torch.utils.timer import count, host_sync, timer
 
 # aggregation levels at most (the JAX package's default ``max_levels``)
 MAX_LEVELS = 10
@@ -198,6 +199,7 @@ class PreconditionerAMG:
         self.theta = theta
         self.levels = None
         self.coarse_lu = None
+        count("amg_cycle", 0)
         self._frozen_aggs = None
         self._maps = None
 
@@ -418,6 +420,7 @@ class PreconditionerAMG:
     def vmult(self, src):
         if self.levels is None:
             self.initialize()
+        count("amg_cycle")
         b0 = src.reshape(-1)
         out = self._down(0, b0) if self.levels else self._lu_solve(b0)
         return out.reshape(src.shape)
