@@ -20,7 +20,6 @@ import numpy as np
 import torch
 
 from ns_gls_tpu_torch.utils.segment import class_sum, fixed_scatter
-from ns_gls_tpu_torch.utils.timer import host_sync
 
 
 class ConstraintArrays(NamedTuple):
@@ -170,9 +169,9 @@ def set_zero(ca: ConstraintArrays, u: torch.Tensor) -> torch.Tensor:
     if ca.n == 0:
         return u
     out = u.reshape(-1).clone()
-    # a Python number set through an index tensor is copied to the
-    # device, and the host waits for the stream
-    host_sync(out.__setitem__, ca.rows, 0.0)
+    # a fill on the device: a Python number set through an index tensor
+    # would be copied from the host, a wait for the stream
+    out.index_fill_(0, ca.rows, 0.0)
     return out.reshape(u.shape)
 
 
@@ -193,9 +192,8 @@ def condense_transpose(ca: ConstraintArrays, r: torch.Tensor) -> torch.Tensor:
             rf[fs.targets] += class_sum(fs.gather, src)
     else:
         rf.index_add_(0, ca.cols.reshape(-1), src)
-    # a Python number set through an index tensor is copied to the
-    # device, and the host waits for the stream (once every apply)
-    host_sync(rf.__setitem__, ca.rows, 0.0)
+    # a fill on the device, as in ``set_zero`` (once every apply)
+    rf.index_fill_(0, ca.rows, 0.0)
     return rf.reshape(r.shape)
 
 

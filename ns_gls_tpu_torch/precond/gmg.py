@@ -26,6 +26,20 @@ wrappers (``level_ops_apply``); with halo transfers (``transfer_ops``,
 ``parallel/halo.py`` ``HaloTransferOps``) the whole cycle runs on
 distributed vectors (``parallel/dist.py``) and only the coarse solve
 gathers to the global layout (``ns_gls_tpu/precond/gmg.py:58-125``).
+
+On the card the unsharded cycle replays CUDA graphs: the shapes and,
+between two rebuilds, the tensors it reads stay fixed, so its long chain
+of small launches is captured once (at the first V-cycle after each
+``initialize``, or after anything the capture baked in changed) and
+every later V-cycle is one launch.  Where the coarse solve is one
+application that never reads the device (dense LU, an AMG cycle,
+identity) the whole cycle is one graph (span ``vcycle::graph``);
+where it iterates or runs on the host (GMRES, SuperLU) a graph goes down
+to the coarse level and one comes back up around it (``vcycle::down``,
+``vcycle::up``).  A capture counts nothing; each replay adds the counters
+its capture would have counted, so ``level_apply``, ``amg_cycle`` and
+``launch.*`` read as in the eager cycle (``vcycle_graph_capture``,
+``vcycle_graph_replay`` count the captures and the V-cycles replayed).
 """
 
 from __future__ import annotations
@@ -35,7 +49,94 @@ import torch
 
 from ns_gls_tpu_torch.fem import transfer as tr
 from ns_gls_tpu_torch.parallel.dist import DistVector
-from ns_gls_tpu_torch.utils.timer import count, host_sync, timer
+from ns_gls_tpu_torch.utils.timer import (
+    count,
+    counters,
+    counters_since,
+    host_sync,
+    timer,
+)
+
+
+def capture_graph(fn, device, pool=None):
+    """``fn()``'s work captured as a CUDA graph on a side stream of
+    ``device``, its allocations in the graph memory pool ``pool`` (a new
+    one if None): (the graph, ``fn()``'s result, whose tensors each replay
+    writes anew).  Nothing runs until the first replay; a failed capture
+    raises."""
+    with torch.cuda.device(device):
+        stream = _CAPTURE_STREAMS.get(torch.cuda.current_device())
+        if stream is None:
+            stream = _CAPTURE_STREAMS[torch.cuda.current_device()] = (
+                torch.cuda.Stream())
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                out = fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        # cuBLAS keeps a workspace for each stream it runs on (32 MiB on
+        # the H100): the capture stream's was taken from this graph's
+        # pool, which keeps it for the replays, so cuBLAS lets go of it
+        # and it stays allocated nowhere else
+        torch._C._cuda_clearCublasWorkspaces()
+    return graph, out
+
+
+# device index -> the one stream captures run on there
+_CAPTURE_STREAMS: dict = {}
+
+
+class _CycleGraphs:
+    """A captured V-cycle: its graphs (the whole cycle, or the legs down
+    and up), the tensors they read and write, what the capture baked in
+    (``key``) and, per graph, the counters one replay stands for."""
+
+    __slots__ = ("key", "pool", "graphs", "deltas", "src", "saved",
+                 "coarse_rhs", "coarse_x", "out")
+
+    def __init__(self, key, src, pool):
+        self.key = key
+        self.src = src
+        self.pool = pool
+        self.graphs, self.deltas = [], []
+        self.saved = self.coarse_rhs = self.coarse_x = self.out = None
+
+    def matches(self, key) -> bool:
+        tensors, numbers = key
+        return (len(tensors) == len(self.key[0])
+                and all(a is b for a, b in zip(tensors, self.key[0]))
+                and numbers == self.key[1])
+
+    def capture(self, fn):
+        """Capture ``fn()`` into the next graph, in the cycle's pool, and
+        take back the counters the capture counted: each replay counts
+        them again."""
+        before = counters()
+        g, out = capture_graph(fn, self.src.device, self.pool)
+        delta = {k: v for k, v in counters_since(before).items() if v}
+        if delta.get("host_sync"):
+            raise RuntimeError("a host sync inside the captured V-cycle")
+        for k, v in delta.items():
+            count(k, -v)
+        if self.pool is None:
+            self.pool = g.pool()
+        self.graphs.append(g)
+        self.deltas.append(delta)
+        return out
+
+    def replay(self, i: int):
+        self.graphs[i].replay()
+        for k, v in self.deltas[i].items():
+            count(k, v)
 
 
 def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
@@ -99,10 +200,20 @@ class PreconditionerGMG:
         self.coarse_lu = None
         self.coarse_amg = None
         self.coarse_ilu = None
-        # the coarse solve's GMRES iterations and AMG cycles, at zero in
-        # every step record whether or not the coarse solve runs them
-        count("coarse_gmres_it", 0)
-        count("amg_cycle", 0)
+        # the cycle as CUDA graphs (unsharded, on the card): the captured
+        # cycle, and the graph whose memory pool the next capture reuses
+        self._sharded = level_ops_apply is not None
+        self._captured = None
+        self._pool_owner = None
+        # the first cycle runs eager: it builds what the applies and
+        # transfers cache (their class-sum tables read the device)
+        self._warm = False
+        # the coarse solve's GMRES iterations and AMG cycles, and the
+        # cycle's captures and replays, at zero in every step record
+        # whether or not the cycle runs them
+        for name in ("coarse_gmres_it", "amg_cycle", "vcycle_graph_capture",
+                     "vcycle_graph_replay"):
+            count(name, 0)
 
     # ------------------------------------------------------------------
     def _estimate_omega(self, level: int, inv_diag):
@@ -143,6 +254,8 @@ class PreconditionerGMG:
         )
 
         count("rebuild")
+        # a new smoother state and coarse solver: the next cycle captures
+        self._captured = None
         inv_diags, omegas = [], []
         for lvl in range(self.n_levels):
             if lvl == 0 and not self._needs_level0_args:
@@ -278,20 +391,22 @@ class PreconditionerGMG:
         with timer("smooth"):
             return self._smooth(level, x, b)
 
-    def _vcycle(self, level: int, b):
+    def _down(self, level: int, b):
+        """Pre-smoothing from zero, the residual and its restriction on
+        ``level``: (x, the coarser level's right-hand side), flat."""
         op = self.level_ops_apply[level]
         shp = (op.n_nodes, op.n_comp)
-        if level == 0:
-            with timer("coarse"):
-                return self._coarse_solve(b.reshape(shp)).reshape(-1)
-        # pre-smooth from zero initial guess
         with timer("smooth"):
             x = self._smooth(level, torch.zeros_like(b), b)
         with timer("residual"):
             d = b - op.vmult(x.reshape(shp)).reshape(-1)
         with timer("restrict"):
             d_c = tr.restrict(self.transfers[level - 1], d.reshape(shp))
-        x_c = self._vcycle(level - 1, d_c.reshape(-1))
+        return x, d_c.reshape(-1)
+
+    def _up(self, level: int, x, b, x_c):
+        """The coarser level's correction ``x_c`` prolongated onto x, then
+        post-smoothing on ``level``."""
         op_c = self.level_ops[level - 1]
         with timer("prolongate"):
             x = x + tr.prolongate(
@@ -300,6 +415,117 @@ class PreconditionerGMG:
             ).reshape(-1)
         with timer("smooth"):
             return self._smooth(level, x, b)
+
+    def _vcycle(self, level: int, b):
+        if level == 0:
+            op = self.level_ops_apply[0]
+            with timer("coarse"):
+                return self._coarse_solve(
+                    b.reshape(op.n_nodes, op.n_comp)).reshape(-1)
+        x, d_c = self._down(level, b)
+        return self._up(level, x, b, self._vcycle(level - 1, d_c))
+
+    def _cycle_on(self, src):
+        """The eager cycle on a fine vector, back in its dtype and shape."""
+        x = self._vcycle(self.n_levels - 1, src.to(self.mg_dtype).reshape(-1))
+        return x.reshape(src.shape).to(src.dtype)
+
+    def _leg_down(self, src):
+        """The cycle from the finest level down to the coarse level's
+        right-hand side: (that, each smoothed level's (x, b), finest
+        first)."""
+        b = src.to(self.mg_dtype).reshape(-1)
+        saved = []
+        for level in range(self.n_levels - 1, 0, -1):
+            x, d_c = self._down(level, b)
+            saved.append((x, b))
+            b = d_c
+        return b, saved
+
+    def _leg_up(self, x_c, saved, like):
+        """The cycle from the coarse solution ``x_c`` back up, in the
+        dtype and shape of ``like``."""
+        for level, (x, b) in zip(range(1, self.n_levels), reversed(saved)):
+            x_c = self._up(level, x, b, x_c)
+        return x_c.reshape(like.shape).to(like.dtype)
+
+    # ------------------------------------------------------------------
+    # the cycle as CUDA graphs
+    # ------------------------------------------------------------------
+    def _graph_form(self, src):
+        """How the cycle on ``src`` is replayed: "whole" (one graph: the
+        coarse solve is one application that never reads the device),
+        "legs" (a graph down and one up around an eager coarse solve,
+        which iterates or runs on the host) or None (eager: on the CPU,
+        on sharded or distributed levels, or an iterated coarse solve
+        with no level around it)."""
+        if not src.is_cuda or self.distributed or self._sharded:
+            return None
+        if self.coarse_grid_solver == "ILU" or (
+                self.coarse_grid_iterate
+                and self.coarse_grid_solver != "identity"):
+            return "legs" if self.n_levels > 1 else None
+        return "whole"
+
+    def _graph_key(self, src):
+        """What a capture bakes in: the tensors it reads by address,
+        compared by identity (each level operator's state, which a new
+        linearization point, history or time-step weight replaces; the
+        smoother's diagonals and factors), and what it passes the fused
+        kernels by value or sizes its buffers by, compared by value (each
+        operator's weight, 1/dt, nu, c1, c2; the source's shape and
+        dtype)."""
+        ops = self.level_ops
+        tensors = (*(op.state for op in ops), *self.inv_diags, *self.omegas)
+        numbers = (tuple(src.shape), src.dtype, *(
+            (op._weight_host, op._stau_host, op.nu, op.c_1, op.c_2)
+            for op in ops))
+        return tensors, numbers
+
+    def _capture(self, src, form):
+        """Capture the cycle in ``form``.  The graph captured before keeps
+        its memory pool alive for the new one, which then owns it: one
+        pool across rebuilds."""
+        pool = None if self._pool_owner is None else self._pool_owner.pool()
+        cyc = _CycleGraphs(self._graph_key(src), torch.empty_like(src), pool)
+        # the face matrices follow the linearization point: taken here,
+        # eagerly, not inside the capture
+        for op in self.level_ops:
+            if op.needs_face_integrals:
+                op._face_matrices()
+        count("vcycle_graph_capture")
+        if form == "whole":
+            cyc.out = cyc.capture(lambda: self._cycle_on(cyc.src))
+        else:
+            cyc.coarse_rhs, cyc.saved = cyc.capture(
+                lambda: self._leg_down(cyc.src))
+            cyc.coarse_x = torch.empty_like(cyc.coarse_rhs)
+            cyc.out = cyc.capture(lambda: self._leg_up(
+                cyc.coarse_x, cyc.saved, cyc.src))
+        self._captured = cyc
+        self._pool_owner = cyc.graphs[0]
+        return cyc
+
+    def _replay(self, src, form):
+        """The cycle on ``src`` from its graphs, captured first where the
+        last capture baked in something that has changed since."""
+        cyc = self._captured
+        if cyc is None or not cyc.matches(self._graph_key(src)):
+            self._captured = None
+            cyc = self._capture(src, form)
+        cyc.src.copy_(src)
+        count("vcycle_graph_replay")
+        if form == "whole":
+            with timer("graph"):
+                cyc.replay(0)
+        else:
+            with timer("down"):
+                cyc.replay(0)
+            cyc.coarse_x.copy_(self._vcycle(0, cyc.coarse_rhs))
+            with timer("up"):
+                cyc.replay(1)
+        # the next replay writes over the graph's output
+        return cyc.out.clone()
 
     def vmult(self, src):
         if self.inv_diags is None:
@@ -310,6 +536,8 @@ class PreconditionerGMG:
                 x = self._vcycle_dist(self.n_levels - 1,
                                       src.to(self.mg_dtype))
                 return x.to(src.dtype)
-            x = self._vcycle(self.n_levels - 1,
-                             src.to(self.mg_dtype).reshape(-1))
-            return x.reshape(src.shape).to(src.dtype)
+            form = self._graph_form(src)
+            if form is None or not self._warm:
+                self._warm = form is not None
+                return self._cycle_on(src)
+            return self._replay(src, form)

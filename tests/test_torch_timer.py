@@ -251,6 +251,15 @@ def test_step_vcycles_are_preconditioner_applications(step):
     assert drv.step_stats[-1]["counters"]["vcycle"] == calls["precond"]
 
 
+def test_step_cycle_stays_eager_on_cpu(step):
+    """The CUDA graph counters are in the step record at zero: on the CPU
+    every V-cycle runs eager."""
+    drv, _ = step
+    rec = drv.step_stats[-1]["counters"]
+    assert rec["vcycle_graph_capture"] == rec["vcycle_graph_replay"] == 0
+    assert rec["vcycle"] > 0 and drv.preconditioner._captured is None
+
+
 def test_step_fine_applies(step):
     """One fine apply an Arnoldi step and one a GMRES cycle; here every
     linear solve takes two cycles, the second only reading the true
