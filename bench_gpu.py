@@ -297,7 +297,7 @@ def sweep_args(op, v):
     consider_dt, cell_wise), with the operator's own state and scalars."""
     sw = op._fast
     st = op.state
-    sc = dict(weight=op._weight_host, stau=op._stau_host, nu=sw.nu,
+    sc = dict(weight=op.weight_host, stau=op.stau_host, nu=sw.nu,
               c1=sw.c1, c2=sw.c2)
     flavor = "increment" if op.increment_form else "fixed"
     uT = sw.gather_nodes(v, op.n_comp).contiguous()

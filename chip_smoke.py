@@ -1265,7 +1265,7 @@ def patch3d_inputs(tables, seed=0):
 def sweep_scalars(op):
     """The scalars the operator hands its fused sweep."""
     sw = op._fast
-    return dict(weight=op._weight_host, stau=op._stau_host, nu=sw.nu,
+    return dict(weight=op.weight_host, stau=op.stau_host, nu=sw.nu,
                 c1=sw.c1, c2=sw.c2)
 
 

@@ -326,8 +326,10 @@ class NavierStokesOperator:
         # the vmult's face matrices at the current linearization
         self._face_K = None
 
-        self._weight_host = 0.0
-        self._stau_host = 0.0
+        # the time-step weight and 1/dt on the host: the fused sweeps take
+        # them by value
+        self.weight_host = 0.0
+        self.stau_host = 0.0
         self.state = self._zero_state()
 
     # ------------------------------------------------------------------
@@ -572,7 +574,7 @@ class NavierStokesOperator:
             # the state
             flavor = ("residual" if residual_form
                       else "increment" if self.increment_form else "fixed")
-            return sw.apply(self._weight_host, self._stau_host,
+            return sw.apply(self.weight_host, self.stau_host,
                             sw.gather_nodes(u, self.n_comp),
                             self.state.u_linT, self.state.vec_oldT, flavor)
         return self._cell_sweep(self.batch, self.state, u, residual_form)
@@ -618,7 +620,7 @@ class NavierStokesOperator:
             [grad_res_u, torch.zeros_like(grad[..., d:, :])], dim=-2)
         return fe_integrate(fb.S, fb.D, fb.jinv, fb.jxw, val_res, grad_res)
 
-    def _face_matrices(self):
+    def face_matrices(self):
         """Per face block, the face terms of the vmult as one dense matrix
         a face (n_bf, n_loc*C, n_loc*C), in the flattened local dof order
         (i * C + c): :meth:`face_block_terms` outside residual form is
@@ -626,7 +628,8 @@ class NavierStokesOperator:
         local basis vectors are its matrix.  Taken at the first vmult after
         each linearization, so that a vmult applies the face terms in one
         batched product instead of re-evaluating them (the face sweep runs
-        on every level in every smoothing step)."""
+        on every level in every smoothing step).  A CUDA graph capture of
+        an apply calls it first, eagerly: none is taken inside."""
         if self._face_K is None:
             st = self.state
             mats = []
@@ -648,7 +651,7 @@ class NavierStokesOperator:
         ``operator_ns.cc:1195-1301``) added onto the cell sweep's r: the
         residual evaluates :meth:`face_block_terms` (the cut term is
         nonlinear in u there), the vmult applies their matrices."""
-        mats = None if residual_form else self._face_matrices()
+        mats = None if residual_form else self.face_matrices()
         return self.face_sweep(self.face_blocks, mats, self.state, u, r,
                                residual_form)
 
@@ -706,6 +709,16 @@ class NavierStokesOperator:
 
     def invalidate_system(self):
         self._valid_system = False
+
+    def capture_key(self) -> tuple:
+        """What an apply bakes into a captured CUDA graph: (the tensors it
+        reads by address, compared by identity: the state, which every
+        linearization point, history and time-step weight replaces; the
+        numbers it passes its fused kernels by value, compared by value:
+        the weight, 1/dt, nu, c1, c2)."""
+        return ((self.state,),
+                (self.weight_host, self.stau_host, self.nu, self.c_1,
+                 self.c_2))
 
     def new_vector(self):
         return torch.zeros((self.n_nodes, self.n_comp), dtype=self.dtype,
@@ -850,14 +863,14 @@ class NavierStokesOperator:
 
     def update_weight(self):
         tau = self.time_integrator.current_dt
-        self._weight_host = float(self.time_integrator.primary_weight)
-        self._stau_host = 0.0 if tau == 0.0 else 1.0 / tau
+        self.weight_host = float(self.time_integrator.primary_weight)
+        self.stau_host = 0.0 if tau == 0.0 else 1.0 / tau
         # two copies of host numbers to the device, each a wait for the
         # stream
         self.state = self.state._replace(
-            weight=host_sync(torch.tensor, self._weight_host,
+            weight=host_sync(torch.tensor, self.weight_host,
                              dtype=self.dtype, device=self.device),
-            stau=host_sync(torch.tensor, self._stau_host, dtype=self.dtype,
+            stau=host_sync(torch.tensor, self.stau_host, dtype=self.dtype,
                            device=self.device),
         )
 

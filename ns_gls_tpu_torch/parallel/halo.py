@@ -346,7 +346,7 @@ class HaloShardedOperator(WrappedOperator):
         return self._states
 
     def _shard_face_matrices(self):
-        mats = self.op._face_matrices()
+        mats = self.op.face_matrices()
         if self._mats_src is not mats:
             self._mats = tuple(
                 tuple(K[sel].to(s.dev) for K, sel in zip(mats, s.face_sels))
@@ -391,7 +391,7 @@ class HaloShardedOperator(WrappedOperator):
                 w = cstr.distribute(s.cstr_i if residual_form else s.cstr_h,
                                     w, homogeneous=not residual_form)
                 if s.fast is not None:
-                    r = s.fast.apply(op._weight_host, op._stau_host,
+                    r = s.fast.apply(op.weight_host, op.stau_host,
                                      s.fast.gather_nodes(w, C), st.u_linT,
                                      st.vec_oldT, flavor)
                 else:

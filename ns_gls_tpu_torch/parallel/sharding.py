@@ -264,7 +264,7 @@ class ShardedOperator(WrappedOperator):
         return self._states
 
     def _shard_face_matrices(self):
-        mats = self.op._face_matrices()
+        mats = self.op.face_matrices()
         if self._mats_src is not mats:
             self._mats = tuple(
                 tuple(K[sel].to(s.dev) for K, sel in zip(mats, s.face_sels))

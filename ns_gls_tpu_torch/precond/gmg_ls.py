@@ -37,15 +37,6 @@ import torch
 
 from ns_gls_tpu_torch.fem import transfer as tr
 from ns_gls_tpu_torch.precond.gmg import PreconditionerGMG
-from ns_gls_tpu_torch.utils.timer import host_sync
-
-
-def power_start_vector(level: int, shape, dtype, device) -> torch.Tensor:
-    """Start vector of the power iteration on ``level``: normal samples
-    from ``numpy.random.default_rng(47 + level)``."""
-    rng = np.random.default_rng(47 + level)
-    return host_sync(torch.as_tensor, rng.standard_normal(shape),
-                     dtype=dtype, device=device)
 
 
 def _assignment(target, source, device, what: str):
@@ -60,6 +51,9 @@ def _assignment(target, source, device, what: str):
 
 
 class PreconditionerGMGLS(PreconditionerGMG):
+    init_scope = "mg_ls_init"
+    power_seed = 47
+
     def __init__(
         self,
         level_ops: list,        # NavierStokesOperator per forest level
@@ -89,9 +83,12 @@ class PreconditionerGMGLS(PreconditionerGMG):
             smoothing_range=smoothing_range,
             smoothing_eig_n_iterations=smoothing_eig_n_iterations,
             coarse_grid_solver=coarse_grid_solver, logger=logger,
+            # the JAX package's parameters: the reference's tuned set
+            coarse_amg_default_parameters=False,
         )
+        # the masked cycle smooths no coarse level
+        self._needs_level0_args = False
         dev = level_ops[0].device
-        self.power_start = power_start_vector
         self.n_fine_nodes = int(n_fine_nodes)
         # (target, source): injection writes level rows, the collection
         # final nodes
@@ -109,54 +106,15 @@ class PreconditionerGMGLS(PreconditionerGMG):
         )
 
     # ------------------------------------------------------------------
-    def initialize(self):
-        """Smoother state (inverse diagonals, relaxation factors) of every
-        level above the coarse one, and the coarse solver: a dense LU in
-        f64 ("direct" and "ILU"), or aggregation AMG with a matrix-free
-        level 0 and the JAX package's parameters ("AMG")."""
-        from ns_gls_tpu_torch.ops.assembly import (
-            assemble_dense,
-            compute_inverse_diagonal,
-        )
-        from ns_gls_tpu_torch.utils.timer import timer
-
-        inv_diags, omegas = [None], [None]
-        for lvl in range(1, self.n_levels):
-            with timer("mg_ls_init::diagonal"):
-                dinv = compute_inverse_diagonal(self.level_ops[lvl])
-            inv_diags.append(dinv)
-            with timer("mg_ls_init::power_iteration"):
-                omegas.append(self._estimate_omega(lvl, dinv))
-        self.inv_diags = inv_diags
-        self.omegas = omegas
-
-        self.coarse_lu = None
-        op0 = self.level_ops[0]
-        if self.coarse_grid_solver == "AMG":
-            from ns_gls_tpu_torch.precond.amg import PreconditionerAMG
-
-            if self.coarse_amg is None:
-                self.coarse_amg = PreconditionerAMG(
-                    op0, theta=0.02, n_smooth=3, max_coarse=1000)
-            with timer("mg_ls_init::coarse_amg"):
-                self.coarse_amg.initialize()
-        elif self.coarse_grid_solver != "identity":
-            # "direct", and "ILU" as well: the JAX package's local-smoothing
-            # cycle factors its coarse level densely for any solver but
-            # AMG and identity
-            with timer("mg_ls_init::coarse_lu"):
-                A = assemble_dense(op0)
-                # its check of the factorization reads the device
-                self.coarse_lu = host_sync(torch.linalg.lu_factor,
-                                           A.to(torch.float64))
-
-        if self.logger:
-            for lvl, om in enumerate(omegas):
-                if om is not None:
-                    self.logger(
-                        f"    [M]  - level: {lvl}, omega: "
-                        f"{host_sync(float, om):.4f}"
-                    )
+    def _coarse_setup(self):
+        """A dense LU in f64 for "direct" and "ILU" alike, at any size (the
+        JAX package's local-smoothing cycle factors its coarse level
+        densely for any solver but AMG and identity); AMG as the global
+        cycle's."""
+        if self.coarse_grid_solver in ("direct", "ILU"):
+            self._factor_coarse()
+        else:
+            super()._coarse_setup()
 
     # ------------------------------------------------------------------
     def _smooth_masked(self, level: int, x, b):

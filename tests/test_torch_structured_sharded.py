@@ -102,7 +102,7 @@ def _port_args(opt, u):
     uT = torch.as_tensor(u).T.contiguous().reshape(
         (C,) + opt._fast.lattice_shape)
     st = opt.state
-    return (opt._weight_host, opt._stau_host, uT, st.u_linT.contiguous(),
+    return (opt.weight_host, opt.stau_host, uT, st.u_linT.contiguous(),
             st.vec_oldT.contiguous())
 
 

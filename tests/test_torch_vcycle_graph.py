@@ -16,13 +16,13 @@ as in the eager cycle and the result is the eager cycle's to the bit, in
 both forms (the whole cycle around a dense LU; the legs down and up
 around an iterated coarse solve); a new capture when a level's state, a
 diagonal, a relaxation factor, a number passed by value or the source's
-shape changes, or after a rebuild; none otherwise.  Which form each
-coarse solver gets, and that the CPU, sharded levels and distributed
-cycles stay eager.
+shape changes, or after a rebuild; none otherwise.  An operator's
+capture key follows each number it passes by value, and not an apply.
+Which form each coarse solver gets, and that the CPU, sharded levels and
+distributed cycles stay eager.
 """
 
 import os
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -50,6 +50,8 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "input", "channel.json")
 # counted by the cycle's caller or its graph bookkeeping, not by the cycle
 OWN = ("vcycle", "vcycle_graph_capture", "vcycle_graph_replay")
+# the numbers an operator passes its fused kernels by value
+BY_VALUE = ("weight_host", "stau_host", "nu", "c_1", "c_2")
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +204,7 @@ def _without_own(delta):
 def test_replay_equals_eager_cycle_and_counts(form, whole, legs, stub,
                                               monkeypatch):
     drv, pc = whole if form == "whole" else legs
-    monkeypatch.setattr(pc, "_graph_form", lambda src: form)
+    monkeypatch.setattr(pc, "_form", form)
     monkeypatch.setattr(pc, "_warm", False)
     monkeypatch.setattr(pc, "_captured", None)
     monkeypatch.setattr(pc, "_pool_owner", None)
@@ -214,7 +216,7 @@ def test_replay_equals_eager_cycle_and_counts(form, whole, legs, stub,
     n_graphs = 1 if form == "whole" else 2
     for k, seed in enumerate((2, 3, 4)):
         src = _source(drv, seed)
-        want, eager = _counted(pc._cycle_on, src)
+        want, eager = _counted(pc._eager_cycle, src)
         got, counted = _counted(pc.vmult, src)
         assert torch.equal(got, want)
         assert got.dtype == src.dtype and got.shape == src.shape
@@ -246,7 +248,7 @@ def test_replay_equals_eager_cycle_and_counts(form, whole, legs, stub,
 
 def test_recapture_on_what_the_capture_baked_in(whole, stub, monkeypatch):
     drv, pc = whole
-    monkeypatch.setattr(pc, "_graph_form", lambda src: "whole")
+    monkeypatch.setattr(pc, "_form", "whole")
     monkeypatch.setattr(pc, "_warm", True)
     monkeypatch.setattr(pc, "_captured", None)
     monkeypatch.setattr(pc, "_pool_owner", None)
@@ -256,7 +258,7 @@ def test_recapture_on_what_the_capture_baked_in(whole, stub, monkeypatch):
         return sum(e != "replay" for e in stub)
 
     def check(n_captures):
-        want = pc._cycle_on(src)
+        want = pc._eager_cycle(src)
         _, counted = _counted(pc.vmult, src)
         assert captures() == n_captures
         assert counted.get("vcycle_graph_capture", 0) == (
@@ -272,18 +274,21 @@ def test_recapture_on_what_the_capture_baked_in(whole, stub, monkeypatch):
     # a level's new state (a linearization point, a history, a weight)
     monkeypatch.setattr(op, "state", op.state._replace())
     check(2)
-    # a number passed by value to the fused kernels
-    monkeypatch.setattr(op, "_stau_host", op._stau_host + 1.0)
-    check(3)
-    monkeypatch.setattr(op, "_stau_host", op._stau_host - 1.0)
-    check(4)
+    # each number passed by value to the fused kernels
+    n = 2
+    for name in BY_VALUE:
+        monkeypatch.setattr(op, name, getattr(op, name) + 1.0)
+        check(n + 1)
+        monkeypatch.setattr(op, name, getattr(op, name) - 1.0)
+        check(n + 2)
+        n += 2
     # the smoother's diagonals and relaxation factors
     monkeypatch.setattr(pc, "inv_diags", [None if d is None else d.clone()
                                           for d in pc.inv_diags])
-    check(5)
+    check(n + 1)
     monkeypatch.setattr(pc, "omegas", [None if w is None else w.clone()
                                        for w in pc.omegas])
-    check(6)
+    check(n + 2)
     # the source's shape
     flat = src.reshape(-1)
     before = captures()
@@ -301,18 +306,32 @@ def test_recapture_on_what_the_capture_baked_in(whole, stub, monkeypatch):
     assert stub[-2] == ("capture", ("pool", id(pool_owner)))
 
 
-def test_graph_forms(whole, legs):
-    cuda = SimpleNamespace(is_cuda=True)
-    cpu = SimpleNamespace(is_cuda=False)
-    _, pc = whole
-    assert pc._graph_form(cuda) == "whole"
-    assert pc._graph_form(cpu) is None
+@pytest.mark.parametrize("name", BY_VALUE)
+def test_operator_capture_key(name, whole, monkeypatch):
+    """An operator's capture key changes with each number it passes its
+    fused kernels by value, and not with an apply."""
+    drv, pc = whole
+    op = pc.level_ops[-1]
+    (state,), numbers = op.capture_key()
+    op.vmult(_source(drv, 9).to(op.dtype))
+    (again,), same = op.capture_key()
+    assert again is state and same == numbers
+    monkeypatch.setattr(op, name, getattr(op, name) + 0.5)
+    (again,), changed = op.capture_key()
+    assert again is state and changed != numbers
+    assert [a == b for a, b in zip(changed, numbers)] == [
+        k != name for k in BY_VALUE]
 
-    def form(solver, iterate, n_levels=3, sharded=False, distributed=False):
-        p = SimpleNamespace(coarse_grid_solver=solver,
-                            coarse_grid_iterate=iterate, n_levels=n_levels,
-                            _sharded=sharded, distributed=distributed)
-        return gmg.PreconditionerGMG._graph_form(p, cuda)
+
+def test_graph_forms(whole, legs):
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    _, pc = whole
+    assert pc._form is None
+    assert gmg.graph_form(cuda, False, pc.coarse_grid_solver,
+                          pc.coarse_grid_iterate, pc.n_levels) == "whole"
+
+    def form(solver, iterate, n_levels=3, sharded=False, device=cuda):
+        return gmg.graph_form(device, sharded, solver, iterate, n_levels)
 
     assert form("direct", False) == form("AMG", False) == "whole"
     assert form("identity", False) == form("identity", True) == "whole"
@@ -320,7 +339,10 @@ def test_graph_forms(whole, legs):
     assert form("ILU", False) == form("ILU", True) == "legs"
     assert form("AMG", True, n_levels=1) is None
     assert form("direct", False, n_levels=1) == "whole"
+    # sharded levels, and the distributed cycle on them
     assert form("direct", False, sharded=True) is None
-    assert form("direct", False, distributed=True) is None
+    assert form("direct", False, device=cpu) is None
     _, pc = legs
-    assert pc._graph_form(cuda) == "legs"
+    assert pc._form is None
+    assert gmg.graph_form(cuda, False, pc.coarse_grid_solver,
+                          pc.coarse_grid_iterate, pc.n_levels) == "legs"

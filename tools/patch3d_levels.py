@@ -122,7 +122,7 @@ def levels(no_fine):
         op.update_weight()
         sw = op._fast
         out.append((f"sphere_amg level {level}", sw.tables,
-                    dict(weight=op._weight_host, stau=op._stau_host,
+                    dict(weight=op.weight_host, stau=op.stau_host,
                          nu=sw.nu, c1=sw.c1, c2=sw.c2),
                     (op.consider_time_derivative,
                      op.cell_wise_stabilization)))
@@ -132,7 +132,7 @@ def levels(no_fine):
         op, _, _ = bench_gpu.build_sphere(4, 2, "cuda")
         sw = op._fast
         out.append(("bench_gpu --sphere 4 2", sw.tables,
-                    dict(weight=op._weight_host, stau=op._stau_host,
+                    dict(weight=op.weight_host, stau=op.stau_host,
                          nu=sw.nu, c1=sw.c1, c2=sw.c2),
                     (False, op.cell_wise_stabilization)))
     return out

@@ -11,7 +11,8 @@ reported with its counters and seconds, as a window's solve); then,
 after each of two rebuilds (the levels linearized at the solution plus a
 perturbation, and ``initialize``), ``--inputs`` seeded sources through
 the preconditioner's ``vmult`` (a replay; the first after a rebuild
-captures) and through the eager recursion (``_vcycle`` under ``_cycle_on``), compared bit for bit,
+captures) and through the eager cycle (``_eager_cycle``: the same legs down
+and up around the coarse step, uncaptured), compared bit for bit,
 with the counters each counted; the seconds of every capture (host
 issue, and ``capture_end``, which instantiates the graph); the memory
 allocated and its peak around the first capture of the process; the
@@ -130,7 +131,7 @@ def check(name: str, n_inputs: int, seed: int) -> dict:
                     "host_sync", "vcycle", "vcycle_graph_capture",
                     "vcycle_graph_replay", "level_apply", "fine_apply",
                     "amg_cycle", "coarse_gmres_it", "rebuild")}))
-        form = pc._graph_form(drv.solution.current)
+        form = pc._form
         rebuilds = []
         for r in range(2):
             u = drv.solution.current
@@ -145,7 +146,7 @@ def check(name: str, n_inputs: int, seed: int) -> dict:
                 with timer("vcycle_graph_check"):
                     got, replayed = _counted(pc.vmult, src)
                 with timer("vcycle_graph_check"):
-                    want, eager = _counted(pc._cycle_on, src)
+                    want, eager = _counted(pc._eager_cycle, src)
                 torch.cuda.synchronize()
                 same = bool(torch.equal(_bits(got), _bits(want)))
                 own = {k2: replayed.pop(k2, 0) for k2 in OWN}
@@ -159,7 +160,7 @@ def check(name: str, n_inputs: int, seed: int) -> dict:
         src = torch.randn(drv.solution.current.shape, generator=gen,
                           device="cuda", dtype=drv.solution.current.dtype)
         ms = dict(replay=_timed_ms(pc.vmult, src, 20),
-                  eager=_timed_ms(pc._cycle_on, src, 20))
+                  eager=_timed_ms(pc._eager_cycle, src, 20))
     finally:
         gmg.capture_graph = capture_graph
         cls.capture_end = capture_end
